@@ -1,0 +1,231 @@
+"""The port's attention kernels' plain versions against the reference.
+
+Every case draws its inputs from a numpy seed and feeds the same arrays
+to ``repro_torch.kernels.ref`` (and ``repro_torch.kernels.ops`` on CPU
+tensors, which dispatches there), ``repro.kernels.ref``, and the Pallas
+kernel in ``interpret=True`` mode as ``tests/test_kernels.py`` runs it.
+Tolerance: f32 atol 2e-5 / rtol 2e-4, the reference's own kernel
+tolerance (the two frameworks sum in different orders).  The CUDA
+kernels themselves are held against these plain versions on the card by
+``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.chunked_prefill import (
+    chunked_prefill_attention,
+    chunked_prefill_paged,
+)
+from repro.kernels.paged_attention import paged_attention
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels.chunked_prefill import flash_prefill
+from repro_torch.kernels.chunked_prefill import (
+    chunked_prefill_paged as chunked_prefill_paged_kernel,
+)
+from repro_torch.kernels.paged_attention import paged_decode
+
+torch.set_num_threads(2)
+TOL = dict(atol=2e-5, rtol=2e-4)
+
+
+def _rand(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _close(got_torch, want_jax):
+    np.testing.assert_allclose(got_torch.numpy(), np.asarray(want_jax), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# dense prefill (K4: chunked_prefill.py::_kernel)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize(
+    "b,sq,skv,h,hkv,d,dv,off,win,causal",
+    [
+        (2, 16, 16, 4, 2, 8, 8, 0, None, True),      # GQA, square
+        (1, 8, 24, 4, 4, 16, 16, 16, None, True),    # prefix offset
+        (2, 8, 20, 4, 1, 8, 8, 12, 6, True),         # MQA + sliding window
+        (1, 12, 12, 2, 2, 8, 8, 0, None, False),     # non-causal
+        (1, 8, 16, 4, 2, 12, 8, 8, None, True),      # Dq != Dv (MLA shape)
+    ],
+)
+def test_flash_attention_plain_matches_reference(b, sq, skv, h, hkv, d, dv,
+                                                 off, win, causal):
+    rng = np.random.default_rng(sq * 100 + skv)
+    q, k = _rand(rng, (b, sq, h, d)), _rand(rng, (b, skv, hkv, d))
+    v = _rand(rng, (b, skv, hkv, dv))
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal,
+                              q_offset=off, sliding_window=win)
+    want = jref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=causal, q_offset=off,
+                              sliding_window=win)
+    _close(got, want)
+    pallas = chunked_prefill_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        q_offset=off, sliding_window=win, interpret=True)
+    _close(got, pallas)
+
+
+# ---------------------------------------------------------------------------
+# paged decode (K1 contiguous pages, K2 block tables)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize(
+    "b,p,page,h,hkv,d,lengths",
+    [
+        (2, 3, 8, 4, 2, 8, [5, 24]),        # GQA, partial + full
+        (3, 2, 16, 8, 1, 16, [0, 1, 17]),   # MQA, zero-length row
+        (2, 4, 4, 2, 2, 8, [16, 9]),        # MHA, ragged last page
+    ],
+)
+@pytest.mark.parametrize("tables", [False, True])
+def test_paged_attention_plain_matches_reference(b, p, page, h, hkv, d,
+                                                 lengths, tables):
+    rng = np.random.default_rng(b * 10 + p)
+    q = _rand(rng, (b, h, d))
+    lens = np.asarray(lengths, np.int32)
+    if tables:
+        n = b * p + 3
+        kp, vp = _rand(rng, (n, page, hkv, d)), _rand(rng, (n, page, hkv, d))
+        bt = rng.permutation(n)[: b * p].reshape(b, p).astype(np.int32)
+        got = ops.paged_attention(
+            torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+            torch.from_numpy(lens), block_tables=torch.from_numpy(bt))
+        args = (jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                jnp.asarray(lens))
+        want = jref.paged_attention_ref(*args, block_tables=jnp.asarray(bt))
+        pallas = paged_attention(*args, block_tables=jnp.asarray(bt),
+                                 interpret=True)
+    else:
+        kp = _rand(rng, (b, p, page, hkv, d))
+        vp = _rand(rng, (b, p, page, hkv, d))
+        got = ops.paged_attention(
+            torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+            torch.from_numpy(lens))
+        args = (jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                jnp.asarray(lens))
+        want = jref.paged_attention_ref(*args)
+        pallas = paged_attention(*args, interpret=True)
+    _close(got, want)
+    _close(got, pallas)
+    for i, n_tok in enumerate(lengths):
+        if n_tok == 0:
+            assert got[i].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("tables", [False, True])
+def test_paged_attention_gqa_head_mapping(tables):
+    """Query head h reads kv head h // (H / Hkv): V is constant per kv
+    head, so any mapping mistake shifts the output by >= 1."""
+    b, p, page, h, hkv, d = 1, 2, 8, 8, 4, 4
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(_rand(rng, (b, h, d)))
+    k = torch.from_numpy(_rand(rng, (b, p, page, hkv, d)))
+    v = torch.arange(hkv, dtype=torch.float32)[None, None, None, :, None]
+    v = v.expand(b, p, page, hkv, d).contiguous()
+    lens = torch.tensor([11], dtype=torch.int32)
+    if tables:
+        bt = torch.tensor([[1, 0]], dtype=torch.int32)
+        out = ops.paged_attention(q, k[0], v[0], lens, block_tables=bt)
+    else:
+        out = ops.paged_attention(q, k, v, lens)
+    rep = h // hkv
+    for ih in range(h):
+        np.testing.assert_allclose(out[0, ih].numpy(), ih // rep, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# paged chunked prefill (K3: chunked_prefill.py::_kernel_paged)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize(
+    "b,sq,h,hkv,d,page,p_max,offs,lens",
+    [
+        (2, 12, 4, 2, 8, 8, 4, [5, 17], [17, 29]),  # offsets mid-page
+        (2, 8, 4, 4, 16, 8, 3, [8, 16], [16, 24]),  # page-aligned chunks
+        (2, 8, 2, 1, 8, 8, 3, [0, 3], [0, 11]),     # zero-length row
+        (1, 1, 4, 2, 16, 8, 4, [15], [16]),         # one-token replay
+    ],
+)
+def test_chunked_prefill_paged_plain_matches_reference(b, sq, h, hkv, d, page,
+                                                       p_max, offs, lens):
+    rng = np.random.default_rng(sq + d)
+    n = b * p_max + 2
+    q = _rand(rng, (b, sq, h, d))
+    kp, vp = _rand(rng, (n, page, hkv, d)), _rand(rng, (n, page, hkv, d))
+    bt = rng.permutation(n)[: b * p_max].reshape(b, p_max).astype(np.int32)
+    offs, lens = np.asarray(offs, np.int32), np.asarray(lens, np.int32)
+    got = ops.chunked_prefill_paged(
+        *map(torch.from_numpy, (q, kp, vp, lens, bt, offs)))
+    jargs = tuple(map(jnp.asarray, (q, kp, vp, lens, bt, offs)))
+    _close(got, jref.chunked_prefill_paged_ref(*jargs))
+    _close(got, chunked_prefill_paged(*jargs, interpret=True))
+    for i in range(b):
+        if lens[i] == 0:
+            assert got[i].abs().max().item() == 0.0
+
+
+def test_chunked_prefill_paged_matches_dense_gather():
+    """Reading the prefix in place through the block table == gathering
+    the pages into sequence order and running dense attention with the
+    chunk's offset."""
+    rng = np.random.default_rng(3)
+    b, sq, h, hkv, d, page, p_max = 1, 12, 4, 2, 8, 8, 4
+    q = torch.from_numpy(_rand(rng, (b, sq, h, d)))
+    kp = torch.from_numpy(_rand(rng, (8, page, hkv, d)))
+    vp = torch.from_numpy(_rand(rng, (8, page, hkv, d)))
+    bt = torch.tensor([[6, 2, 5, 0]], dtype=torch.int32)
+    off, kv_len = 5, 5 + sq
+    got = ops.chunked_prefill_paged(
+        q, kp, vp, torch.tensor([kv_len], dtype=torch.int32), bt,
+        torch.tensor([off], dtype=torch.int32))
+    k_seq = kp[bt[0].long()].reshape(1, p_max * page, hkv, d)[:, :kv_len]
+    v_seq = vp[bt[0].long()].reshape(1, p_max * page, hkv, d)[:, :kv_len]
+    want = ops.flash_attention(q, k_seq, v_seq, causal=True, q_offset=off)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the kernel wrappers and their build
+# ---------------------------------------------------------------------------
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A wrapper launches its kernel on CUDA tensors or raises; the plain
+    version is reached only through ``ops`` on CPU tensors."""
+    q = torch.zeros(1, 2, 8)
+    pool = torch.zeros(2, 4, 2, 8)
+    lens = torch.ones(1, dtype=torch.int32)
+    bt = torch.zeros(1, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_decode(q, pool, pool, lens, bt)
+    with pytest.raises(ValueError, match="CUDA"):
+        chunked_prefill_paged_kernel(q[:, None], pool, pool, lens, bt, lens)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_prefill(q[:, None], q[:, None], q[:, None])
+    with pytest.raises(NotImplementedError):
+        flash_prefill(q[:, None], q[:, None], q[:, None], lengths=lens)
+    assert paged_decode.launches == 0
+    assert chunked_prefill_paged_kernel.launches == 0
+    assert flash_prefill.launches == 0
+
+
+def test_build_names_every_source_and_entry_point():
+    """Each csrc/*.cu builds into its own library whose name carries the
+    source hash, and every C entry point it defines has a ctypes
+    signature (pointers and the stream as c_void_p)."""
+    sources = {f.stem for f in _build.CSRC.glob("*.cu")}
+    assert sources == set(_build.SIGNATURES)
+    for name, fns in _build.SIGNATURES.items():
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        for fn, argtypes in fns.items():
+            assert f'extern "C" int {fn}(' in text
+            assert argtypes[-1] is _build.P          # the stream
+        path = _build.library_path(name)
+        assert path.name.startswith(name + "-") and path.suffix == ".so"
+        assert "build" in path.parts
+    assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
