@@ -10,20 +10,28 @@ Phases (each raises on failure; nothing is caught):
 2. build: every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc`` for
    ``sm_90a``, one process per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   at the main path's shapes (TinyLlama, bf16 and f32) and at edge cases,
-   with its time, the plain version's time, its bound and, for the dense
-   prefill and the contiguous decode pool,
-   ``scaled_dot_product_attention``'s time as a yardstick only;
+   at the main paths' shapes (TinyLlama's attention, mamba2-1.3b's SSD
+   scan; bf16 and f32) and at edge cases, with its time, the plain
+   version's time, its bound and, for the dense prefill and the
+   contiguous decode pool, ``scaled_dot_product_attention``'s time as a
+   yardstick only;
 4. model: TinyLlama's widths at 2 layers, f32, seeded: ``forward``,
    ``prefill_chunk_paged`` and ``decode_step_paged`` logits on the card
-   against the same on the CPU;
+   against the same on the CPU.  Then mamba2-1.3b's widths at 2 layers,
+   f32: ``forward`` logits and state on the card against the CPU, a
+   resume from the snapshot at token 256 against the uninterrupted
+   forward, and ``decode_step`` from that snapshot against the prefill
+   logits of the same tokens;
 5. serve: full TinyLlama (22 layers, bf16, seeded random weights) behind
    the paged ``Engine``: 8 requests with a shared 256-token prefix in
    three modes (chunked contiguous pool, stop-the-world admission, a
-   free-list pool small enough to preempt).  Launch counters are zeroed
-   just before and read just after; every kernel must have launched.
-   Then a decode step's breakdown: eager host wall time, device busy
-   time in a ``torch.profiler`` trace, and the CUDA-graph-replayed step.
+   free-list pool small enough to preempt).  Then full mamba2-1.3b (48
+   layers, bf16, seeded random weights) behind the same ``Engine``, which
+   serves it through the dense runtime: the same 8 requests.  For each
+   model the launch counters are zeroed just before and read just after;
+   every kernel of its path must have launched.  After each, a decode
+   step's breakdown: eager host wall time, device busy time in a
+   ``torch.profiler`` trace, and the CUDA-graph-replayed step.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -60,7 +68,15 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
 F32_TOL = dict(atol=2e-5, rtol=2e-4)
 BF16_TOL = {"paged_decode": dict(atol=8e-3, rtol=1e-2),
             "chunked_prefill_paged": dict(atol=1.2e-2, rtol=1e-2),
-            "flash_prefill": dict(atol=1.2e-2, rtol=1e-2)}
+            "flash_prefill": dict(atol=1.2e-2, rtol=1e-2),
+            # the scan and its plain version both compute in f32 from the
+            # same bf16 inputs and round y to bf16 once: where the f32
+            # values straddle a rounding boundary they differ by one bf16
+            # step, at most 2^-7 of |y|
+            "ssd_chunk_scan": dict(atol=1e-2, rtol=1e-2)}
+# the SSD scan's final state is f32 in every dtype: the reference's limit
+# for it (tests/test_kernels.py)
+SSD_STATE_TOL = dict(atol=1e-4, rtol=1e-3)
 # model logits, card vs CPU at f32 (TF32 off): cuBLAS and the CPU BLAS sum
 # each matmul in a different order, and the kernels' online softmax
 # differs from the plain softmax in the last bits; 2 layers at d 2048
@@ -296,6 +312,42 @@ def sdpa_decode(args):
                         enable_gqa=True)[:, :, 0]
 
 
+def ssd_case(gen, dtype, device, *, b, l, chunk, h=64, p=64, g=1, n=128,
+             with_init=False):
+    """Inputs of one SSD scan (mamba2-1.3b's widths by default) with the
+    reference kernel test's step and decay ranges; the bytes it must move
+    and the operations this run's data needs: C.B^T once per group and
+    chunk and the intra-chunk product per head, over the causal triangle
+    only; the off-diagonal term for chunks whose incoming state is not
+    zero; the state update for every token."""
+    x = torch.randn(b, l, h, p, generator=gen, device=device).to(dtype)
+    dt = torch.rand(b, l, h, generator=gen, device=device) * 0.19 + 0.01
+    a = -(torch.rand(h, generator=gen, device=device) * 1.5 + 0.5)
+    bm = torch.randn(b, l, g, n, generator=gen, device=device).to(dtype)
+    cm = torch.randn(b, l, g, n, generator=gen, device=device).to(dtype)
+    init = (torch.randn(b, h, p, n, generator=gen, device=device)
+            if with_init else None)
+    nc = l // chunk
+    tri = chunk * (chunk + 1) // 2
+    warm_chunks = nc if with_init else nc - 1
+    flops = (2 * b * nc * tri * (g * n + h * p)
+             + 2 * b * h * p * n * (warm_chunks * chunk + l))
+    n_bytes = (nbytes(x, dt, a, bm, cm) + (nbytes(init) if with_init else 0)
+               + nbytes(x) + b * h * p * n * 4)
+    return (x, dt, a, bm, cm, init, chunk), n_bytes, flops
+
+
+def run_ssd(args):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan
+
+    x, dt, a, bm, cm, init, chunk = args
+    return (lambda: ssd_chunk_scan(x, dt, a, bm, cm, chunk_size=chunk,
+                                   initial_state=init),
+            lambda: ref.ssd_scan_ref(x, dt, a, bm, cm, chunk_size=chunk,
+                                     initial_state=init))
+
+
 def phase_kernels(device, timer: Timer) -> dict:
     """Every kernel against its plain version; returns the main-path
     (bf16) record of each kernel."""
@@ -363,13 +415,54 @@ def phase_kernels(device, timer: Timer) -> dict:
              lambda g, dt: flash_case(g, dt, device, b=1, sq=70, skv=90,
                                       off=0, causal=False, d=96, dv=64),
              run_flash),
+            # mamba2-1.3b prefills one request at a time: a 347-369 token
+            # prompt pads to 3 chunks of 128 (no initial state when cold,
+            # a snapshot's state on a SkyMemory hit)
+            ("ssd_chunk_scan", f"{tag} B1 L384 H64 P64 G1 N128 Q128", dtype,
+             True,
+             lambda g, dt: ssd_case(g, dt, device, b=1, l=384, chunk=128),
+             run_ssd),
+            ("ssd_chunk_scan", f"{tag} B1 L384 Q128, initial state", dtype,
+             False,
+             lambda g, dt: ssd_case(g, dt, device, b=1, l=384, chunk=128,
+                                    with_init=True),
+             run_ssd),
+            ("ssd_chunk_scan", f"{tag} B4 L384 Q128, initial state", dtype,
+             False,
+             lambda g, dt: ssd_case(g, dt, device, b=4, l=384, chunk=128,
+                                    with_init=True),
+             run_ssd),
+            ("ssd_chunk_scan", f"{tag} ragged single chunk L37 Q37", dtype,
+             False,
+             lambda g, dt: ssd_case(g, dt, device, b=1, l=37, chunk=37),
+             run_ssd),
+            ("ssd_chunk_scan", f"{tag} chunk 1, L3, initial state", dtype,
+             False,
+             lambda g, dt: ssd_case(g, dt, device, b=1, l=3, chunk=1,
+                                    with_init=True),
+             run_ssd),
+            ("ssd_chunk_scan", f"{tag} G2 B2 L256 Q64, initial state",
+             dtype, False,
+             lambda g, dt: ssd_case(g, dt, device, b=2, l=256, chunk=64,
+                                    g=2, with_init=True),
+             run_ssd),
         ]
     yardsticks = {"paged_decode": sdpa_decode, "flash_prefill": sdpa_flash}
     for name, label, dtype, main, make, runner in cases:
         args, n_bytes, flops = make(gen, dtype)
         kern, plain = runner(args)
         want = plain()
-        err, worst = _check(f"{name} [{label}]", name, kern(), want)
+        got = kern()
+        if isinstance(want, tuple):
+            # the SSD scan: y, then its f32 final state at its own limit
+            err, worst = _check(f"{name} [{label}] y", name, got[0], want[0])
+            s_err, s_worst = _check(f"{name} [{label}] final state", name,
+                                    got[1], want[1], tol=SSD_STATE_TOL)
+            log(f"[kernel] {name} [{label}]: final state max_abs_err "
+                f"{s_err:.3e} ({s_worst:.2f} x limit)")
+            err, worst = max(err, s_err), max(worst, s_worst)
+        else:
+            err, worst = _check(f"{name} [{label}]", name, got, want)
         ms = timer.ms(kern)
         plain_ms = timer.ms(plain)
         bms, by = bound_ms(n_bytes, flops, dtype)
@@ -393,7 +486,8 @@ def phase_kernels(device, timer: Timer) -> dict:
     log("[kernel] library_ms is null for the block-table decode cases and "
         "for chunked_prefill_paged: no single PyTorch call computes "
         "attention through block tables with per-row lengths and offsets "
-        "(the gather would be a second call)")
+        "(the gather would be a second call); and for ssd_chunk_scan: no "
+        "PyTorch call computes the SSD chunked scan")
     return records
 
 
@@ -401,14 +495,15 @@ def phase_kernels(device, timer: Timer) -> dict:
 # phase 4: the model on the card against the CPU
 # ---------------------------------------------------------------------------
 
-def _close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+def _close(name: str, got: torch.Tensor, want: torch.Tensor,
+           pair: str = "card vs CPU") -> float:
     got, want = got.float().cpu(), want.float().cpu()
     err = (got - want).abs()
     lim = MODEL_TOL["atol"] + MODEL_TOL["rtol"] * want.abs()
     if not torch.isfinite(got).all() or bool((err > lim).any()):
-        raise AssertionError(f"{name}: card vs CPU max abs err "
+        raise AssertionError(f"{name}: {pair} max abs err "
                              f"{err.max().item():.3e}")
-    log(f"[model] {name}: card vs CPU max abs err {err.max().item():.3e}")
+    log(f"[model] {name}: {pair} max abs err {err.max().item():.3e}")
     return err.max().item()
 
 
@@ -463,8 +558,47 @@ def phase_model(cfg, device, *, seed=0, prompt_len=200, page=128,
             lens = lens + 1
 
 
+def phase_ssm_model(cfg, device, *, seed=0, length=384, split=256,
+                    steps=8) -> None:
+    """mamba2 on the card against the CPU, a resume from a snapshot
+    against the uninterrupted forward, and the decode recurrence against
+    the chunked scan (the reference's
+    ``test_ssd_scan_equals_sequential_recurrence``, through the model)."""
+    from repro_torch.models.model import Model
+
+    gpu = Model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(seed))
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(3, cfg.vocab_size, (2, length)))
+    lg_g, st_g = gpu.forward(toks.to(device), collect_state=True)
+    lg_c, st_c = cpu.forward(toks, collect_state=True)
+    _close("mamba2 forward", lg_g, lg_c)
+    _close("mamba2 forward final state", st_g["ssm"]["state"],
+           st_c["ssm"]["state"])
+
+    _, snap = gpu.forward(toks[:, :split].to(device), collect_state=True)
+    lg_r, st_r = gpu.forward(toks[:, split:].to(device), q_offset=split,
+                             prefix_state=snap, collect_state=True)
+    same = "on the card"
+    _close(f"mamba2 resume from the snapshot at {split} vs uninterrupted",
+           lg_r, lg_g[:, split:], same)
+    _close("mamba2 resumed final state vs uninterrupted",
+           st_r["ssm"]["state"], st_g["ssm"]["state"], same)
+
+    cache = gpu.init_cache(2)
+    cache["ssm"]["conv"].copy_(snap["ssm"]["conv"])
+    cache["ssm"]["state"].copy_(snap["ssm"]["state"])
+    for i in range(steps):
+        lg = gpu.decode_step(cache, toks[:, split + i: split + i + 1]
+                             .to(device))
+        _close(f"mamba2 decode_step {i} vs prefill logits", lg[:, 0],
+               lg_g[:, split + i], same)
+
+
 # ---------------------------------------------------------------------------
-# phase 5: serve full TinyLlama
+# phase 5: serve full TinyLlama, then full mamba2-1.3b
 # ---------------------------------------------------------------------------
 
 PREFIX = ("SkyMemory caches transformer KV blocks on a LEO constellation; "
@@ -485,7 +619,8 @@ def make_requests(n: int = 8, max_new: int = 32):
     return reqs
 
 
-KERNELS = ("paged_decode", "chunked_prefill_paged", "flash_prefill")
+KERNELS = ("paged_decode", "chunked_prefill_paged", "flash_prefill",
+           "ssd_chunk_scan")
 
 
 def kernel_fns():
@@ -494,10 +629,19 @@ def kernel_fns():
         flash_prefill,
     )
     from repro_torch.kernels.paged_attention import paged_decode
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan
 
     return {"paged_decode": paged_decode,
             "chunked_prefill_paged": chunked_prefill_paged,
-            "flash_prefill": flash_prefill}
+            "flash_prefill": flash_prefill,
+            "ssd_chunk_scan": ssd_chunk_scan}
+
+
+def zero_launches() -> dict:
+    fns = kernel_fns()
+    for f in fns.values():
+        f.launches = 0
+    return fns
 
 
 def serve_mode(model, label: str, *, device, n_requests, max_new, **kw):
@@ -555,32 +699,26 @@ def _busy_ms(prof) -> float | None:
     return busy / 1e3
 
 
-def step_breakdown(model, device, *, batch=4, length=384, max_seq_len=1024,
-                   page=128, iters=20, repeats=5) -> dict:
-    """Where a decode step's time goes at the serving shape: the eager
-    step's host wall time (``repeats`` runs of ``iters`` steps: the host
-    clock is noisy), the device's busy time in a CUPTI trace
-    (``torch.profiler``) of ``iters`` eager steps and the idle share it
-    leaves, the same step replayed from a CUDA graph (its device time
-    without host launch gaps), and the attention kernel's share (22
-    launches per step).  Runs after the main path's launch counts were
-    read."""
+def _top_kernels(prof, iters: int, k: int = 6) -> list:
+    """The ``k`` device activities with the most time in a trace, as
+    ``[name, ms per step, launches per step]``."""
+    tot, cnt = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            tot[e.name] = tot.get(e.name, 0.0) + (e.time_range.end
+                                                 - e.time_range.start)
+            cnt[e.name] = cnt.get(e.name, 0) + 1
+    top = sorted(tot, key=tot.get, reverse=True)[:k]
+    return [[n[:80], tot[n] / 1e3 / iters, cnt[n] / iters] for n in top]
+
+
+def time_step(step, device, *, iters=20, repeats=5) -> dict:
+    """Where one decode step's time goes: the eager step's host wall time
+    (``repeats`` runs of ``iters`` steps: the host clock is noisy), the
+    device's busy time in a CUPTI trace (``torch.profiler``) of ``iters``
+    eager steps and the idle share it leaves, and the same step replayed
+    from a CUDA graph (its device time without host launch gaps)."""
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.kernels.paged_attention import paged_decode
-
-    cache = model.init_paged_cache(num_slots=batch, page_size=page,
-                                   max_seq_len=max_seq_len)
-    gen = torch.Generator(device=device).manual_seed(1)
-    cache.k_pool.normal_(generator=gen)
-    cache.v_pool.normal_(generator=gen)
-    toks = torch.randint(3, model.cfg.vocab_size, (batch, 1), device=device,
-                         generator=gen, dtype=torch.int32)
-    lens = torch.full((batch,), length, dtype=torch.int32, device=device)
-
-    def step():
-        return model.decode_step_paged(cache.k_pool, cache.v_pool, toks,
-                                       None, lens, contiguous=True)
 
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
@@ -621,32 +759,70 @@ def step_breakdown(model, device, *, batch=4, length=384, max_seq_len=1024,
         graph.replay()
     b.record()
     b.synchronize()
-    graph_ms = a.elapsed_time(b) / iters
     if not torch.isfinite(out.float()).all():
         raise AssertionError("decode step replayed from a graph: non-finite")
+    if busy_ms is None:
+        log("[step] the profiler trace holds no device events: device busy "
+            "time and idle share not measured")
+    return dict(eager_step_ms=eager_ms, eager_step_ms_runs=eager,
+                traced_step_ms=traced_ms, traced_device_busy_ms=busy_ms,
+                # idle share of the traced steps, and of the untraced
+                # median step if the device works as long there (the
+                # tracer slows the host, not the device)
+                traced_idle_share=(None if busy_ms is None
+                                   else 1.0 - busy_ms / traced_ms),
+                eager_idle_share=(None if busy_ms is None
+                                  else 1.0 - busy_ms / eager_ms),
+                graph_step_ms=a.elapsed_time(b) / iters,
+                top_device_kernels=_top_kernels(prof, iters))
 
+
+def step_breakdown(model, device, *, batch=4, length=384, max_seq_len=1024,
+                   page=128) -> dict:
+    """TinyLlama's paged decode step at the serving shape (``time_step``),
+    and the attention kernel's share of the graph-replayed step (22
+    launches per step).  Runs after the main path's launch counts were
+    read."""
+    from repro_torch.kernels.paged_attention import paged_decode
+
+    cache = model.init_paged_cache(num_slots=batch, page_size=page,
+                                   max_seq_len=max_seq_len)
+    gen = torch.Generator(device=device).manual_seed(1)
+    cache.k_pool.normal_(generator=gen)
+    cache.v_pool.normal_(generator=gen)
+    toks = torch.randint(3, model.cfg.vocab_size, (batch, 1), device=device,
+                         generator=gen, dtype=torch.int32)
+    lens = torch.full((batch,), length, dtype=torch.int32, device=device)
+    row = dict(batch=batch, length=length, **time_step(
+        lambda: model.decode_step_paged(cache.k_pool, cache.v_pool, toks,
+                                        None, lens, contiguous=True),
+        device))
     shape = (batch, max_seq_len // page, page, model.cfg.num_kv_heads,
              model.cfg.head_dim)
     q = torch.randn(batch, model.cfg.num_heads, model.cfg.head_dim,
                     device=device, generator=gen).to(cache.k_pool.dtype)
     k, v = cache.k_pool[0].reshape(shape), cache.v_pool[0].reshape(shape)
     attn_ms = Timer(device).ms(lambda: paged_decode(q, k, v, lens + 1))
-    row = dict(batch=batch, length=length, eager_step_ms=eager_ms,
-               eager_step_ms_runs=eager,
-               traced_step_ms=traced_ms, traced_device_busy_ms=busy_ms,
-               # idle share of the traced steps, and of the untraced median
-               # step if the device works as long there (the tracer slows
-               # the host, not the device)
-               traced_idle_share=(None if busy_ms is None
-                                  else 1.0 - busy_ms / traced_ms),
-               eager_idle_share=(None if busy_ms is None
-                                 else 1.0 - busy_ms / eager_ms),
-               graph_step_ms=graph_ms, paged_decode_ms=attn_ms,
+    row.update(paged_decode_ms=attn_ms,
                attention_share_of_graph_step=model.cfg.num_layers * attn_ms
-               / graph_ms)
-    if busy_ms is None:
-        log("[step] the profiler trace holds no device events: device busy "
-            "time and idle share not measured")
+               / row["graph_step_ms"])
+    log(f"[step] {json.dumps(row)}")
+    return row
+
+
+def ssm_step_breakdown(model, device, *, batch=4) -> dict:
+    """mamba2's dense decode step at the serving batch (``time_step``)
+    over a cache of random states.  The step runs no hand-written kernel:
+    the single-token recurrence is plain PyTorch, as in the reference.
+    Runs after the main path's launch counts were read."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    cache = model.init_cache(batch)
+    cache["ssm"]["conv"].normal_(generator=gen)
+    cache["ssm"]["state"].normal_(generator=gen)
+    toks = torch.randint(3, model.cfg.vocab_size, (batch, 1), device=device,
+                         generator=gen, dtype=torch.int32)
+    row = dict(model=model.cfg.name, batch=batch,
+               **time_step(lambda: model.decode_step(cache, toks), device))
     log(f"[step] {json.dumps(row)}")
     return row
 
@@ -667,9 +843,7 @@ def phase_serve(cfg, device, *, seed=0, n_requests=8, max_new=32,
     # warm-up (library loads, allocator, cuBLAS handles); not counted
     serve_mode(model, "warm-up", **{**common, "n_requests": 2})
 
-    fns = kernel_fns()
-    for f in fns.values():
-        f.launches = 0
+    fns = zero_launches()
     rows, streams = [], {}
     for label, kw in (("chunked-contiguous", {}),
                       ("stop-the-world", {"chunk_tokens": 0}),
@@ -682,10 +856,8 @@ def phase_serve(cfg, device, *, seed=0, n_requests=8, max_new=32,
 
     if rows[2]["preemptions"] <= 0:
         raise AssertionError("free-list mode did not preempt")
-    missing = [k for k, n in counts.items() if n <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+    _require_launched(counts, ("paged_decode", "chunked_prefill_paged",
+                               "flash_prefill"))
     base = streams["chunked-contiguous"]
     for label, toks in streams.items():
         same = sum(a == b for a, b in zip(base, toks))
@@ -694,6 +866,39 @@ def phase_serve(cfg, device, *, seed=0, n_requests=8, max_new=32,
             "differently)")
     step_breakdown(model, device, max_seq_len=max_seq_len, page=block_size,
                    batch=max_batch)
+    return counts
+
+
+def _require_launched(counts: dict, path: tuple) -> None:
+    missing = [k for k in path if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing}")
+
+
+def phase_ssm_serve(cfg, device, *, seed=0, n_requests=8, max_new=32,
+                    max_seq_len=1024, max_batch=4) -> dict:
+    """Full mamba2-1.3b behind ``Engine``, which serves it through the
+    dense runtime: each request prefills alone (one SSD scan per layer),
+    then the batch decodes over the stacked state cache."""
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(seed))
+    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.dtype}, init {time.perf_counter() - t0:.1f} s")
+    common = dict(device=device, n_requests=n_requests, max_new=max_new,
+                  max_seq_len=max_seq_len, max_batch=max_batch)
+    serve_mode(model, f"{cfg.name} warm-up", **{**common, "n_requests": 2})
+
+    fns = zero_launches()
+    serve_mode(model, f"{cfg.name} dense runtime", **common)
+    counts = {k: f.launches for k, f in fns.items()}
+    log(f"[serve] {cfg.name} launches: {counts} ({cfg.num_layers} "
+        f"ssd_chunk_scan per prefill, {n_requests} prefills)")
+    _require_launched(counts, ("ssd_chunk_scan",))
+    ssm_step_breakdown(model, device, batch=max_batch)
     return counts
 
 
@@ -721,13 +926,18 @@ def main() -> int:
     log(f"[phase] kernels {time.perf_counter() - t0:.1f} s")
 
     tiny = get_config("skymemory-tinyllama")
+    mamba = get_config("mamba2-1.3b")
     t0 = time.perf_counter()
     phase_model(tiny.replace(num_layers=2, dtype="float32"), device)
+    phase_ssm_model(mamba.replace(num_layers=2, dtype="float32"), device)
     log(f"[phase] model {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     counts = phase_serve(tiny, device)
     log(f"[phase] serve {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts["ssd_chunk_scan"] = phase_ssm_serve(mamba, device)["ssd_chunk_scan"]
+    log(f"[phase] serve {mamba.name} {time.perf_counter() - t0:.1f} s")
 
     meta = {
         "paged_decode": ("src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -737,6 +947,8 @@ def main() -> int:
             "src/repro/kernels/chunked_prefill.py:142"),
         "flash_prefill": ("src/repro_torch/kernels/csrc/chunked_prefill.cu",
                           "src/repro/kernels/chunked_prefill.py:28"),
+        "ssd_chunk_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                           "src/repro/kernels/ssd_scan.py:24"),
     }
     kernels = []
     for k in KERNELS:

@@ -2,8 +2,9 @@
 
 The port's own copy of ``repro/configs/__init__.py``'s ``get_config`` and
 ``smoke_config``.  The registry holds the paper's own model,
-``skymemory-tinyllama``; the reference's other architectures arrive with
-the families that serve them (see ROADMAP.md).
+``skymemory-tinyllama``, and the attention-free ``mamba2-1.3b``; the
+reference's other architectures arrive with the families that serve them
+(see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 ARCH_IDS = [
+    "mamba2-1.3b",           # attention-free SSD, the dense runtime
     "skymemory-tinyllama",   # the paper's own testbed model (§5)
 ]
 

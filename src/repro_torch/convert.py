@@ -39,13 +39,11 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> Model:
         put(model.embed.unembed, tree["embed"]["unembed"])
     blocks = tree["blocks"]
     for l, blk in enumerate(model.blocks):
-        for norm in ("norm1", "norm2"):
-            for name, param in getattr(blk, norm).named_parameters():
-                put(param, blocks[norm][name][l])
-        for name, param in blk.attn.named_parameters():
-            put(param, blocks["attn"][name][l])
-        for name, param in blk.mlp.named_parameters():
-            put(param, blocks["mlp"][name][l])
+        # a block's children are named as the reference's subtrees:
+        # norm1/attn/norm2/mlp (dense) or norm1/ssd (SSM)
+        for part, mod in blk.named_children():
+            for name, param in mod.named_parameters():
+                put(param, blocks[part][name][l])
     for name, param in model.final_norm.named_parameters():
         put(param, tree["final_norm"][name])
     return model

@@ -45,6 +45,10 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
            (P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, P)
            for t in ("f32", "bf16")},
     },
+    "ssd_scan": {
+        f"ssd_scan_{t}": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P)
+        for t in ("f32", "bf16")
+    },
 }
 
 

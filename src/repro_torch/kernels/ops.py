@@ -15,6 +15,7 @@ from repro_torch.kernels.chunked_prefill import (
 )
 from repro_torch.kernels.chunked_prefill import flash_prefill
 from repro_torch.kernels.paged_attention import paged_decode
+from repro_torch.kernels.ssd_scan import ssd_chunk_scan
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -22,7 +23,7 @@ def _on_cpu(t: torch.Tensor) -> bool:
         return True
     if t.device.type == "cuda":
         return False
-    raise ValueError(f"no attention kernel for device {t.device}")
+    raise ValueError(f"no kernel for device {t.device}")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
@@ -63,3 +64,19 @@ def chunked_prefill_paged(q, k_pool, v_pool, lengths, block_tables,
     return _chunked_prefill_paged_kernel(
         q, k_pool, v_pool, lengths, block_tables, q_offsets,
         softmax_scale=softmax_scale)
+
+
+def ssd_scan(x, dt, a, b_mat, c_mat, *, chunk_size: int = 64,
+             initial_state=None):
+    """Mamba-2 SSD chunked scan ([B,L,H,P] -> y, final_state)."""
+    if _on_cpu(x):
+        return ref.ssd_scan_ref(x, dt, a, b_mat, c_mat,
+                                chunk_size=chunk_size,
+                                initial_state=initial_state)
+    return ssd_chunk_scan(x, dt, a, b_mat, c_mat, chunk_size=chunk_size,
+                          initial_state=initial_state)
+
+
+# the single-token recurrence is plain PyTorch on every device, as the
+# reference computes it in jnp on every backend: it is no kernel
+ssd_decode_step = ref.ssd_decode_step_ref

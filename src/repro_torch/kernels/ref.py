@@ -1,11 +1,12 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the kernels.
 
 These are the semantics of record for the port's CUDA kernels, and the
 path a CPU tensor takes: ``kernels/ops.py`` sends CPU inputs here and
 CUDA inputs to the kernels, and ``chip_smoke.py`` holds each kernel
 against its plain version on the card.  They mirror
 ``repro/kernels/ref.py`` (``attention_ref``, ``paged_attention_ref`` in
-both layouts, ``chunked_prefill_paged_ref``) and compute scores in f32.
+both layouts, ``chunked_prefill_paged_ref``, ``ssd_scan_ref``,
+``ssd_decode_step_ref``) and compute scores and states in f32.
 """
 from __future__ import annotations
 
@@ -134,3 +135,90 @@ def chunked_prefill_paged_ref(
     out = torch.einsum("bgrqs,bsgd->bqgrd", probs, v).reshape(b, sq, h, dv)
     row_valid = mask.any(dim=-1)[..., None, None]
     return torch.where(row_valid, out, torch.zeros_like(out))
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,       # [B, L, H, P]  inputs per head
+    dt: torch.Tensor,      # [B, L, H]     softplus'd step, f32
+    a: torch.Tensor,       # [H]           negative decay rate, f32
+    b_mat: torch.Tensor,   # [B, L, G, N]  input projection (B)
+    c_mat: torch.Tensor,   # [B, L, G, N]  output projection (C)
+    *,
+    chunk_size: int = 64,
+    initial_state: torch.Tensor | None = None,   # [B, H, P, N] f32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD (state-space duality) chunked scan.
+
+    Returns ``(y [B, L, H, P] in x's dtype, final_state [B, H, P, N]
+    f32)``.  Quadratic within a chunk, sequential over chunks; the G
+    groups share B/C across H // G heads.  ``L`` must be a multiple of
+    ``chunk_size``."""
+    bsz, seqlen, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    assert seqlen % chunk_size == 0, "pad sequence to a chunk multiple"
+    nc = seqlen // chunk_size
+    rep = h // g
+    b_h = torch.repeat_interleave(b_mat, rep, dim=2).float()   # [B, L, H, N]
+    c_h = torch.repeat_interleave(c_mat, rep, dim=2).float()
+    log_decay = a.float()[None, None, :] * dt.float()           # [B, L, H]
+    xdt = x.float() * dt.float()[..., None]                     # [B, L, H, P]
+
+    def to_chunks(t):
+        return t.reshape((bsz, nc, chunk_size) + tuple(t.shape[2:]))
+
+    xc, bc, cc, ld = map(to_chunks, (xdt, b_h, c_h, log_decay))
+    seg = torch.cumsum(ld, dim=2)                 # [B, C, Q, H]
+    total = seg[:, :, -1, :]                      # [B, C, H]
+
+    # intra-chunk: y[q] += sum_{t<=q} C[q].B[t] exp(seg[q]-seg[t]) x[t]dt[t]
+    scores = torch.einsum("bcqhn,bcthn->bchqt", cc, bc)
+    rel = (seg[:, :, :, None, :] - seg[:, :, None, :, :]).movedim(-1, 2)
+    causal = torch.tril(torch.ones(chunk_size, chunk_size, dtype=torch.bool,
+                                   device=x.device))
+    # select, never multiply by a 0/1 mask: exp(rel) overflows above the
+    # diagonal, and inf * 0 is NaN
+    decay = torch.where(causal, torch.exp(rel), 0.0)
+    y_diag = torch.einsum("bchqt,bcthp->bcqhp", scores * decay, xc)
+
+    # each chunk's own state contribution, then the carry across chunks
+    state_decay = torch.exp(total[:, :, None, :] - seg)         # [B, C, Q, H]
+    states = torch.einsum("bcqhn,bcqhp->bchpn",
+                          bc * state_decay[..., None], xc)
+    if initial_state is None:
+        s = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    else:
+        s = initial_state.float()
+    prev = []
+    for c in range(nc):
+        prev.append(s)
+        s = s * torch.exp(total[:, c])[..., None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)                      # [B, C, H, P, N]
+
+    # off-diagonal: y[q] += exp(seg[q]) C[q] . S_in
+    y_off = torch.einsum("bcqhn,bchpn->bcqhp",
+                         cc * torch.exp(seg)[..., None], prev_states)
+    y = (y_diag + y_off).reshape(bsz, seqlen, h, p)
+    return y.to(x.dtype), s
+
+
+def ssd_decode_step_ref(
+    x: torch.Tensor,       # [B, H, P] one token
+    dt: torch.Tensor,      # [B, H] f32
+    a: torch.Tensor,       # [H] f32
+    b_vec: torch.Tensor,   # [B, G, N]
+    c_vec: torch.Tensor,   # [B, G, N]
+    state: torch.Tensor,   # [B, H, P, N]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-token SSD recurrence, ``state' = exp(a dt) state + dt x B^T``,
+    ``y = state' C``.  Returns ``(y [B, H, P] in x's dtype, state' f32)``.
+    The reference computes it in jnp on every backend: it is no kernel."""
+    h, g = x.shape[1], b_vec.shape[1]
+    rep = h // g
+    b_h = torch.repeat_interleave(b_vec, rep, dim=1).float()   # [B, H, N]
+    c_h = torch.repeat_interleave(c_vec, rep, dim=1).float()
+    decay = torch.exp(a.float()[None] * dt.float())             # [B, H]
+    upd = torch.einsum("bhp,bhn->bhpn", x.float() * dt.float()[..., None],
+                       b_h)
+    new_state = state.float() * decay[..., None, None] + upd
+    y = torch.einsum("bhpn,bhn->bhp", new_state, c_h)
+    return y.to(x.dtype), new_state

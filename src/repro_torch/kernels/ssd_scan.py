@@ -1,0 +1,83 @@
+"""The Mamba-2 SSD chunked scan on the card: the wrapper of
+``csrc/ssd_scan.cu``.
+
+``ssd_chunk_scan`` replaces the Pallas ``_kernel`` of
+``repro/kernels/ssd_scan.py``.  It takes CUDA tensors only;
+``kernels/ops.py`` sends CPU tensors to the plain ``ref.ssd_scan_ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+MAX_CHUNK = 128     # the kernel's score tile: 4 key columns per lane
+MAX_STATE = 128     # its state tile: 4 state columns per lane
+
+
+def _check_inputs(tensors: dict) -> None:
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if not t.is_cuda:
+            raise ValueError(f"ssd_chunk_scan: {name} must be a CUDA tensor")
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_chunk_scan: {name} must be contiguous")
+    x, b_mat, c_mat = tensors["x"], tensors["b_mat"], tensors["c_mat"]
+    if x.dtype not in _DTYPES or b_mat.dtype != x.dtype \
+            or c_mat.dtype != x.dtype:
+        raise TypeError(f"ssd_chunk_scan: x/B/C must share one of "
+                        f"{list(_DTYPES)}, got {x.dtype}/{b_mat.dtype}/"
+                        f"{c_mat.dtype}")
+    for name in ("dt", "a", "initial_state"):
+        t = tensors[name]
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"ssd_chunk_scan: {name} must be float32")
+
+
+def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                   b_mat: torch.Tensor, c_mat: torch.Tensor, *,
+                   chunk_size: int = 64,
+                   initial_state: torch.Tensor | None = None):
+    """x [B, L, H, P]; dt [B, L, H] f32; a [H] f32; B/C [B, L, G, N];
+    ``initial_state`` [B, H, P, N] f32 or None (zeros).
+
+    Returns ``(y [B, L, H, P] in x's dtype, final_state [B, H, P, N]
+    f32)``, the contract of ``ref.ssd_scan_ref``.  ``L`` must be a
+    multiple of ``chunk_size`` (1 to 128), ``N`` at most 128.  Launches
+    on the current stream without synchronising."""
+    _check_inputs({"x": x, "dt": dt, "a": a, "b_mat": b_mat,
+                   "c_mat": c_mat, "initial_state": initial_state})
+    bsz, seqlen, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    if (dt.shape != (bsz, seqlen, h) or a.shape != (h,)
+            or b_mat.shape != (bsz, seqlen, g, n) or c_mat.shape != b_mat.shape
+            or h % g or not 1 <= n <= MAX_STATE
+            or not 1 <= chunk_size <= MAX_CHUNK or seqlen % chunk_size
+            or (initial_state is not None
+                and initial_state.shape != (bsz, h, p, n))):
+        raise ValueError(
+            f"ssd_chunk_scan: bad shapes x {tuple(x.shape)} dt "
+            f"{tuple(dt.shape)} a {tuple(a.shape)} B {tuple(b_mat.shape)} "
+            f"C {tuple(c_mat.shape)} chunk {chunk_size} (L % chunk == 0, "
+            f"chunk <= {MAX_CHUNK}, N <= {MAX_STATE}, H % G == 0)")
+    y = torch.empty_like(x)
+    final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    # C.B^T of every (sequence, group, chunk), key columns padded to 32
+    key_cols = -(-chunk_size // 32) * 32
+    cb = torch.empty(bsz * g * seqlen * key_cols, dtype=torch.float32,
+                     device=x.device)
+    fn = getattr(_build.load("ssd_scan"), f"ssd_scan_{_DTYPES[x.dtype]}")
+    code = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
+              c_mat.data_ptr(),
+              None if initial_state is None else initial_state.data_ptr(),
+              cb.data_ptr(), y.data_ptr(), final.data_ptr(), bsz, seqlen, h,
+              p, g, n, chunk_size,
+              torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, "ssd_chunk_scan")
+    ssd_chunk_scan.launches += 1
+    return y, final
+
+
+ssd_chunk_scan.launches = 0

@@ -1,5 +1,6 @@
-"""The serving engine's device-resident K/V page pool (dense-attention
-families), ported from ``repro/models/cache.py``.
+"""Decode caches, ported from ``repro/models/cache.py``: the serving
+engine's device-resident K/V page pool (dense-attention families) and the
+fixed-size state of the SSM family (``init_cache``).
 
 ``PagedKVCache`` holds ``k_pool`` / ``v_pool`` of shape
 ``[layers, num_pages, page_size, kv_heads, head_dim]`` on the engine's
@@ -44,6 +45,26 @@ def supports_paged_decode(cfg: ModelConfig) -> bool:
         and not cfg.is_encoder_decoder
         and not cfg.sliding_window
     )
+
+
+def init_cache(cfg: ModelConfig, batch: int, *, device) -> dict:
+    """The dense decode cache of the SSM family: ``{"ssm": {"conv":
+    [L, B, K-1, d_inner + 2 G N] in the model dtype, "state":
+    [L, B, H, P, N] f32}}``, zeros.  Its size does not grow with the
+    sequence.  The other non-paged families are not ported yet."""
+    if cfg.arch_type != "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: only the SSM family has a dense decode cache in "
+            "the port (ROADMAP.md queue 1)")
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    la = cfg.num_layers
+    return {"ssm": {
+        "conv": torch.zeros((la, batch, cfg.ssm_conv - 1, conv_dim),
+                            dtype=torch_dtype(cfg.dtype), device=device),
+        "state": torch.zeros((la, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                              cfg.ssm_state), dtype=torch.float32,
+                             device=device),
+    }}
 
 
 class PagedKVCache:

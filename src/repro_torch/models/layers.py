@@ -67,6 +67,16 @@ class Norm(nn.Module):
         return y.to(x.dtype)
 
 
+def rms_norm_gated(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Mamba-2 gated RMSNorm, ``norm(x * silu(z)) * scale``.  As in the
+    reference, the gate is applied in the model dtype and only then
+    upcast to f32 for the norm."""
+    x32 = (x * F.silu(z)).float()
+    ms = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps) * scale).to(x.dtype)
+
+
 class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig, device, d_ff: int | None = None):
         super().__init__()

@@ -1,12 +1,13 @@
-"""The dense decoder, ported from ``repro/models/model.py``.
+"""The model, ported from ``repro/models/model.py``: the dense GQA
+decoder and the attention-free SSM (Mamba-2) stack.
 
 ``Model`` is an ``nn.Module`` holding its weights (``embed``, an
 ``nn.ModuleList`` of ``blocks``, ``final_norm``) on one device.  The
 reference's ``lax.scan`` over stacked layers is a Python loop over
-``self.blocks``; the paged steps write each layer's K/V into
-``k_pool[l]`` / ``v_pool[l]`` in place.  This slice ports the dense
-family only (the one the paged engine serves); any other family raises
-``NotImplementedError``.
+``self.blocks``.  The dense family serves through the paged steps, which
+write each layer's K/V into ``k_pool[l]`` / ``v_pool[l]`` in place; the
+SSM family through ``decode_step`` over the fixed-size dense cache of
+``init_cache``.  Any other family raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,18 +21,23 @@ from repro_torch.models.attention import (
     attention_prefill,
     attention_prefill_paged,
 )
-from repro_torch.models.cache import PagedKVCache, supports_paged_decode
+from repro_torch.models.cache import (
+    PagedKVCache,
+    init_cache,
+    supports_paged_decode,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, Embed, Norm
+from repro_torch.models.ssd import SSD, ssd_decode, ssd_prefill
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if (cfg.arch_type != "dense" or cfg.num_experts or cfg.use_mla
-            or cfg.is_encoder_decoder or cfg.sliding_window):
+    if (cfg.arch_type not in ("dense", "ssm") or cfg.num_experts
+            or cfg.use_mla or cfg.is_encoder_decoder or cfg.sliding_window):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA family is ported; the MoE, MLA, "
-            "SSM, hybrid, encoder-decoder and sliding-window families wait "
-            "for ROADMAP.md queue 1, 'Non-paged families'")
+            f"{cfg.name}: only the dense GQA and SSM families are ported; "
+            "the MoE, MLA, hybrid, encoder-decoder and sliding-window "
+            "families wait for ROADMAP.md queue 1")
 
 
 class Block(nn.Module):
@@ -43,19 +49,29 @@ class Block(nn.Module):
         self.mlp = MLP(cfg, device)
 
 
+class SSMBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.norm1 = Norm(cfg, device)
+        self.ssd = SSD(cfg, device)
+
+
 class Model(nn.Module):
-    """Dense GQA decoder on ``device`` (default ``"cuda"``, which raises
-    when no CUDA device is present).  Weights are uninitialised until
-    ``init`` or ``repro_torch.convert.params_from_numpy`` fills them."""
+    """Dense GQA decoder or SSM stack on ``device`` (default ``"cuda"``,
+    which raises when no CUDA device is present).  Weights are
+    uninitialised until ``init`` or
+    ``repro_torch.convert.params_from_numpy`` fills them."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda"):
         super().__init__()
         _check_family(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.is_ssm = cfg.arch_type == "ssm"
         self.embed = Embed(cfg, self.device)
+        block = SSMBlock if self.is_ssm else Block
         self.blocks = nn.ModuleList(
-            Block(cfg, self.device) for _ in range(cfg.num_layers))
+            block(cfg, self.device) for _ in range(cfg.num_layers))
         self.final_norm = Norm(cfg, self.device)
 
     @torch.no_grad()
@@ -66,8 +82,11 @@ class Model(nn.Module):
         bits."""
         self.embed.init(generator)
         for blk in self.blocks:
-            blk.attn.init(generator)
-            blk.mlp.init(generator)
+            if self.is_ssm:
+                blk.ssd.init(generator)
+            else:
+                blk.attn.init(generator)
+                blk.mlp.init(generator)
         return self
 
     # ------------------------------------------------------------------
@@ -81,9 +100,16 @@ class Model(nn.Module):
         ``collect_state`` (else None), with ``S'`` covering the prefix.
         ``prefix_state`` (same layout) is a restored prefix whose last
         position is ``q_offset - 1``: the tokens attend over it through
-        the dense flash kernel with a non-zero offset."""
+        the dense flash kernel with a non-zero offset.
+
+        For the SSM family ``state`` is ``{"ssm": {"conv": [L, B, K-1,
+        C], "state": [L, B, H, P, N]}}`` and ``prefix_state`` a snapshot
+        of that layout, which the scan resumes from (``q_offset`` is then
+        only the snapshot's position)."""
         cfg = self.cfg
         x = self.embed.embed(tokens)
+        if self.is_ssm:
+            return self._ssm_forward(x, collect_state, prefix_state)
         ks, vs = [], []
         for l, blk in enumerate(self.blocks):
             pref = None
@@ -101,6 +127,50 @@ class Model(nn.Module):
         if collect_state:
             state = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
         return logits, state
+
+    def _ssm_forward(self, x, collect_state, prefix_state):
+        convs, states = [], []
+        for l, blk in enumerate(self.blocks):
+            pref = None
+            if prefix_state is not None:
+                pref = {"conv": prefix_state["ssm"]["conv"][l],
+                        "state": prefix_state["ssm"]["state"][l]}
+            y, st = ssd_prefill(blk.ssd, blk.norm1(x), self.cfg, state=pref)
+            x = x + y
+            if collect_state:
+                convs.append(st["conv"])
+                states.append(st["state"])
+        logits = self.embed.logits(self.final_norm(x))
+        state = None
+        if collect_state:
+            state = {"ssm": {"conv": torch.stack(convs),
+                             "state": torch.stack(states)}}
+        return logits, state
+
+    # ------------------------------------------------------------------
+    def init_cache(self, batch: int) -> dict:
+        """The SSM family's dense decode cache for ``batch`` sequences
+        (its size does not depend on the sequence length)."""
+        return init_cache(self.cfg, batch, device=self.device)
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens: torch.Tensor):
+        """One serve step of the SSM family: ``tokens`` [B, 1] after the
+        states in ``cache``, which is updated in place (the reference
+        returns a new cache).  Returns logits [B, 1, V]."""
+        if not self.is_ssm:
+            raise NotImplementedError(
+                f"{self.cfg.name}: dense families decode through "
+                "decode_step_paged")
+        conv, state = cache["ssm"]["conv"], cache["ssm"]["state"]
+        x = self.embed.embed(tokens)
+        for l, blk in enumerate(self.blocks):
+            y, cv, st = ssd_decode(blk.ssd, blk.norm1(x), self.cfg,
+                                   conv_state=conv[l], ssm_state=state[l])
+            conv[l].copy_(cv)
+            state[l].copy_(st)
+            x = x + y
+        return self.embed.logits(self.final_norm(x))
 
     # ------------------------------------------------------------------
     @property

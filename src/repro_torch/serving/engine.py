@@ -1,5 +1,5 @@
 """Engine: the orchestration facade over the three serving layers, ported
-from ``repro/serving/engine.py`` (the paged families).
+from ``repro/serving/engine.py``.
 
 * ``repro_torch.serving.scheduler``  -- admission, chunk budgeting and
   the preemption-by-offload policy (host-side state machine);
@@ -11,19 +11,22 @@ Per request: tokenize -> SkyMemory longest-prefix lookup (with a
 ``manager``) -> fetched 128-token blocks drop straight into KV pages ->
 the uncached suffix prefills in page-aligned chunks that ride the decode
 step -> continuous-batching decode, with preemption-by-offload absorbing
-pool pressure.
+pool pressure.  A model without paged decode (the SSM family) is served
+by the executor's ``DenseRuntime`` instead: per-request prefill (resuming
+from a SkyMemory snapshot on a hit) and batched decode over a dense
+cache.
 
 Not in this slice (see ROADMAP.md queue 1): ``kvc=`` (building the
 manager needs the port's own copy of the constellation fabric),
 ``payload_codec=`` (payloads are f32 ``SKYM`` until a second codec is
 ported), the streaming worker (``submit`` / ``start`` / ``stop``), and
-the non-paged families.
+the non-paged families other than SSM.
 """
 from __future__ import annotations
 
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
-from repro_torch.serving.executor import PagedExecutor
+from repro_torch.serving.executor import DenseRuntime, PagedExecutor
 from repro_torch.serving.kv_manager import TieredKVManager
 from repro_torch.serving.request import GenerationResult, Request
 from repro_torch.serving.scheduler import Scheduler
@@ -33,7 +36,8 @@ from repro_torch.serving.tokenizer import ByteTokenizer
 
 
 class Engine:
-    """Paged continuous-batching engine over ``model`` on ``device``.
+    """Continuous-batching engine over ``model`` on ``device``: paged for
+    the dense families, the dense runtime for the SSM family.
 
     ``manager`` is any object with ``KVCManager``'s interface
     (``get_cache_tokens``, ``add_blocks_tokens``,
@@ -60,9 +64,6 @@ class Engine:
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "
                              f"{self.device}")
-        if not model.supports_paged_decode:
-            raise NotImplementedError(
-                f"{model.cfg.name}: only the paged families are ported")
         if manager is not None and manager.block_size != block_size:
             raise ValueError(
                 f"manager block_size {manager.block_size} != engine "
@@ -75,38 +76,49 @@ class Engine:
         self.block_size = block_size
         self.adapter = SkyKVCAdapter(model)
         self.manager = manager
-        # page size == SkyMemory block size: fetched blocks are pages
-        self.cache = model.init_paged_cache(
-            num_slots=max_batch, page_size=block_size,
-            max_seq_len=max_seq_len, num_pages=num_pages)
-        # chunk budget: prompt tokens prefilled per step, fused with
-        # decode; page-aligned; 0 is stop-the-world admission
-        if chunk_tokens is None:
-            chunk_tokens = 2 * block_size
-        if chunk_tokens:
-            chunk_tokens = min(chunk_tokens,
-                               self.cache.pages_per_seq * block_size)
-            if chunk_tokens % block_size:
-                raise ValueError("chunk_tokens must be a multiple of "
-                                 "the page/block size")
-        self.chunk_tokens = chunk_tokens
-        self.chunked = bool(chunk_tokens)
-        self.kv = TieredKVManager(
-            self.cache, self.adapter, self.manager,
-            host_cache_pages=host_cache_pages, write_back=write_back)
-        self.executor = PagedExecutor(
-            model, self.cache, chunk_tokens=chunk_tokens,
-            max_seq_len=max_seq_len, seed=seed)
-        self.scheduler = Scheduler(
-            self.executor, self.kv, self.tokenizer,
-            max_batch=max_batch, max_seq_len=max_seq_len,
-            chunk_tokens=chunk_tokens)
+        self.paged = model.supports_paged_decode
+        if self.paged:
+            # page size == SkyMemory block size: fetched blocks are pages
+            self.cache = model.init_paged_cache(
+                num_slots=max_batch, page_size=block_size,
+                max_seq_len=max_seq_len, num_pages=num_pages)
+            # chunk budget: prompt tokens prefilled per step, fused with
+            # decode; page-aligned; 0 is stop-the-world admission
+            if chunk_tokens is None:
+                chunk_tokens = 2 * block_size
+            if chunk_tokens:
+                chunk_tokens = min(chunk_tokens,
+                                   self.cache.pages_per_seq * block_size)
+                if chunk_tokens % block_size:
+                    raise ValueError("chunk_tokens must be a multiple of "
+                                     "the page/block size")
+            self.chunk_tokens = chunk_tokens
+            self.chunked = bool(chunk_tokens)
+            self.kv = TieredKVManager(
+                self.cache, self.adapter, self.manager,
+                host_cache_pages=host_cache_pages, write_back=write_back)
+            self.executor = PagedExecutor(
+                model, self.cache, chunk_tokens=chunk_tokens,
+                max_seq_len=max_seq_len, seed=seed)
+            self.scheduler = Scheduler(
+                self.executor, self.kv, self.tokenizer,
+                max_batch=max_batch, max_seq_len=max_seq_len,
+                chunk_tokens=chunk_tokens)
+            self._dense = None
+        else:
+            self.cache = self.kv = self.executor = self.scheduler = None
+            self._dense = DenseRuntime(
+                model, self.tokenizer, self.adapter, manager,
+                max_seq_len=max_seq_len, max_batch=max_batch,
+                write_back=write_back, seed=seed)
         self.stats = EngineStats()
 
     def generate(self, requests: list[Request]) -> list[GenerationResult]:
         if not requests:
             return []
-        return self.scheduler.run(requests)
+        if self.paged:
+            return self.scheduler.run(requests)
+        return self._dense.generate(requests)
 
     # one stats / chunk-log / write-back view across the layers
     @property
@@ -116,8 +128,11 @@ class Engine:
     @stats.setter
     def stats(self, value: EngineStats) -> None:
         self._stats = value
-        self.scheduler.stats = value
-        self.kv.stats = value
+        if self.paged:
+            self.scheduler.stats = value
+            self.kv.stats = value
+        else:
+            self._dense.stats = value
 
     @property
     def chunk_log(self) -> list[tuple[int, int, int]]:
@@ -125,8 +140,11 @@ class Engine:
 
     @property
     def write_back(self) -> bool:
-        return self.kv.write_back
+        return self.kv.write_back if self.paged else self._dense.write_back
 
     @write_back.setter
     def write_back(self, value: bool) -> None:
-        self.kv.write_back = value
+        if self.paged:
+            self.kv.write_back = value
+        else:
+            self._dense.write_back = value

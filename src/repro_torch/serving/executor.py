@@ -1,20 +1,32 @@
-"""PagedExecutor: every device program the paged serving stack launches,
-ported from ``repro/serving/executor.py``.
+"""The serving runtimes' device programs, ported from
+``repro/serving/executor.py``: ``PagedExecutor`` for the paged families
+and ``DenseRuntime`` for the non-paged ones.
 
-The fused decode step, the mixed decode+chunk step, the cold-start chunk
-wave, the dense prefill of stop-the-world admission, and the sampler,
-plus the generator and the buffer-shape policies (chunk buffers, length
-buckets).  PyTorch runs eagerly, so there is nothing to compile: each
+``PagedExecutor`` holds every device program the paged serving stack
+launches: the fused decode step, the mixed decode+chunk step, the
+cold-start chunk wave, the dense prefill of stop-the-world admission, and
+the sampler, plus the generator and the buffer-shape policies (chunk
+buffers, length buckets).  PyTorch runs eagerly, so there is nothing to compile: each
 program is a plain call.  The K/V pools of the ``PagedKVCache`` are
 updated in place (the reference donated them to XLA).  The scheduler
 never touches device tensors directly.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from repro_torch.serving.request import (
+    Seq,
+    SeqState,
+    seq_finished,
+    seq_result,
+)
 from repro_torch.serving.sampler import SamplingParams, sample_batch, stack_sampling
+from repro_torch.serving.stats import EngineStats
+from repro_torch.serving.tokenizer import truncate_prompt
 
 
 class PagedExecutor:
@@ -120,3 +132,134 @@ class PagedExecutor:
         while b < n:
             b *= 2
         return min(b, max(n, self.max_seq_len))
+
+
+class DenseRuntime:
+    """Non-paged serving loop, ported from ``repro/serving/executor.py``
+    (the SSM family in this slice): each request prefills alone through
+    ``Model.forward`` (resuming from a SkyMemory snapshot on a hit), the
+    batch's states are stacked into one dense cache, and every decode
+    step samples all rows with the vectorized sampler and one host sync.
+    Shares the SkyMemory manager with the paged path, not the page pool."""
+
+    def __init__(self, model, tokenizer, adapter, manager, *,
+                 max_seq_len: int, max_batch: int, write_back: bool,
+                 seed: int = 0) -> None:
+        self.model = model
+        self.cfg = model.cfg
+        self.device = model.device
+        self.tokenizer = tokenizer
+        self.adapter = adapter
+        self.manager = manager
+        self.max_seq_len = max_seq_len
+        self.max_batch = max_batch
+        self.write_back = write_back
+        self.stats = EngineStats()
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def generate(self, requests) -> list:
+        results = []
+        for lo in range(0, len(requests), self.max_batch):
+            results.extend(self._run_batch(requests[lo: lo + self.max_batch]))
+        return results
+
+    def _prefill_one(self, req) -> Seq:
+        t0 = time.perf_counter()
+        tokens = truncate_prompt(self.tokenizer.encode(req.prompt),
+                                 self.max_seq_len)
+        s = Seq(request=req, tokens=tokens, enqueue_t=t0)
+        cached = 0
+        prefix_state = None
+        if self.manager is not None:
+            # The prompt is looked up without its last token, so a hit
+            # never covers it and that token is prefilled exactly once,
+            # from a snapshot that does not yet hold it.  The reference
+            # looks up the whole prompt and, on a hit that covers it,
+            # replays the last token from the snapshot taken after it: an
+            # SSM state then applies that token twice, and a block-aligned
+            # prompt served warm gives another stream than served cold.
+            payload, cached = self.manager.get_cache_tokens(tokens[:-1])
+            if payload is not None:
+                prefix_state = self.adapter.payload_to_state(payload)
+        toks = torch.as_tensor(tokens, dtype=torch.int32,
+                               device=self.device)[None]
+        if cached:
+            lg, state = self.model.forward(
+                toks[:, cached:], q_offset=cached, prefix_state=prefix_state,
+                collect_state=True)
+        else:
+            lg, state = self.model.forward(toks, collect_state=True)
+        self.stats.prefill_time_s += time.perf_counter() - t0
+        self.stats.cached_tokens += cached
+        self.stats.prefilled_tokens += len(tokens) - cached
+        if self.write_back and self.manager is not None:
+            self.manager.add_blocks_tokens(tokens)
+        s.cached = cached
+        s.dense_state = state
+        s.last_logits = lg[0, -1]
+        s.state = SeqState.RUNNING
+        return s
+
+    def _stack_dense_caches(self, seqs: list[Seq]) -> dict:
+        """Prefill -> decode handoff: the per-sequence SSM states are
+        copied into one batched cache."""
+        cache = self.model.init_cache(len(seqs))
+        for i, s in enumerate(seqs):
+            st = s.dense_state["ssm"]
+            cache["ssm"]["conv"][:, i] = st["conv"][:, 0]
+            cache["ssm"]["state"][:, i] = st["state"][:, 0]
+            s.dense_state = None   # the per-request copy is no longer read
+        return cache
+
+    def _sample(self, logits, samplings, temps, tks, tps) -> torch.Tensor:
+        if PagedExecutor.sampler_mode(samplings) == "greedy":
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return sample_batch(logits, self.generator, temps, tks, tps)
+
+    def _run_batch(self, requests) -> list:
+        t_start = time.perf_counter()
+        seqs = [self._prefill_one(r) for r in requests]
+        cache = self._stack_dense_caches(seqs)
+        # first token of each sequence from its prefill logits
+        logits = torch.stack([s.last_logits for s in seqs])
+        samplings = [s.request.sampling for s in seqs]
+        temps, tks, tps = stack_sampling(samplings, device=self.device)
+
+        max_new = max(p.max_new_tokens for p in samplings)
+        t_dec = time.perf_counter()
+        first = True
+        last_tok_t = [0.0] * len(seqs)
+        for _ in range(max_new):
+            nxt = self._sample(logits, samplings, temps, tks, tps)
+            nxt_h = nxt.cpu().numpy()          # the step's single host sync
+            now = time.perf_counter()
+            for i, s in enumerate(seqs):
+                if s.done:
+                    continue
+                tid = int(nxt_h[i])
+                s.out_ids.append(tid)
+                if first:
+                    s.ttft_s = now - s.enqueue_t
+                    self.stats.ttft_s.append(s.ttft_s)
+                else:
+                    self.stats.itl_s.append(now - last_tok_t[i])
+                    s.itl.append(now - last_tok_t[i])
+                last_tok_t[i] = now
+                seq_finished(s, tid, eos_id=self.tokenizer.eos_id,
+                             max_seq_len=self.max_seq_len)
+            first = False
+            self.stats.decoded_tokens += sum(0 if s.done else 1 for s in seqs)
+            if all(s.done for s in seqs):
+                break
+            logits = self.model.decode_step(cache, nxt[:, None])[:, 0]
+            self.stats.decode_steps += 1
+        self.stats.decode_time_s += time.perf_counter() - t_dec
+
+        out = []
+        wall = time.perf_counter() - t_start
+        for s in seqs:
+            self.stats.requests += 1
+            s.state = SeqState.FINISHED
+            s.wall_s = wall
+            out.append(seq_result(s, self.tokenizer))
+        return out

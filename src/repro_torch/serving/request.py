@@ -103,6 +103,11 @@ class Seq:
     # and this seq's own inter-token gaps for per-request ITL tails
     future: object | None = None
     itl: list[float] = field(default_factory=list)
+    # dense runtime (non-paged families): the prefill's decode state and
+    # the logits of the prompt's last position, until the batch's states
+    # are stacked into one cache
+    dense_state: dict | None = None
+    last_logits: object | None = None
 
     @property
     def prefill_tokens(self) -> list[int]:

@@ -26,9 +26,11 @@ class SamplingParams:
 
 
 def stack_sampling(params: list[SamplingParams], pad_to: int | None = None,
-                   *, device="cpu"):
+                   *, device):
     """Stack per-sequence params into the [B] tensors ``sample_batch``
-    takes; padding rows (inactive slots) are greedy."""
+    takes, on ``device`` (the caller's: no default, so no serving path
+    stacks them on the CPU by accident); padding rows (inactive slots)
+    are greedy."""
     n = pad_to if pad_to is not None else len(params)
     temps = [0.0] * n
     top_ks = [0] * n

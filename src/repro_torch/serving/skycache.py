@@ -1,13 +1,18 @@
-"""Adapter between the dense model's decode state and SkyMemory KVC
-payloads, ported from ``repro/serving/skycache.py`` (dense family).
+"""Adapter between the model's decode state and SkyMemory KVC payloads,
+ported from ``repro/serving/skycache.py`` (dense and SSM families).
 
-A dense payload is the per-layer K/V covering the cached prefix,
-``[k [L, T, Hkv, hd], v [L, T, Hkv, hd]]``, cumulative: one block's
-payload reconstructs the whole prefix.  ``kvc_fn`` plugs into a
-``KVCManager``: it computes one block's payload by resuming from the
-previous block's payload through ``Model.forward`` with ``prefix_state``
-and ``q_offset`` -- never recomputing the cached prefix.  Under the f32
-codec the bytes are the ``SKYM`` format the reference writes.
+* dense: the per-layer K/V covering the cached prefix, ``[k [L, T, Hkv,
+  hd], v [L, T, Hkv, hd]]``, cumulative: one block's payload
+  reconstructs the whole prefix;
+* SSM: the fixed-size snapshot at the block boundary, ``[conv [L, K-1,
+  C], state [L, H, P, N]]``.  It is not token-sliceable: it is the state
+  after the block's last token.
+
+``kvc_fn`` plugs into a ``KVCManager``: it computes one block's payload
+by resuming from the previous block's payload through ``Model.forward``
+with ``prefix_state`` and ``q_offset`` -- never recomputing the cached
+prefix.  Under the f32 codec the bytes are the ``SKYM`` format the
+reference writes.
 """
 from __future__ import annotations
 
@@ -35,21 +40,29 @@ class SkyKVCAdapter:
 
     # -- state <-> payload ------------------------------------------------
     def state_to_payload(self, state: dict, n_tokens: int) -> bytes:
-        """Serialize the K/V state (batch dim of 1, dropped) for the
-        first ``n_tokens`` positions."""
+        """Serialize the decode state (batch dim of 1, dropped): the K/V
+        of the first ``n_tokens`` positions, or the SSM snapshot (which
+        is the state after the last token ``forward`` saw)."""
+        if "ssm" in state:
+            return self.codec.encode([state["ssm"]["conv"][:, 0],
+                                      state["ssm"]["state"][:, 0]])
         return self.codec.encode([state["kv"]["k"][:, 0, :n_tokens],
                                   state["kv"]["v"][:, 0, :n_tokens]])
 
     def payload_to_state(self, payload: bytes) -> dict:
-        k, v = decode_payload_arrays(payload)
-        return {"kv": {"k": self._tensor(k)[:, None],
-                       "v": self._tensor(v)[:, None]}}
+        a, b = decode_payload_arrays(payload)
+        key, names = (("ssm", ("conv", "state")) if self.cfg.arch_type == "ssm"
+                      else ("kv", ("k", "v")))
+        return {key: {names[0]: self._tensor(a)[:, None],
+                      names[1]: self._tensor(b)[:, None]}}
 
     def payload_to_pages(self, payload: bytes, n_tokens: int,
                          page_size: int):
         """Payload -> page-shaped K/V ``[layers, n_tokens/page, page, Hkv,
         hd]`` on the model's device, ready for ``PagedKVCache.write_pages``.
         ``n_tokens`` must be page-aligned."""
+        if self.cfg.arch_type == "ssm":
+            raise ValueError(f"{self.cfg.name}: payload is not plain paged K/V")
         if n_tokens % page_size:
             raise ValueError("cached prefix must be page-aligned")
         k, v = decode_payload_arrays(payload)[:2]
@@ -100,8 +113,9 @@ class SkyKVCAdapter:
         if past is None or past_len == 0:
             _, state = self.model.forward(toks, collect_state=True)
         else:
-            # the returned K/V already include the prefix: attention
-            # concatenates it in front of the fresh keys
+            # the returned K/V already include the prefix (attention
+            # concatenates it in front of the fresh keys); an SSM state
+            # is cumulative by construction
             _, state = self.model.forward(
                 toks[:, past_len:], q_offset=past_len,
                 prefix_state=self.payload_to_state(past), collect_state=True)

@@ -90,6 +90,17 @@ def test_default_device_raises_without_cuda():
     eng = Engine(cpu_model, block_size=16, max_seq_len=64, max_batch=1,
                  device="cpu")
     assert eng.cache.k_pool.device.type == "cpu"
+    # the SSM family, served by the dense runtime, follows the same rule
+    ssm = smoke_config(get_config("mamba2-1.3b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(ssm)
+    cpu_ssm = Model(ssm.replace(dtype="float32"), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cpu_ssm, block_size=16, max_seq_len=64, max_batch=1)
+    eng = Engine(cpu_ssm, block_size=16, max_seq_len=64, max_batch=1,
+                 device="cpu")
+    assert not eng.paged and eng.cache is None
+    assert eng._dense.device.type == "cpu"
 
 
 def test_other_families_raise_not_implemented():
@@ -98,7 +109,8 @@ def test_other_families_raise_not_implemented():
 
     cfg = smoke_config(get_config("skymemory-tinyllama"))
     for kw in ({"arch_type": "moe", "num_experts": 4},
-               {"use_mla": True}, {"arch_type": "ssm"},
+               {"use_mla": True},
+               {"arch_type": "hybrid", "attn_layer_period": 1},
                {"sliding_window": 64}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Model(cfg.replace(**kw), device="cpu")
