@@ -14,7 +14,9 @@ Phases (each raises on failure; nothing is caught):
    scan; bf16 and f32) and at edge cases, with its time, the plain
    version's time, its bound and, for the dense prefill and the
    contiguous decode pool, ``scaled_dot_product_attention``'s time as a
-   yardstick only;
+   yardstick only.  Each case's line names the body it ran: the
+   prefills run bf16 with head dim 64 or 128 on tensor cores
+   (``tensor-core``) and everything else on f32 FMAs (``fma``);
 4. model: TinyLlama's widths at 2 layers, f32, seeded: ``forward``,
    ``prefill_chunk_paged`` and ``decode_step_paged`` logits on the card
    against the same on the CPU.  Then mamba2-1.3b's widths at 2 layers,
@@ -31,7 +33,10 @@ Phases (each raises on failure; nothing is caught):
    model the launch counters are zeroed just before and read just after;
    every kernel of its path must have launched.  After each, a decode
    step's breakdown: eager host wall time, device busy time in a
-   ``torch.profiler`` trace, and the CUDA-graph-replayed step.
+   ``torch.profiler`` trace, and the CUDA-graph-replayed step; after
+   TinyLlama also one chunked-prefill wave (4 rows x 256 tokens over a
+   384-token context) replayed from a CUDA graph, and the paged prefill
+   kernel's share of it.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -92,6 +97,17 @@ def log(*a) -> None:
 # timing and bounds
 # ---------------------------------------------------------------------------
 
+def warm_up(device, ms: float = 200.0) -> None:
+    """Keep the card busy for ``ms`` so that it reaches its working clocks
+    before anything is timed (an idle card times its first launches slow)."""
+    a = torch.randn(4096, 4096, device=device, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    while (time.perf_counter() - t0) * 1e3 < ms:
+        for _ in range(20):
+            a @ a
+        torch.cuda.synchronize(device)
+
+
 class Timer:
     """Median device time of ``fn`` with a cold L2.
 
@@ -105,6 +121,7 @@ class Timer:
         self.device = device
         self.flush = torch.empty(32 * 2 ** 20, dtype=torch.float32,
                                  device=device)
+        warm_up(device)
 
     def ms(self, fn, iters: int = TIMING_ITERS) -> float:
         cur = torch.cuda.current_stream(self.device)
@@ -172,7 +189,8 @@ def phase_build() -> None:
     dt = time.perf_counter() - t0
     for name, out in logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line or "error" in line):
                 log(f"[build] {name}: {line.strip()}")
     log(f"[build] {len(logs)} libraries in {dt:.2f} s -> {_build.BUILD_DIR}")
 
@@ -216,6 +234,18 @@ def decode_case(gen, dtype, device, *, b, pages_per_seq, lengths, tables,
     kv = 2 * valid * hkv * d * q.element_size()
     flops = 4 * h * d * valid
     return args, io + kv, flops
+
+
+def body_of(name: str, args) -> str:
+    """The body a kernel case runs: the prefills choose by dtype and head
+    dims (``prefill_body``); the decode kernel and the SSD scan have one
+    body each, on f32 FMAs."""
+    from repro_torch.kernels.chunked_prefill import prefill_body
+
+    if name in ("flash_prefill", "chunked_prefill_paged"):
+        q, k, v = args[:3]
+        return prefill_body(q.dtype, q.shape[-1], v.shape[-1])
+    return "fma"
 
 
 def run_decode(args):
@@ -348,11 +378,10 @@ def run_ssd(args):
                                      initial_state=init))
 
 
-def phase_kernels(device, timer: Timer) -> dict:
-    """Every kernel against its plain version; returns the main-path
-    (bf16) record of each kernel."""
-    gen = torch.Generator(device=device).manual_seed(0)
-    records = {}
+def kernel_cases(device) -> list:
+    """Every kernel case: (kernel, label, dtype, main path?, make, runner);
+    ``make(generator, dtype)`` draws the case's inputs when called, so
+    cases made in list order from one seed get the same inputs."""
     rng = np.random.default_rng(0)
     main_lens = [int(x) for x in rng.integers(256, 448, 4)]
     cases = []
@@ -375,6 +404,25 @@ def phase_kernels(device, timer: Timer) -> dict:
                                        lengths=[0, 1, 129, 1024],
                                        tables=True),
              run_decode),
+            # around a 64-token split's edge, and one 16-split sequence
+            ("paged_decode", f"{tag} split edges 63/64/65/1024", dtype,
+             False,
+             lambda g, dt: decode_case(g, dt, device, b=4, pages_per_seq=8,
+                                       lengths=[63, 64, 65, 1024],
+                                       tables=True),
+             run_decode),
+            ("paged_decode", f"{tag} rep 1 H32 Hkv32 contiguous B4 P8",
+             dtype, False,
+             lambda g, dt: decode_case(g, dt, device, b=4, pages_per_seq=8,
+                                       lengths=main_lens, tables=False,
+                                       hkv=32),
+             run_decode),
+            ("paged_decode", f"{tag} rep 16 H32 Hkv2 contiguous B4 P8",
+             dtype, False,
+             lambda g, dt: decode_case(g, dt, device, b=4, pages_per_seq=8,
+                                       lengths=main_lens, tables=False,
+                                       hkv=2),
+             run_decode),
             ("chunked_prefill_paged", f"{tag} wave R4 C256", dtype, True,
              lambda g, dt: prefill_paged_case(
                  g, dt, device, offs=[0, 256, 128, 0],
@@ -391,6 +439,12 @@ def phase_kernels(device, timer: Timer) -> dict:
              lambda g, dt: prefill_paged_case(
                  g, dt, device, offs=[5, 131, 0], valid=[100, 64, 0],
                  c=128, pages_per_seq=4),
+             run_prefill_paged),
+            ("chunked_prefill_paged", f"{tag} C256 at offset 5", dtype,
+             False,
+             lambda g, dt: prefill_paged_case(
+                 g, dt, device, offs=[5], valid=[256], c=256,
+                 pages_per_seq=3),
              run_prefill_paged),
             # stop-the-world admission: one forward per wave of max_batch
             # misses, rows padded to the 512-token bucket
@@ -414,6 +468,15 @@ def phase_kernels(device, timer: Timer) -> dict:
             ("flash_prefill", f"{tag} non-causal Dq 96 Dv 64", dtype, False,
              lambda g, dt: flash_case(g, dt, device, b=1, sq=70, skv=90,
                                       off=0, causal=False, d=96, dv=64),
+             run_flash),
+            # a ragged query tile and key tile on the diagonal
+            ("flash_prefill", f"{tag} causal B1 Sq100 Skv100", dtype, False,
+             lambda g, dt: flash_case(g, dt, device, b=1, sq=100, skv=100,
+                                      off=0),
+             run_flash),
+            ("flash_prefill", f"{tag} causal B1 S256 D128", dtype, False,
+             lambda g, dt: flash_case(g, dt, device, b=1, sq=256, skv=256,
+                                      off=0, d=128, dv=128),
              run_flash),
             # mamba2-1.3b prefills one request at a time: a 347-369 token
             # prompt pads to 3 chunks of 128 (no initial state when cold,
@@ -447,8 +510,18 @@ def phase_kernels(device, timer: Timer) -> dict:
                                     g=2, with_init=True),
              run_ssd),
         ]
-    yardsticks = {"paged_decode": sdpa_decode, "flash_prefill": sdpa_flash}
-    for name, label, dtype, main, make, runner in cases:
+    return cases
+
+
+YARDSTICKS = {"paged_decode": sdpa_decode, "flash_prefill": sdpa_flash}
+
+
+def phase_kernels(device, timer: Timer) -> dict:
+    """Every kernel against its plain version; returns the main-path
+    (bf16) record of each kernel."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    records = {}
+    for name, label, dtype, main, make, runner in kernel_cases(device):
         args, n_bytes, flops = make(gen, dtype)
         kern, plain = runner(args)
         want = plain()
@@ -466,7 +539,7 @@ def phase_kernels(device, timer: Timer) -> dict:
         ms = timer.ms(kern)
         plain_ms = timer.ms(plain)
         bms, by = bound_ms(n_bytes, flops, dtype)
-        lib = yardsticks.get(name, lambda a: None)(args)
+        lib = YARDSTICKS.get(name, lambda a: None)(args)
         lib_ms = None
         if lib is not None:
             # the yardstick must compute the same function to be one; a
@@ -475,14 +548,15 @@ def phase_kernels(device, timer: Timer) -> dict:
             _check(f"{name} [{label}] yardstick", name, lib(), want,
                    tol=BF16_TOL[name])
             lib_ms = timer.ms(lib)
-        log(f"[kernel] {name} [{label}]: max_abs_err {err:.3e} "
+        body = body_of(name, args)
+        log(f"[kernel] {name} [{label}] body {body}: max_abs_err {err:.3e} "
             f"({worst:.2f} x limit)  ms {ms:.4f}  plain_ms {plain_ms:.4f}  "
             f"bound_ms {bms:.5f} ({by})  "
             f"library_ms {'null' if lib_ms is None else f'{lib_ms:.4f}'}")
         if main and dtype == torch.bfloat16:
             records[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                  bound_ms=bms, bound_by=by,
-                                 library_ms=lib_ms, shape=label)
+                                 library_ms=lib_ms, shape=label, body=body)
     log("[kernel] library_ms is null for the block-table decode cases and "
         "for chunked_prefill_paged: no single PyTorch call computes "
         "attention through block tables with per-row lengths and offsets "
@@ -712,6 +786,33 @@ def _top_kernels(prof, iters: int, k: int = 6) -> list:
     return [[n[:80], tot[n] / 1e3 / iters, cnt[n] / iters] for n in top]
 
 
+def graph_replay_ms(fn, what: str, *, iters: int = 20,
+                    groups: int = 5) -> float:
+    """Device ms of ``fn`` captured once in a CUDA graph: the median of
+    ``groups`` groups of ``iters`` replays back to back (warm L2, no host
+    launch gaps), after ``iters`` untimed replays; ``fn`` has run outside
+    capture before.  Its output must be finite."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(iters):
+        graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(groups):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError(f"{what} replayed from a graph: non-finite")
+    return statistics.median(times)
+
+
 def time_step(step, device, *, iters=20, repeats=5) -> dict:
     """Where one decode step's time goes: the eager step's host wall time
     (``repeats`` runs of ``iters`` steps: the host clock is noisy), the
@@ -747,20 +848,7 @@ def time_step(step, device, *, iters=20, repeats=5) -> dict:
     busy = _busy_ms(prof)
     busy_ms = None if busy is None else busy / iters
 
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = step()
-    graph.replay()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        graph.replay()
-    b.record()
-    b.synchronize()
-    if not torch.isfinite(out.float()).all():
-        raise AssertionError("decode step replayed from a graph: non-finite")
+    graph_ms = graph_replay_ms(step, "decode step", iters=iters)
     if busy_ms is None:
         log("[step] the profiler trace holds no device events: device busy "
             "time and idle share not measured")
@@ -773,7 +861,7 @@ def time_step(step, device, *, iters=20, repeats=5) -> dict:
                                    else 1.0 - busy_ms / traced_ms),
                 eager_idle_share=(None if busy_ms is None
                                   else 1.0 - busy_ms / eager_ms),
-                graph_step_ms=a.elapsed_time(b) / iters,
+                graph_step_ms=graph_ms,
                 top_device_kernels=_top_kernels(prof, iters))
 
 
@@ -807,6 +895,68 @@ def step_breakdown(model, device, *, batch=4, length=384, max_seq_len=1024,
                attention_share_of_graph_step=model.cfg.num_layers * attn_ms
                / row["graph_step_ms"])
     log(f"[step] {json.dumps(row)}")
+    return row
+
+
+def prefill_wave(model, device, *, rows=4, chunk=256, context=384,
+                 max_seq_len=1024, page=128):
+    """One chunked-prefill wave of the full model over the contiguous
+    pool: ``rows`` rows of ``chunk`` tokens, each ending a
+    ``context``-token prefix.  Returns the wave (``prefill_chunk_paged``)
+    and the paged prefill kernel's call at the wave's shape, both ready
+    to time."""
+    from repro_torch.kernels.chunked_prefill import chunked_prefill_paged
+
+    cfg = model.cfg
+    cache = model.init_paged_cache(num_slots=rows, page_size=page,
+                                   max_seq_len=max_seq_len)
+    for slot in range(rows):
+        cache.ensure_capacity(slot, context)
+    gen = torch.Generator(device=device).manual_seed(2)
+    cache.k_pool.normal_(generator=gen)
+    cache.v_pool.normal_(generator=gen)
+    bt = torch.from_numpy(cache.block_tables.copy()).to(device)
+    toks = torch.randint(3, cfg.vocab_size, (rows, chunk), device=device,
+                         generator=gen, dtype=torch.int32)
+    offs = torch.full((rows,), context - chunk, dtype=torch.int32,
+                      device=device)
+    n_valid = torch.full((rows,), chunk, dtype=torch.int32, device=device)
+
+    q = torch.randn(rows, chunk, cfg.num_heads, cfg.head_dim, device=device,
+                    generator=gen).to(cache.k_pool.dtype)
+
+    def wave():
+        return model.prefill_chunk_paged(cache.k_pool, cache.v_pool, toks,
+                                         bt, offs, n_valid)
+
+    def attention():
+        return chunked_prefill_paged(q, cache.k_pool[0], cache.v_pool[0],
+                                     offs + n_valid, bt, offs)
+
+    for _ in range(2):
+        wave()
+    return wave, attention
+
+
+def wave_breakdown(model, device, *, rows=4, **kw) -> dict:
+    """``prefill_wave`` replayed from a CUDA graph, and the paged prefill
+    kernel's share of it: one launch per layer, timed alone at the wave's
+    shape with a cold L2.  Runs after the main path's launch counts were
+    read."""
+    from repro_torch.kernels.chunked_prefill import prefill_body
+    from repro_torch.models.layers import torch_dtype
+
+    cfg = model.cfg
+    wave, attention = prefill_wave(model, device, rows=rows, **kw)
+    wave_ms = graph_replay_ms(wave, "chunked-prefill wave")
+    k3_ms = Timer(device).ms(attention)
+    row = dict(rows=rows, **kw,
+               body=prefill_body(torch_dtype(cfg.dtype), cfg.head_dim,
+                                 cfg.head_dim),
+               graph_wave_ms=wave_ms, chunked_prefill_paged_ms=k3_ms,
+               chunked_prefill_paged_share_of_graph_wave=(
+                   cfg.num_layers * k3_ms / wave_ms))
+    log(f"[wave] {json.dumps(row)}")
     return row
 
 
@@ -858,6 +1008,12 @@ def phase_serve(cfg, device, *, seed=0, n_requests=8, max_new=32,
         raise AssertionError("free-list mode did not preempt")
     _require_launched(counts, ("paged_decode", "chunked_prefill_paged",
                                "flash_prefill"))
+    from repro_torch.kernels.chunked_prefill import prefill_body
+    from repro_torch.models.layers import torch_dtype
+
+    body = prefill_body(torch_dtype(cfg.dtype), cfg.head_dim, cfg.head_dim)
+    log(f"[serve] {cfg.name}'s prefills ran the {body} body "
+        f"({cfg.dtype}, head_dim {cfg.head_dim})")
     base = streams["chunked-contiguous"]
     for label, toks in streams.items():
         same = sum(a == b for a, b in zip(base, toks))
@@ -866,6 +1022,8 @@ def phase_serve(cfg, device, *, seed=0, n_requests=8, max_new=32,
             "differently)")
     step_breakdown(model, device, max_seq_len=max_seq_len, page=block_size,
                    batch=max_batch)
+    wave_breakdown(model, device, rows=max_batch, chunk=256, context=384,
+                   max_seq_len=max_seq_len, page=block_size)
     return counts
 
 
@@ -959,7 +1117,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"]})
+            "shape": r["shape"], "body": r["body"]})
     log(f"[phase] total {time.perf_counter() - t_all:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,15 +34,16 @@ F = ctypes.c_float
 # C signature of every entry point: (argtypes), restype is c_int
 SIGNATURES: dict[str, dict[str, tuple]] = {
     "paged_attention": {
-        f"paged_decode_{t}": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P)
+        f"paged_decode_{t}": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F,
+                              P)
         for t in ("f32", "bf16")
     },
     "chunked_prefill": {
         **{f"chunked_prefill_paged_{t}":
-           (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P)
+           (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, P)
            for t in ("f32", "bf16")},
         **{f"flash_prefill_{t}":
-           (P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, P)
+           (P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, I, P)
            for t in ("f32", "bf16")},
     },
     "ssd_scan": {

@@ -9,7 +9,10 @@
   Dq != Dv.
 
 Both take CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the
-plain versions in ``kernels/ref.py``.
+plain versions in ``kernels/ref.py``.  Each launch runs one of the two
+bodies of the kernel, chosen by ``prefill_body`` from the dtype and the
+head dims alone: bf16 with Dq == Dv in {64, 128} runs on tensor cores
+(``mma.sync``), everything else on f32 FMAs.
 """
 from __future__ import annotations
 
@@ -18,6 +21,28 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+TENSOR_CORE_HEAD_DIMS = (64, 128)   # template instances of prefill_tc
+
+
+def prefill_body(dtype: torch.dtype, dq: int, dv: int) -> str:
+    """Which body of ``csrc/chunked_prefill.cu`` a launch runs:
+    ``"tensor-core"`` for bf16 with Dq == Dv in ``TENSOR_CORE_HEAD_DIMS``,
+    else ``"fma"`` (f32, whose limit tensor cores would miss by rounding
+    through TF32, and bf16 with other head dims)."""
+    if dtype == torch.bfloat16 and dq == dv and dq in TENSOR_CORE_HEAD_DIMS:
+        return "tensor-core"
+    return "fma"
+
+
+def _body_flag(name: str, q, tensors) -> int:
+    """1 for the tensor-core body, whose 16-byte copies need 16-byte
+    aligned bases; else 0."""
+    if prefill_body(q.dtype, q.shape[-1], tensors[-1].shape[-1]) == "fma":
+        return 0
+    if any(t.data_ptr() % 16 for t in (q, *tensors)):
+        raise ValueError(f"{name}: the tensor-core body needs q/k/v "
+                         "16-byte aligned")
+    return 1
 
 
 def _check(name: str, tensors: dict, ints: dict) -> None:
@@ -61,13 +86,14 @@ def chunked_prefill_paged(q: torch.Tensor, k_pool: torch.Tensor,
             f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)} block_tables "
             f"{tuple(block_tables.shape)} (head_dim <= 256, H % Hkv == 0)")
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    tc = _body_flag("chunked_prefill_paged", q, (k_pool, v_pool))
     out = torch.empty((r, c, h, dv), dtype=q.dtype, device=q.device)
     fn = getattr(_build.load("chunked_prefill"),
                  f"chunked_prefill_paged_{_DTYPES[q.dtype]}")
     code = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
               lengths.data_ptr(), q_offsets.data_ptr(),
               block_tables.data_ptr(), out.data_ptr(), r, c, h, hkv, d, dv,
-              page, block_tables.shape[1], scale,
+              page, block_tables.shape[1], scale, tc,
               torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "chunked_prefill_paged")
     chunked_prefill_paged.launches += 1
@@ -99,12 +125,13 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"{tuple(k.shape)} v {tuple(v.shape)} "
             "(head_dim <= 256, H % Hkv == 0)")
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    tc = _body_flag("flash_prefill", q, (k, v))
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     fn = getattr(_build.load("chunked_prefill"),
                  f"flash_prefill_{_DTYPES[q.dtype]}")
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
               skv, h, hkv, d, dv, scale, int(q_offset), int(bool(causal)),
-              int(sliding_window or 0),
+              int(sliding_window or 0), tc,
               torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "flash_prefill")
     flash_prefill.launches += 1

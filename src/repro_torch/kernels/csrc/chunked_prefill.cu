@@ -1,6 +1,6 @@
-// Prefill attention for Hopper (sm_90a): a tile of BQ query rows of one
-// head walks its visible keys in BK-token tiles with an online softmax.
-// One kernel body, two layouts:
+// Prefill attention for Hopper (sm_90a): a tile of 64 query rows of one
+// head walks its visible keys in 64-token tiles with an online softmax.
+// One source, two layouts, each with two entry points:
 //
 //   * chunked_prefill_paged -- replaces src/repro/kernels/
 //     chunked_prefill.py:_kernel_paged.  A prefill chunk q [R, C, H, Dq]
@@ -20,29 +20,57 @@
 //     next block's correction factor.
 //
 // Bound on the H100: at the serving shapes (head_dim 64, a few hundred
-// keys per query) attention does ~Skv/2 FLOPs per byte of K/V and Q, so
-// it sits near the ridge of bf16 tensor-core peak and memory rate; this
-// first kernel computes with plain f32 FMAs from shared memory, so it is
-// bound by its own FMA issue rate, far above either floor.  What the
-// design does about the traffic: each K/V tile is loaded once into
-// shared memory (row-padded against bank conflicts) and reused by all BQ
-// query rows of the tile, one thread per key resolving the key's row
-// first so that no element load waits on a block-table load; the key
-// loop stops at the causal limit of the tile's last row (and starts at
-// the window's first key), so masked tiles are never read.  What is left for later: mma.sync / wgmma tensor
-// cores, a Q tile shared by the rep query heads of a kv group, TMA loads.
+// keys per query) attention does ~Skv/2 FLOPs per byte of Q, K and V, so
+// it sits near the ridge of the bf16 tensor-core peak (989 TFLOP/s) and
+// the memory rate (3.35 TB/s); the causal B4 x S512 prefill is 4.3 GFLOP,
+// 0.064 ms on the 67 TFLOP/s f32 FMA pipe alone.  So bf16 runs on tensor
+// cores, in two bodies chosen by the wrapper from (dtype, Dq, Dv) alone:
+//
+//   * prefill_tc, bf16 with Dq == Dv in {64, 128} (template on D): the
+//     FlashAttention-2 arrangement on mma.sync.m16n8k16.  4 warps take 64
+//     query rows, 16 each; the Q tile is staged once and its A fragments
+//     stay in registers (ldmatrix) for the whole key loop.  S = Q.K^T
+//     accumulates in f32 registers; the online softmax runs there too,
+//     the row max and sum reduced over the 4 lanes of a quad.  P is
+//     rounded to bf16 in the registers that hold it (as the plain version
+//     rounds its probabilities to v's dtype before the PV product) and is
+//     the A operand of P.V, with V read by ldmatrix.trans; O accumulates
+//     in f32 registers.  K and V tiles are double-buffered in shared
+//     memory by 16-byte cp.async, so tile j+1 loads while tile j computes;
+//     each shared row is padded by 16 bytes, so the 8 rows an ldmatrix
+//     phase reads fall in 8 different bank groups.  In the paged layout
+//     each thread resolves the pool row of the keys it copies through the
+//     block table once per tile.  Only tiles that cross the diagonal, the
+//     window's edge, the length or the ragged tail mask element by
+//     element; keys past the end are zero-filled by the copy.  The grid
+//     is (H, query tiles, B): the rep query heads of one kv head are
+//     neighbours in launch order and share each K/V tile through L2, and
+//     each sequence's longest causal tiles are launched first.  The
+//     softmax weights are exp2(s * scale * log2 e - max), one FMA and one
+//     ex2.approx each.
+//   * prefill_fma, everything else (f32, whose limit against the plain
+//     version is atol 2e-5 where tensor cores would round through TF32;
+//     bf16 with other head dims such as an MLA-shaped Dq 96 / Dv 64):
+//     f32 FMAs from shared memory, each K/V tile loaded once and reused
+//     by the block's 64 query rows.
+//
+// Both bodies read only the keys a tile can see: the key loop runs from
+// kv_begin (the window's first key) to kv_end (the causal limit of the
+// tile's last row, or the length), so masked tiles are never read.  A
+// score at or below NEG_INF / 2 weighs exactly 0, the denominator is
+// clamped at 1e-30, and offsets and lengths are runtime values, so one
+// build serves every chunk.
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace repro_torch {
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int BQ = 64;   // query rows per block
-constexpr int BK = 32;   // keys per tile: one per lane in the softmax
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct PagedArgs {
   const int* lengths;       // [R]
@@ -59,12 +87,280 @@ struct DenseArgs {
   int window;               // <= 0: no sliding window
 };
 
+// The keys a query tile [q0, q0 + n_rows) of sequence b can see:
+// [kv_begin, kv_end), and the absolute position of its first row.
+struct KeyRange {
+  int off, kv_begin, kv_end;
+};
+
+template <bool PAGED>
+__device__ __forceinline__ KeyRange key_range(const PagedArgs& pa,
+                                              const DenseArgs& da, int b,
+                                              int q0, int n_rows) {
+  KeyRange kr{0, 0, 0};
+  if (PAGED) {
+    kr.off = pa.q_offsets[b];
+    const int len = min(pa.lengths[b], pa.pages_per_seq * pa.page);
+    kr.kv_end = min(len, kr.off + q0 + n_rows);
+  } else {
+    kr.off = da.q_offset;
+    kr.kv_end = da.causal ? min(da.skv, kr.off + q0 + n_rows) : da.skv;
+    if (da.window > 0) kr.kv_begin = max(0, kr.off + q0 - da.window + 1);
+  }
+  return kr;
+}
+
+// Row (in units of head_dim) of key ``kpos`` of kv head g in K or V.
+template <bool PAGED>
+__device__ __forceinline__ size_t key_row(const PagedArgs& pa,
+                                          const DenseArgs& da, int b, int g,
+                                          int hkv, int kpos) {
+  if (PAGED) {
+    const int pid =
+        pa.block_tables[(size_t)b * pa.pages_per_seq + kpos / pa.page];
+    return ((size_t)pid * pa.page + kpos % pa.page) * hkv + g;
+  }
+  return ((size_t)b * da.skv + kpos) * hkv + g;
+}
+
+// ---------------------------------------------------------------------------
+// prefill_tc: bf16 on tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tc_body {
+
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BQ = 16 * WARPS;  // query rows per block, 16 per warp
+constexpr int BK = 64;          // keys per tile
+constexpr int PAD = 8;          // bf16 elements (16 bytes) after each row
+
+constexpr size_t smem_bytes(int d) {
+  // Q tile, then two K tiles and two V tiles
+  return sizeof(__nv_bfloat16) * (size_t)(BQ + 4 * BK) * (d + PAD);
+}
+
+}  // namespace tc_body
+
+template <int D, bool PAGED>
+__global__ void __launch_bounds__(tc_body::THREADS)
+prefill_tc(const __nv_bfloat16* __restrict__ q,
+           const __nv_bfloat16* __restrict__ k,
+           const __nv_bfloat16* __restrict__ v,
+           __nv_bfloat16* __restrict__ out, PagedArgs pa, DenseArgs da,
+           int sq, int h, int hkv, float scale) {
+  using namespace tc_body;
+  constexpr int LD = D + PAD;         // shared row stride, elements
+  constexpr int CPR = D / 8;          // 16-byte chunks per row
+  constexpr int RPP = THREADS / CPR;  // rows per copy pass
+  constexpr int KSTEPS = D / 16;      // k-steps of Q.K^T
+  constexpr int NT = BK / 8;          // 8-key n-tiles of S
+  constexpr int OT = D / 8;           // 8-column n-tiles of O
+  static_assert(D % 16 == 0 && THREADS % CPR == 0 && BK % RPP == 0, "tile");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][LD]
+  __nv_bfloat16* ks = qs + BQ * LD;      // [2][BK][LD]
+  __nv_bfloat16* vs = ks + 2 * BK * LD;  // [2][BK][LD]
+
+  const int hq = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest tiles first
+  const int b = blockIdx.z;
+  const int g = hq / (h / hkv);
+  const int n_rows = min(BQ, sq - q0);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int qr = lane >> 2;  // this lane's row within an 8-row group
+  const int qc = lane & 3;   // its column pair within an 8-column tile
+
+  const KeyRange kr = key_range<PAGED>(pa, da, b, q0, n_rows);
+  const bool causal = PAGED || da.causal;
+  const int window = PAGED ? 0 : da.window;
+  const int n_tiles =
+      kr.kv_end > kr.kv_begin ? (kr.kv_end - kr.kv_begin + BK - 1) / BK : 0;
+
+  // copy roles: thread -> one 16-byte column chunk of rows r0, r0 + RPP..
+  const int cc = (tid % CPR) * 8;
+  const int r0 = tid / CPR;
+  for (int r = r0; r < BQ; r += RPP) {
+    const bool ok = r < n_rows;
+    cp_async16(qs + r * LD + cc,
+               q + (((size_t)b * sq + q0 + (ok ? r : 0)) * h + hq) * D + cc,
+               ok);
+  }
+  auto load_kv = [&](int k0, int buf) {
+#pragma unroll
+    for (int r = r0; r < BK; r += RPP) {
+      const int kpos = k0 + r;
+      const bool ok = kpos < kr.kv_end;
+      const size_t row =
+          ok ? key_row<PAGED>(pa, da, b, g, hkv, kpos) * D + cc : 0;
+      cp_async16(ks + (buf * BK + r) * LD + cc, k + row, ok);
+      cp_async16(vs + (buf * BK + r) * LD + cc, v + row, ok);
+    }
+  };
+  if (n_tiles > 0) load_kv(kr.kv_begin, 0);
+  cp_async_commit();  // group 0: Q and the first K/V tile
+
+  const float scale2 = scale * LOG2E;  // scores in log2 units
+  uint32_t qf[KSTEPS][4];
+  float o[OT][4];
+#pragma unroll
+  for (int n = 0; n < OT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};  // rows qr and qr + 8, scaled
+  float l[2] = {0.f, 0.f};          // this lane's share of the row sums
+  const int qpos0 = kr.off + q0 + warp * 16 + qr;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = kr.kv_begin + t * BK;
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) load_kv(k0 + BK, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but the tile just issued has landed
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk)
+        ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                                (lane >> 4) * 8);
+    }
+
+    // S = Q . K^T over the tile's 64 keys
+    const __nv_bfloat16* kb = ks + buf * BK * LD;
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, kb + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16_16816(s[2 * np], qf[kk], bf[0], bf[1]);
+        mma_bf16_16816(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+      }
+    }
+
+    // mask only where the tile crosses an edge
+    const bool edge =
+        k0 + BK > kr.kv_end || (causal && k0 + BK - 1 > kr.off + q0) ||
+        (window > 0 && k0 <= kr.off + q0 + BQ - 1 - window);
+    if (edge) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + n * 8 + qc * 2 + (e & 1);
+          const int qpos = qpos0 + (e >> 1) * 8;
+          const bool ok = kpos < kr.kv_end && (!causal || kpos <= qpos) &&
+                          (window <= 0 || kpos > qpos - window);
+          if (!ok) s[n][e] = NEG_INF;
+        }
+    }
+
+    // online softmax in registers; a row lives on the 4 lanes of a quad.
+    // Scores stay unscaled: the max is taken on them and the weight is
+    // exp2(s * scale2 - max * scale2), one FMA and one ex2 per score.
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * hr], s[n][2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // a fully masked row keeps m at NEG_INF
+      const float m_new =
+          fmaxf(m[hr], mx <= NEG_INF * 0.5f ? NEG_INF : mx * scale2);
+      const float corr = exp2_approx(m[hr] - m_new);
+      m[hr] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+          const float x = s[n][e];
+          const float p =
+              x <= NEG_INF * 0.5f ? 0.f : exp2_approx(fmaf(x, scale2, -m_new));
+          s[n][e] = p;
+          sum += p;
+        }
+      }
+      l[hr] = l[hr] * corr + sum;
+#pragma unroll
+      for (int n = 0; n < OT; ++n) {
+        o[n][2 * hr] *= corr;
+        o[n][2 * hr + 1] *= corr;
+      }
+    }
+
+    // O += P . V, P rounded to bf16 where it lies
+    const __nv_bfloat16* vb = vs + buf * BK * LD;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < OT / 2; ++dp) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(
+            bf, vb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                    dp * 16 + (lane >> 4) * 8);
+        mma_bf16_16816(o[2 * dp], a, bf[0], bf[1]);
+        mma_bf16_16816(o[2 * dp + 1], a, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float sum = l[hr];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    const int r = warp * 16 + qr + hr * 8;
+    if (r < n_rows) {
+      __nv_bfloat16* dst = out + (((size_t)b * sq + q0 + r) * h + hq) * D;
+#pragma unroll
+      for (int n = 0; n < OT; ++n)
+        *reinterpret_cast<uint32_t*>(dst + n * 8 + qc * 2) =
+            pack_bf16(o[n][2 * hr] * inv, o[n][2 * hr + 1] * inv);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// prefill_fma: f32 FMAs from shared memory (f32, other head dims)
+// ---------------------------------------------------------------------------
+
+namespace fma_body {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int BQ = 64;   // query rows per block
+constexpr int BK = 32;   // keys per tile: one per lane in the softmax
+
+size_t smem_bytes(int d, int dv) {
+  return sizeof(float) * ((size_t)BQ * d + (size_t)BK * (d + 1) +
+                          (size_t)BK * dv + (size_t)BQ * BK +
+                          (size_t)BQ * dv + 3 * (size_t)BQ);
+}
+
+}  // namespace fma_body
+
 template <typename T, bool PAGED>
-__global__ void __launch_bounds__(THREADS)
-prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ out, PagedArgs pa,
-               DenseArgs da, int sq, int h, int hkv, int d, int dv,
-               float scale) {
+__global__ void __launch_bounds__(fma_body::THREADS)
+prefill_fma(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, T* __restrict__ out, PagedArgs pa,
+            DenseArgs da, int sq, int h, int hkv, int d, int dv,
+            float scale) {
+  using namespace fma_body;
   const int b = blockIdx.x;
   const int hq = blockIdx.y;
   const int q0 = blockIdx.z * BQ;
@@ -87,17 +383,8 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* l = m + BQ;             // [BQ]
   float* corr = l + BQ;          // [BQ]
 
-  int off, len, kv_begin = 0, kv_end;
-  if (PAGED) {
-    off = pa.q_offsets[b];
-    len = min(pa.lengths[b], pa.pages_per_seq * pa.page);
-    kv_end = min(len, off + q0 + n_rows);
-  } else {
-    off = da.q_offset;
-    len = da.skv;
-    kv_end = da.causal ? min(len, off + q0 + n_rows) : len;
-    if (da.window > 0) kv_begin = max(0, off + q0 - da.window + 1);
-  }
+  const KeyRange kr = key_range<PAGED>(pa, da, b, q0, n_rows);
+  const int off = kr.off, kv_end = kr.kv_end;
 
   for (int i = tid; i < BQ * d; i += THREADS) {
     const int r = i / d, c = i % d;
@@ -110,21 +397,12 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l[r] = 0.f;
   }
 
-  for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
+  for (int k0 = kr.kv_begin; k0 < kv_end; k0 += BK) {
     const int n_keys = min(BK, kv_end - k0);
     __syncthreads();  // previous tile's readers are done with ks/vs/s
     // one thread per key resolves its row (paged: page id from the
     // table), so the element loads below carry no dependent load
-    if (tid < n_keys) {
-      const int kpos = k0 + tid;
-      if (PAGED) {
-        const int pid =
-            pa.block_tables[(size_t)b * pa.pages_per_seq + kpos / pa.page];
-        rows[tid] = ((size_t)pid * pa.page + kpos % pa.page) * hkv + g;
-      } else {
-        rows[tid] = ((size_t)b * da.skv + kpos) * hkv + g;
-      }
-    }
+    if (tid < n_keys) rows[tid] = key_row<PAGED>(pa, da, b, g, hkv, k0 + tid);
     __syncthreads();
 #pragma unroll 4
     for (int i = tid; i < BK * d; i += THREADS) {
@@ -145,7 +423,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kpos = k0 + j;
       bool ok = r < n_rows && kpos < kv_end;
       if (PAGED) {
-        ok = ok && kpos <= qpos && kpos < len;
+        ok = ok && kpos <= qpos;
       } else {
         if (da.causal) ok = ok && kpos <= qpos;
         if (da.window > 0) ok = ok && kpos > qpos - da.window;
@@ -153,8 +431,8 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float acc_s = 0.f;
       if (ok) {
         const float* qr = qs + r * d;
-        const float* kr = ks + j * dp;
-        for (int c = 0; c < d; ++c) acc_s += qr[c] * kr[c];
+        const float* kr_ = ks + j * dp;
+        for (int c = 0; c < d; ++c) acc_s += qr[c] * kr_[c];
       }
       s[i] = ok ? acc_s * scale : NEG_INF;
     }
@@ -195,22 +473,50 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-size_t smem_bytes(int d, int dv) {
-  return sizeof(float) * ((size_t)BQ * d + (size_t)BK * (d + 1) +
-                          (size_t)BK * dv + (size_t)BQ * BK +
-                          (size_t)BQ * dv + 3 * (size_t)BQ);
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <int D, bool PAGED>
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              PagedArgs pa, DenseArgs da, int nb, int sq, int h, int hkv,
+              float scale, cudaStream_t st) {
+  const size_t smem = tc_body::smem_bytes(D);
+  cudaError_t err = allow_smem(prefill_tc<D, PAGED>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(h, (sq + tc_body::BQ - 1) / tc_body::BQ, nb);
+  prefill_tc<D, PAGED><<<grid, tc_body::THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      pa, da, sq, h, hkv, scale);
+  return (int)cudaGetLastError();
 }
 
+// ``tensor_cores`` is the wrapper's choice of body; the tensor-core body
+// exists for bf16 with Dq == Dv in {64, 128} only, and asking for it
+// elsewhere is an error, never a silent switch to the other body.
 template <typename T, bool PAGED>
 int launch(const void* q, const void* k, const void* v, void* out,
            PagedArgs pa, DenseArgs da, int nb, int sq, int h, int hkv, int d,
-           int dv, float scale, void* stream) {
-  const size_t smem = smem_bytes(d, dv);
-  cudaError_t err = allow_smem(prefill_kernel<T, PAGED>, smem);
+           int dv, float scale, int tensor_cores, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tensor_cores) {
+    if (!std::is_same<T, __nv_bfloat16>::value || d != dv)
+      return (int)cudaErrorInvalidValue;
+    if (d == 64)
+      return launch_tc<64, PAGED>(q, k, v, out, pa, da, nb, sq, h, hkv, scale,
+                                  st);
+    if (d == 128)
+      return launch_tc<128, PAGED>(q, k, v, out, pa, da, nb, sq, h, hkv,
+                                   scale, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = fma_body::smem_bytes(d, dv);
+  cudaError_t err = allow_smem(prefill_fma<T, PAGED>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(nb, h, (sq + BQ - 1) / BQ);
-  prefill_kernel<T, PAGED><<<grid, THREADS, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(nb, h, (sq + fma_body::BQ - 1) / fma_body::BQ);
+  prefill_fma<T, PAGED><<<grid, fma_body::THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), pa, da, sq, h, hkv, d,
       dv, scale);
@@ -222,68 +528,69 @@ int launch_paged(const void* q, const void* k_pool, const void* v_pool,
                  const void* lengths, const void* q_offsets,
                  const void* block_tables, void* out, int r, int sq, int h,
                  int hkv, int d, int dv, int page, int pages_per_seq,
-                 float scale, void* stream) {
+                 float scale, int tensor_cores, void* stream) {
   PagedArgs pa{static_cast<const int*>(lengths),
                static_cast<const int*>(q_offsets),
                static_cast<const int*>(block_tables), pages_per_seq, page};
   DenseArgs da{0, 0, 1, 0};
   return launch<T, true>(q, k_pool, v_pool, out, pa, da, r, sq, h, hkv, d,
-                         dv, scale, stream);
+                         dv, scale, tensor_cores, stream);
 }
 
 template <typename T>
 int launch_dense(const void* q, const void* k, const void* v, void* out,
                  int b, int sq, int skv, int h, int hkv, int d, int dv,
                  float scale, int q_offset, int causal, int window,
-                 void* stream) {
+                 int tensor_cores, void* stream) {
   PagedArgs pa{nullptr, nullptr, nullptr, 0, 1};
   DenseArgs da{skv, q_offset, causal, window};
   return launch<T, false>(q, k, v, out, pa, da, b, sq, h, hkv, d, dv, scale,
-                          stream);
+                          tensor_cores, stream);
 }
 
 }  // namespace
 }  // namespace repro_torch
 
-// C entry points, bound with ctypes.  Each returns cudaGetLastError()
-// after the launch (0 on success).
+// C entry points, bound with ctypes.  ``tensor_cores`` selects the body
+// (1: prefill_tc, bf16 only); each returns cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int chunked_prefill_paged_f32(
     const void* q, const void* k_pool, const void* v_pool,
     const void* lengths, const void* q_offsets, const void* block_tables,
     void* out, int r, int sq, int h, int hkv, int d, int dv, int page,
-    int pages_per_seq, float scale, void* stream) {
-  return repro_torch::launch_paged<float>(q, k_pool, v_pool, lengths,
-                                          q_offsets, block_tables, out, r, sq,
-                                          h, hkv, d, dv, page, pages_per_seq,
-                                          scale, stream);
+    int pages_per_seq, float scale, int tensor_cores, void* stream) {
+  return repro_torch::launch_paged<float>(
+      q, k_pool, v_pool, lengths, q_offsets, block_tables, out, r, sq, h, hkv,
+      d, dv, page, pages_per_seq, scale, tensor_cores, stream);
 }
 
 extern "C" int chunked_prefill_paged_bf16(
     const void* q, const void* k_pool, const void* v_pool,
     const void* lengths, const void* q_offsets, const void* block_tables,
     void* out, int r, int sq, int h, int hkv, int d, int dv, int page,
-    int pages_per_seq, float scale, void* stream) {
+    int pages_per_seq, float scale, int tensor_cores, void* stream) {
   return repro_torch::launch_paged<__nv_bfloat16>(
       q, k_pool, v_pool, lengths, q_offsets, block_tables, out, r, sq, h,
-      hkv, d, dv, page, pages_per_seq, scale, stream);
+      hkv, d, dv, page, pages_per_seq, scale, tensor_cores, stream);
 }
 
 extern "C" int flash_prefill_f32(const void* q, const void* k, const void* v,
                                  void* out, int b, int sq, int skv, int h,
                                  int hkv, int d, int dv, float scale,
                                  int q_offset, int causal, int window,
-                                 void* stream) {
+                                 int tensor_cores, void* stream) {
   return repro_torch::launch_dense<float>(q, k, v, out, b, sq, skv, h, hkv, d,
                                           dv, scale, q_offset, causal, window,
-                                          stream);
+                                          tensor_cores, stream);
 }
 
 extern "C" int flash_prefill_bf16(const void* q, const void* k,
                                   const void* v, void* out, int b, int sq,
                                   int skv, int h, int hkv, int d, int dv,
                                   float scale, int q_offset, int causal,
-                                  int window, void* stream) {
+                                  int window, int tensor_cores,
+                                  void* stream) {
   return repro_torch::launch_dense<__nv_bfloat16>(
       q, k, v, out, b, sq, skv, h, hkv, d, dv, scale, q_offset, causal,
-      window, stream);
+      window, tensor_cores, stream);
 }

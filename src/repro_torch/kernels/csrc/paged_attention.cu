@@ -1,5 +1,5 @@
 // Paged decode attention for Hopper (sm_90a): one query token per
-// sequence attends over its K/V pages with an online softmax.
+// sequence attends over its K/V pages, in one launch.
 //
 // Replaces two TPU kernels of src/repro/kernels/paged_attention.py:
 //   * _kernel     (contiguous per-sequence pages [B, P, page, Hkv, D]);
@@ -8,29 +8,41 @@
 // sequence b is pool page b * P + p, the arithmetic of the contiguous
 // slot-region pools (src/repro/models/attention.py:250-251).
 //
-// Bound on the H100: bytes.  A decode step does 2 FLOPs per K or V byte
-// read (4 * D FLOPs per token and head group against 2 * D values), far
-// below the ~295 FLOP/byte ridge, so the floor is reading each valid K/V
-// token once at 3.35 TB/s.  What the design does about it:
-//   * the Pallas grid (b, h, page) walked pages in order, carrying the
-//     softmax state, and re-read each page per query head.  Here the grid
-//     is (B, Hkv, P): one block per page slot, in parallel (B * Hkv
-//     blocks alone leave most of the 132 SMs idle at serving batch
-//     sizes).  A block reads its page of its kv head ONCE for all
-//     rep = H / Hkv query heads (8 on TinyLlama) and writes its partial
-//     (max, denominator, numerators); a second kernel combines the pages
-//     of each (sequence, kv head).  Pages past the sequence's length are
-//     not read at all, and the last page's reads stop at the length;
-//   * K and V are staged in shared memory in tiles of TILE tokens, one
-//     warp per token and lanes on neighbouring elements, so each token's
-//     row is one coalesced read; scores and the weighted V sum then run
-//     from shared memory.
-// What it does not do yet: overlap a tile's loads with the previous
-// tile's math (cp.async / TMA), or vector (16-byte) loads.
+// Bound on the H100: bytes, and below them latency.  A decode step does
+// 2 FLOPs per K or V byte read (4 * D FLOPs per token and head group
+// against 2 * D values), far below the ~295 FLOP/byte ridge, so the floor
+// is reading each valid K/V token once at 3.35 TB/s: 0.46 us for TinyLlama
+// at batch 4 and ~350 cached tokens.  That is far less than a launch, so
+// what the design removes is fixed cost:
+//   * split by tokens: the grid is (B, Hkv, ceil(P * page / SPLIT)) with
+//     SPLIT = 64 tokens, so each live block does one tile and the blocks
+//     past a sequence's length exit at once.  A block reads its tokens of
+//     its kv head ONCE for all rep = H / Hkv query heads (8 on TinyLlama);
+//   * short dependent chains: the length, the pool row of each of the
+//     split's tokens (through the block table) and the query rows are
+//     loaded at once; then the split's K rows, then its V rows, are issued
+//     as 16-byte cp.async copies before any math, so V is in flight while
+//     the scores and the softmax run; shared rows are padded by 16 bytes,
+//     so the 8 rows a quarter-warp reads fall in 8 different bank groups;
+//   * one launch: each live split writes its partial (numerators, max,
+//     denominator per query head) and takes a ticket from an atomic
+//     counter of its (sequence, kv head); the last to arrive combines the
+//     partials and writes the output, then resets the counter to 0 for
+//     the next call or CUDA-graph replay.  It reads the partials' maxima
+//     and denominators once into shared memory, so its loads of the
+//     numerators are independent.  A sequence of one split writes its
+//     output directly;
+//   * arithmetic: f32 FMAs from registers and shared memory are enough at
+//     this intensity; one structure serves f32 and bf16.  The query rows
+//     are converted to f32 in shared memory once and read by broadcast
+//     (every lane of a warp reads the same element).  8 warps: at the
+//     serving shape fewer blocks are live than the card has SMs, so each
+//     block's own latency is the time, and 8 warps shorten it.
 //
 // Semantics kept from the TPU kernels: masked scores contribute exactly
-// 0, the denominator is clamped at 1e-30 (so lengths == 0 gives zeros),
-// query head h reads kv head h / rep, f32 accumulation throughout.
+// 0, the denominator is clamped at 1e-30, a sequence with lengths == 0
+// writes zeros, query head h reads kv head h / rep, f32 accumulation
+// throughout.
 
 #include <stdint.h>
 
@@ -41,186 +53,283 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int TILE = 64;  // tokens staged per step; two per lane in softmax
+constexpr int SPLIT = 64;  // tokens per block: two per lane in the softmax
+constexpr int HB = 8;      // query heads one thread carries at once
+static_assert(SPLIT == 64 && THREADS % SPLIT == 0, "softmax assumes 2x32");
 
-// Partial results of one page: per query head, dv numerators followed by
-// the running max and the denominator.
+// Partial results of one split: per query head, dv numerators followed
+// by the split's max and denominator.
 __host__ __device__ inline int part_stride(int dv) { return dv + 2; }
+
+__device__ __forceinline__ void load_chunk(const float* p, float (&f)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  f[0] = x.x;
+  f[1] = x.y;
+  f[2] = x.z;
+  f[3] = x.w;
+}
+
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
+                                           float (&f)[8]) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-paged_decode_pages(const T* __restrict__ q,        // [B, H, D]
-                   const T* __restrict__ k_pool,   // [N, page, Hkv, D]
-                   const T* __restrict__ v_pool,   // [N, page, Hkv, Dv]
-                   const int* __restrict__ lengths,       // [B]
-                   const int* __restrict__ block_tables,  // [B, P] or null
-                   float* __restrict__ part,  // [B, Hkv, P, rep, Dv + 2]
-                   int pages_per_seq, int page, int h, int hkv, int d,
-                   int dv, float scale) {
+paged_decode_kernel(const T* __restrict__ q,        // [B, H, D]
+                    const T* __restrict__ k_pool,   // [N, page, Hkv, D]
+                    const T* __restrict__ v_pool,   // [N, page, Hkv, Dv]
+                    const int* __restrict__ lengths,       // [B]
+                    const int* __restrict__ block_tables,  // [B, P] or null
+                    float* __restrict__ part,  // [B, Hkv, splits, rep, Dv+2]
+                    int* __restrict__ counters,            // [B * Hkv], 0
+                    T* __restrict__ out,                   // [B, H, Dv]
+                    int pages_per_seq, int page, int h, int hkv, int d,
+                    int dv, float scale) {
+  constexpr int CH = 16 / sizeof(T);  // elements per 16-byte copy
   const int b = blockIdx.x;
   const int g = blockIdx.y;
-  const int p = blockIdx.z;
+  const int s = blockIdx.z;
+  const int splits = gridDim.z;
   const int rep = h / hkv;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int dp = d + 1;  // padded K row: neighbouring tokens, other banks
+  const int t0 = s * SPLIT;
 
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [rep, D] this group's queries
-  float* ks = qs + rep * d;         // [TILE, D + 1]
-  float* vs = ks + TILE * dp;       // [TILE, Dv]
-  float* sc = vs + TILE * dv;       // [rep, TILE] scores, then weights
-  float* acc = sc + rep * TILE;     // [rep, Dv] running numerators
-  float* m = acc + rep * dv;        // [rep] running max
-  float* l = m + rep;               // [rep] running denominator
-  float* corr = l + rep;            // [rep] this tile's correction
+  const int kld = d + CH, vld = dv + CH;  // padded shared rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);         // [SPLIT][D + pad]
+  T* vs = ks + SPLIT * kld;                       // [SPLIT][Dv + pad]
+  float* qs = reinterpret_cast<float*>(vs + SPLIT * vld);  // [rep][D]
+  float* sc = qs + rep * d;       // [rep][SPLIT] scores, then weights
+  float* ms = sc + rep * SPLIT;   // [rep] split max, then 1 / denominator
+  float* ls = ms + rep;           // [rep] split denominator
+  float* cw = ls + rep;           // [splits][rep] combine weights
+  float* cl = cw + splits * rep;  // [splits][rep] partial denominators
+  __shared__ size_t rows[SPLIT];  // pool row of each token of the split
+  __shared__ int last;
 
+  // 0. three independent loads at once: the length, the pool row of each
+  //    token of the split (through the block table), the query rows
   const int len = max(0, min(lengths[b], pages_per_seq * page));
-  const int t_end = min(len - p * page, page);   // valid tokens of the page
-  if (t_end > 0) {
-    for (int i = tid; i < rep * d; i += THREADS) {
-      const int r = i / d, j = i % d;
-      qs[i] = to_f32(q[((size_t)b * h + g * rep + r) * d + j]);
-    }
+  if (tid < SPLIT) {
+    const int tok = min(t0 + tid, pages_per_seq * page - 1);
+    const int p = tok / page;
+    const int pid = block_tables != nullptr
+                        ? block_tables[(size_t)b * pages_per_seq + p]
+                        : b * pages_per_seq + p;
+    rows[tid] = ((size_t)pid * page + tok % page) * hkv + g;
   }
-  for (int i = tid; i < rep * dv; i += THREADS) acc[i] = 0.f;
-  for (int r = tid; r < rep; r += THREADS) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
+  const T* qg = q + ((size_t)b * h + (size_t)g * rep) * d;
+  for (int i = tid; i < rep * d; i += THREADS) qs[i] = to_f32(qg[i]);
+  const int n_live = (len + SPLIT - 1) / SPLIT;
+  T* og = out + ((size_t)b * h + (size_t)g * rep) * dv;
+  if (len == 0) {
+    if (s == 0)
+      for (int i = tid; i < rep * dv; i += THREADS) og[i] = from_f32<T>(0.f);
+    return;
   }
-  const int pid = block_tables != nullptr
-                      ? block_tables[(size_t)b * pages_per_seq + p]
-                      : b * pages_per_seq + p;
-  const T* kp = k_pool + (size_t)pid * page * hkv * d;
-  const T* vp = v_pool + (size_t)pid * page * hkv * dv;
+  if (s >= n_live) return;
+  const int n_tok = min(SPLIT, len - t0);
+  __syncthreads();
 
-  for (int t0 = 0; t0 < t_end; t0 += TILE) {
-    const int n_tok = min(TILE, t_end - t0);
-    __syncthreads();  // the previous tile's readers are done
-    for (int t = warp; t < n_tok; t += WARPS) {
-      const T* kr = kp + ((size_t)(t0 + t) * hkv + g) * d;
-      const T* vr = vp + ((size_t)(t0 + t) * hkv + g) * dv;
-      for (int c = lane; c < d; c += 32) ks[t * dp + c] = to_f32(kr[c]);
-      for (int c = lane; c < dv; c += 32) vs[t * dv + c] = to_f32(vr[c]);
-    }
-    __syncthreads();
+  // 1. the split's K rows, then its V rows, as 16-byte copies
+  const int kc = d / CH, vc = dv / CH;
+  for (int i = tid; i < n_tok * kc; i += THREADS) {
+    const int j = i / kc, c = (i - j * kc) * CH;
+    cp_async16(ks + j * kld + c, k_pool + rows[j] * d + c);
+  }
+  cp_async_commit();
+  for (int i = tid; i < n_tok * vc; i += THREADS) {
+    const int j = i / vc, c = (i - j * vc) * CH;
+    cp_async16(vs + j * vld + c, v_pool + rows[j] * dv + c);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // K has landed
+  __syncthreads();
 
-    // scores: a warp covers 32 neighbouring tokens of one query head
-    for (int i = tid; i < rep * TILE; i += THREADS) {
-      const int r = i / TILE, t = i % TILE;
-      float s = NEG_INF;
-      if (t < n_tok) {
-        const float* qr = qs + r * d;
-        const float* kr = ks + t * dp;
-        float a = 0.f;
-        for (int c = 0; c < d; ++c) a += qr[c] * kr[c];
-        s = a * scale;
+  // 2. scores: thread -> token j, query heads r_first + u * (THREADS/SPLIT)
+  {
+    constexpr int RS = THREADS / SPLIT;
+    const int j = tid % SPLIT;
+    for (int r0 = tid / SPLIT; r0 < rep; r0 += RS * HB) {
+      float acc[HB];
+#pragma unroll
+      for (int u = 0; u < HB; ++u) acc[u] = 0.f;
+      if (j < n_tok) {
+        const T* kr = ks + j * kld;
+        for (int c = 0; c < d; c += CH) {
+          float kf[CH];
+          load_chunk(kr + c, kf);
+#pragma unroll
+          for (int u = 0; u < HB; ++u) {
+            const int r = r0 + u * RS;
+            if (r < rep) {
+              const float* qr = qs + r * d + c;
+#pragma unroll
+              for (int e = 0; e < CH; e += 4) {
+                const float4 qv = *reinterpret_cast<const float4*>(qr + e);
+                acc[u] += qv.x * kf[e] + qv.y * kf[e + 1] +
+                          qv.z * kf[e + 2] + qv.w * kf[e + 3];
+              }
+            }
+          }
+        }
       }
-      sc[i] = s;
-    }
-    __syncthreads();
-
-    // online softmax, one warp per query head
-    for (int r = warp; r < rep; r += WARPS) {
-      float mx = NEG_INF;
-      for (int t = lane; t < TILE; t += 32) mx = fmaxf(mx, sc[r * TILE + t]);
-      mx = warp_max(mx);
-      const float m_prev = m[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < TILE; t += 32) {
-        const float w = softmax_weight(sc[r * TILE + t], m_new);
-        sc[r * TILE + t] = w;
-        sum += w;
+#pragma unroll
+      for (int u = 0; u < HB; ++u) {
+        const int r = r0 + u * RS;
+        if (r < rep) sc[r * SPLIT + j] = j < n_tok ? acc[u] * scale : NEG_INF;
       }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float c = expf(m_prev - m_new);
-        corr[r] = c;
-        l[r] = c * l[r] + sum;
-        m[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + weights @ V
-    for (int i = tid; i < rep * dv; i += THREADS) {
-      const int r = i / dv, j = i % dv;
-      const float* w = sc + r * TILE;
-      float a = acc[i] * corr[r];
-      for (int t = 0; t < n_tok; ++t) a += w[t] * vs[t * dv + j];
-      acc[i] = a;
     }
   }
   __syncthreads();
 
-  // this page's partial: an empty page leaves max NEG_INF, l 0, acc 0
-  const int ps = part_stride(dv);
-  float* dst =
-      part + (((size_t)b * hkv + g) * pages_per_seq + p) * rep * ps;
-  for (int i = tid; i < rep * dv; i += THREADS) {
-    const int r = i / dv, j = i % dv;
-    dst[r * ps + j] = acc[i];
-  }
-  for (int r = tid; r < rep; r += THREADS) {
-    dst[r * ps + dv] = m[r];
-    dst[r * ps + dv + 1] = l[r];
-  }
-}
-
-// out = sum_p exp(m_p - M) acc_p / max(sum_p exp(m_p - M) l_p, 1e-30),
-// M the largest page max.  Empty pages weigh 0; a sequence with no valid
-// token has every acc_p and l_p 0 and writes zeros.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-paged_decode_combine(const float* __restrict__ part, T* __restrict__ out,
-                     int pages_per_seq, int h, int hkv, int dv) {
-  const int b = blockIdx.x;
-  const int g = blockIdx.y;
-  const int rep = h / hkv;
-  const int ps = part_stride(dv);
-  const float* src = part + ((size_t)b * hkv + g) * pages_per_seq * rep * ps;
-  for (int i = threadIdx.x; i < rep * dv; i += THREADS) {
-    const int r = i / dv, j = i % dv;
-    float mx = NEG_INF;
-    for (int p = 0; p < pages_per_seq; ++p)
-      mx = fmaxf(mx, src[(p * rep + r) * ps + dv]);
-    float num = 0.f, den = 0.f;
-    for (int p = 0; p < pages_per_seq; ++p) {
-      const float* e = src + (p * rep + r) * ps;
-      const float w = expf(e[dv] - mx);
-      num += w * e[j];
-      den += w * e[dv + 1];
+  // 3. each head's softmax over the split, one warp per head
+  for (int r = warp; r < rep; r += WARPS) {
+    float* row = sc + r * SPLIT;
+    const float x0 = row[lane], x1 = row[lane + 32];
+    const float mx = warp_max(fmaxf(x0, x1));
+    const float w0 = softmax_weight(x0, mx), w1 = softmax_weight(x1, mx);
+    row[lane] = w0;
+    row[lane + 32] = w1;
+    const float sum = warp_sum(w0 + w1);
+    if (lane == 0) {
+      ms[r] = mx;
+      ls[r] = sum;
     }
-    out[((size_t)b * h + g * rep + r) * dv + j] =
-        from_f32<T>(num / fmaxf(den, 1e-30f));
   }
+  cp_async_wait<0>();  // V has landed
+  __syncthreads();
+
+  // 4. weighted V sum: thread -> column pair cp, heads r_first + u * hstep;
+  //    a single split writes the output, otherwise its partial
+  const int ps = part_stride(dv);
+  float* dst = part + (((size_t)b * hkv + g) * splits + s) * rep * ps;
+  const int npair = dv / 2;
+  const int hstep = THREADS / npair;
+  if (tid < hstep * npair) {
+    const int cp = tid % npair;
+    for (int r0 = tid / npair; r0 < rep; r0 += hstep * HB) {
+      float2 acc[HB];
+#pragma unroll
+      for (int u = 0; u < HB; ++u) acc[u] = make_float2(0.f, 0.f);
+#pragma unroll 4
+      for (int j = 0; j < n_tok; ++j) {
+        const float2 vv = load_pair(vs + j * vld + 2 * cp);
+#pragma unroll
+        for (int u = 0; u < HB; ++u) {
+          const int r = r0 + u * hstep;
+          if (r < rep) {
+            const float w = sc[r * SPLIT + j];
+            acc[u].x += w * vv.x;
+            acc[u].y += w * vv.y;
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < HB; ++u) {
+        const int r = r0 + u * hstep;
+        if (r >= rep) continue;
+        if (n_live == 1) {
+          const float inv = 1.f / fmaxf(ls[r], 1e-30f);
+          og[r * dv + 2 * cp] = from_f32<T>(acc[u].x * inv);
+          og[r * dv + 2 * cp + 1] = from_f32<T>(acc[u].y * inv);
+        } else {
+          *reinterpret_cast<float2*>(dst + r * ps + 2 * cp) = acc[u];
+        }
+      }
+    }
+  }
+  if (n_live == 1) return;
+  for (int r = tid; r < rep; r += THREADS) {
+    dst[r * ps + dv] = ms[r];
+    dst[r * ps + dv + 1] = ls[r];
+  }
+
+  // 5. the last split of (b, g) to finish combines:
+  //    out = sum_s exp(m_s - M) acc_s / max(sum_s exp(m_s - M) l_s, 1e-30)
+  __threadfence();  // this block's partial is visible before its ticket
+  __syncthreads();
+  int* counter = counters + (size_t)b * hkv + g;
+  if (tid == 0) last = atomicAdd(counter, 1) == n_live - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* src = part + ((size_t)b * hkv + g) * splits * rep * ps;
+  for (int i = tid; i < n_live * rep; i += THREADS) {  // i = z * rep + r
+    cw[i] = __ldcg(src + (size_t)i * ps + dv);
+    cl[i] = __ldcg(src + (size_t)i * ps + dv + 1);
+  }
+  __syncthreads();
+  for (int r = tid; r < rep; r += THREADS) {
+    float mx = NEG_INF;
+    for (int z = 0; z < n_live; ++z) mx = fmaxf(mx, cw[z * rep + r]);
+    float den = 0.f;
+    for (int z = 0; z < n_live; ++z) {
+      const float w = expf(cw[z * rep + r] - mx);
+      cw[z * rep + r] = w;
+      den += w * cl[z * rep + r];
+    }
+    ms[r] = 1.f / fmaxf(den, 1e-30f);
+  }
+  __syncthreads();
+  for (int i = tid; i < rep * npair; i += THREADS) {
+    const int r = i / npair, cp = i - r * npair;
+    float2 num = make_float2(0.f, 0.f);
+#pragma unroll 4
+    for (int z = 0; z < n_live; ++z) {
+      const float2 a = __ldcg(
+          reinterpret_cast<const float2*>(src + (size_t)(z * rep + r) * ps) +
+          cp);
+      const float w = cw[z * rep + r];
+      num.x += w * a.x;
+      num.y += w * a.y;
+    }
+    og[r * dv + 2 * cp] = from_f32<T>(num.x * ms[r]);
+    og[r * dv + 2 * cp + 1] = from_f32<T>(num.y * ms[r]);
+  }
+  if (tid == 0) *counter = 0;  // ready for the next call
 }
 
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* lengths, const void* block_tables, void* part,
-           void* out, int b, int pages_per_seq, int page, int h, int hkv,
-           int d, int dv, float scale, void* stream) {
+           void* counters, void* out, int b, int pages_per_seq, int page,
+           int h, int hkv, int d, int dv, float scale, void* stream) {
+  constexpr int CH = 16 / sizeof(T);  // elements per 16-byte copy
   const int rep = h / hkv;
+  const int splits = (pages_per_seq * page + SPLIT - 1) / SPLIT;
+  if (d % CH || dv % CH || dv > 2 * THREADS)
+    return (int)cudaErrorInvalidValue;
   const size_t smem =
-      sizeof(float) * ((size_t)rep * d + (size_t)TILE * (d + 1) +
-                       (size_t)TILE * dv + (size_t)rep * TILE +
-                       (size_t)rep * dv + 3 * (size_t)rep);
-  cudaError_t err = allow_smem(paged_decode_pages<T>, smem);
+      sizeof(T) * (size_t)SPLIT * (d + CH + dv + CH) +
+      sizeof(float) * ((size_t)rep * (d + SPLIT + 2 + 2 * splits));
+  cudaError_t err = allow_smem(paged_decode_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  paged_decode_pages<T><<<dim3(b, hkv, pages_per_seq), THREADS, smem, st>>>(
+  paged_decode_kernel<T><<<dim3(b, hkv, splits), THREADS, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), static_cast<const int*>(lengths),
       static_cast<const int*>(block_tables), static_cast<float*>(part),
-      pages_per_seq, page, h, hkv, d, dv, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  paged_decode_combine<T><<<dim3(b, hkv), THREADS, 0, st>>>(
-      static_cast<const float*>(part), static_cast<T*>(out), pages_per_seq,
-      h, hkv, dv);
+      static_cast<int*>(counters), static_cast<T*>(out), pages_per_seq, page,
+      h, hkv, d, dv, scale);
   return (int)cudaGetLastError();
 }
 
@@ -228,26 +337,28 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 }  // namespace repro_torch
 
 // C entry points, bound with ctypes.  ``part`` is f32 scratch of
-// B * Hkv * P * (H / Hkv) * (Dv + 2) values.  Each returns
-// cudaGetLastError() after its launches (0 on success).
+// B * Hkv * splits * (H / Hkv) * (Dv + 2) values, splits =
+// ceil(P * page / 64); ``counters`` is B * Hkv int32 that are 0 on entry
+// and 0 again when the launch has finished.  Each returns
+// cudaGetLastError() after its launch (0 on success).
 extern "C" int paged_decode_f32(const void* q, const void* k_pool,
                                 const void* v_pool, const void* lengths,
                                 const void* block_tables, void* part,
-                                void* out, int b, int pages_per_seq, int page,
-                                int h, int hkv, int d, int dv, float scale,
-                                void* stream) {
+                                void* counters, void* out, int b,
+                                int pages_per_seq, int page, int h, int hkv,
+                                int d, int dv, float scale, void* stream) {
   return repro_torch::launch<float>(q, k_pool, v_pool, lengths, block_tables,
-                                    part, out, b, pages_per_seq, page, h, hkv,
-                                    d, dv, scale, stream);
+                                    part, counters, out, b, pages_per_seq,
+                                    page, h, hkv, d, dv, scale, stream);
 }
 
 extern "C" int paged_decode_bf16(const void* q, const void* k_pool,
                                  const void* v_pool, const void* lengths,
                                  const void* block_tables, void* part,
-                                 void* out, int b, int pages_per_seq,
-                                 int page, int h, int hkv, int d, int dv,
-                                 float scale, void* stream) {
+                                 void* counters, void* out, int b,
+                                 int pages_per_seq, int page, int h, int hkv,
+                                 int d, int dv, float scale, void* stream) {
   return repro_torch::launch<__nv_bfloat16>(
-      q, k_pool, v_pool, lengths, block_tables, part, out, b, pages_per_seq,
-      page, h, hkv, d, dv, scale, stream);
+      q, k_pool, v_pool, lengths, block_tables, part, counters, out, b,
+      pages_per_seq, page, h, hkv, d, dv, scale, stream);
 }

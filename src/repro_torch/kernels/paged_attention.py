@@ -3,8 +3,12 @@
 
 One CUDA kernel replaces both Pallas decode kernels of
 ``repro/kernels/paged_attention.py`` (contiguous pages and block
-tables).  ``paged_decode`` takes CUDA tensors only; ``kernels/ops.py``
-sends CPU tensors to the plain version in ``kernels/ref.py``.
+tables), in one launch: each sequence's keys are cut into splits of
+``SPLIT`` tokens (``decode_splits``), each split computes a softmax
+partial for the query heads of its kv head, and the last split of each
+(sequence, kv head) to finish combines them.  ``paged_decode`` takes
+CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the plain
+version in ``kernels/ref.py``.
 """
 from __future__ import annotations
 
@@ -13,6 +17,32 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+SPLIT = 64   # tokens per block: ``SPLIT`` in csrc/paged_attention.cu
+
+# Per device, the kernel's arrival counters: zeros, and zero again after
+# every launch, so one buffer serves every call and CUDA-graph replay on
+# the device's streams in order.  Buffers are only ever added, never
+# freed, because a captured graph keeps the address it was captured with.
+_COUNTERS: dict[torch.device, list[torch.Tensor]] = {}
+
+
+def decode_splits(pages_per_seq: int, page: int) -> int:
+    """The number of token splits the kernel's grid has per (sequence,
+    kv head): ``ceil(pages_per_seq * page / SPLIT)``.  Split ``s`` covers
+    tokens ``[s * SPLIT, (s + 1) * SPLIT)``; splits at or past a
+    sequence's length exit without work."""
+    return -(-pages_per_seq * page // SPLIT)
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    bufs = _COUNTERS.setdefault(device, [])
+    if not bufs or bufs[-1].numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("paged_decode: call it once outside CUDA-graph "
+                               "capture first, so that its counters exist")
+        bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
 
 
 def _check_inputs(q, k, v, lengths, block_tables):
@@ -64,23 +94,28 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     _, page, hkv, dk = k_pool.shape
     dv = v_pool.shape[-1]
     if (dk != d or v_pool.shape[:3] != k_pool.shape[:3] or h % hkv
-            or max(d, dv) > 256 or lengths.shape != (b,)):
+            or max(d, dv) > 256 or d % 8 or dv % 8 or lengths.shape != (b,)):
         raise ValueError(
             f"paged_decode: bad shapes q {tuple(q.shape)} k "
             f"{tuple(k_pool.shape)} v {tuple(v_pool.shape)} lengths "
-            f"{tuple(lengths.shape)} (head_dim <= 256, H % Hkv == 0)")
+            f"{tuple(lengths.shape)} (head_dim <= 256 and a multiple of 8, "
+            "H % Hkv == 0)")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged_decode: k/v pools must be 16-byte aligned")
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
     out = torch.empty((b, h, dv), dtype=q.dtype, device=q.device)
-    # per-page partial (numerators, max, denominator) of each query head
-    part = torch.empty((b, hkv, pages_per_seq, h // hkv, dv + 2),
-                       dtype=torch.float32, device=q.device)
+    # per-split partial (numerators, max, denominator) of each query head
+    part = torch.empty((b, hkv, decode_splits(pages_per_seq, page), h // hkv,
+                        dv + 2), dtype=torch.float32, device=q.device)
+    counters = _counters(q.device, b * hkv)
     fn = getattr(_build.load("paged_attention"),
                  f"paged_decode_{_DTYPES[q.dtype]}")
     code = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
               lengths.data_ptr(),
               None if block_tables is None else block_tables.data_ptr(),
-              part.data_ptr(), out.data_ptr(), b, pages_per_seq, page, h, hkv,
-              d, dv, scale, torch.cuda.current_stream(q.device).cuda_stream)
+              part.data_ptr(), counters.data_ptr(), out.data_ptr(), b,
+              pages_per_seq, page, h, hkv, d, dv, scale,
+              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "paged_decode")
     paged_decode.launches += 1
     return out

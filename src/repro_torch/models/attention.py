@@ -76,9 +76,11 @@ def _masked_rows(ok, page_ids, slots, pool, values):
     at the first valid row's target and given that row's value, so it
     rewrites the same bytes; with no valid row at all, every row
     rewrites the target's current value."""
-    first = torch.argmax(ok.to(torch.int32))
+    # a one-element index: indexing by a 0-d tensor reads it on the host
+    first = torch.argmax(ok.to(torch.int32)).reshape(1)
     pid_f, slot_f = page_ids[first], slots[first]
-    fill = torch.where(ok[first], values[first], pool[pid_f, slot_f])
+    fill = torch.where(ok[first][:, None, None], values[first],
+                       pool[pid_f, slot_f])
     page_ids = torch.where(ok, page_ids, pid_f)
     slots = torch.where(ok, slots, slot_f)
     values = torch.where(ok[:, None, None], values, fill)

@@ -21,11 +21,16 @@ from repro.kernels.chunked_prefill import (
 )
 from repro.kernels.paged_attention import paged_attention
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.chunked_prefill import flash_prefill
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.chunked_prefill import flash_prefill, prefill_body
 from repro_torch.kernels.chunked_prefill import (
     chunked_prefill_paged as chunked_prefill_paged_kernel,
 )
-from repro_torch.kernels.paged_attention import paged_decode
+from repro_torch.kernels.paged_attention import (
+    SPLIT,
+    decode_splits,
+    paged_decode,
+)
 
 torch.set_num_threads(2)
 TOL = dict(atol=2e-5, rtol=2e-4)
@@ -229,3 +234,88 @@ def test_build_names_every_source_and_entry_point():
         assert path.name.startswith(name + "-") and path.suffix == ".so"
         assert "build" in path.parts
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+@pytest.mark.parametrize(
+    "dtype,dq,dv,body",
+    [
+        (torch.bfloat16, 64, 64, "tensor-core"),    # TinyLlama's heads
+        (torch.bfloat16, 128, 128, "tensor-core"),  # the second instance
+        (torch.float32, 64, 64, "fma"),        # TF32 would miss f32 limits
+        (torch.float32, 128, 128, "fma"),
+        (torch.bfloat16, 96, 64, "fma"),       # MLA-shaped Dq != Dv
+        (torch.bfloat16, 256, 256, "fma"),     # no template instance
+    ],
+)
+def test_prefill_body_is_a_function_of_dtype_and_head_dims(dtype, dq, dv,
+                                                           body):
+    assert prefill_body(dtype, dq, dv) == body
+
+
+def _split_plan_replay(q, k_pages, v_pages, lengths, block_tables):
+    """The decode kernel's arithmetic in plain torch: per-split softmax
+    partials over the splits ``decode_splits`` plans, then the combine
+    the last split of each (sequence, kv head) runs."""
+    if block_tables is not None:
+        k_pages, v_pages = k_pages[block_tables.long()], v_pages[block_tables.long()]
+    b, p, page, hkv, d = k_pages.shape
+    h, dv = q.shape[1], v_pages.shape[-1]
+    rep = h // hkv
+    k = k_pages.reshape(b, p * page, hkv, d)
+    v = v_pages.reshape(b, p * page, hkv, dv)
+    out = torch.zeros(b, h, dv)
+    splits = decode_splits(p, page)
+    for i in range(b):
+        n = min(int(lengths[i]), p * page)
+        live = [s for s in range(splits) if s * SPLIT < n]
+        for g in range(hkv):
+            qg = q[i, g * rep:(g + 1) * rep]                      # [rep, D]
+            parts = []
+            for s in live:
+                lo, hi = s * SPLIT, min(n, (s + 1) * SPLIT)
+                sc = qg @ k[i, lo:hi, g].T * d ** -0.5            # [rep, T]
+                m = sc.max(dim=1).values
+                w = torch.exp(sc - m[:, None])
+                parts.append((m, w.sum(dim=1), w @ v[i, lo:hi, g]))
+            if not parts:
+                continue                                          # zeros
+            big_m = torch.stack([m for m, _, _ in parts]).max(dim=0).values
+            num = sum(torch.exp(m - big_m)[:, None] * a for m, _, a in parts)
+            den = sum(torch.exp(m - big_m) * l for m, l, _ in parts)
+            out[i, g * rep:(g + 1) * rep] = num / torch.clamp(den, min=1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("tables", [False, True])
+def test_decode_split_plan_matches_reference(tables):
+    """Splitting each sequence into ``SPLIT``-token partials and combining
+    them gives the reference's decode attention, at lengths around a
+    split's edge, of one token, of zero and of the whole table."""
+    assert f"constexpr int SPLIT = {SPLIT};" in (
+        _build.CSRC / "paged_attention.cu").read_text()
+    b, p, page, h, hkv, d = 5, 8, 128, 8, 2, 16
+    rng = np.random.default_rng(11)
+    q = _rand(rng, (b, h, d))
+    lens = np.asarray([0, 1, 64, 65, 1024], np.int32)
+    if tables:
+        n = b * p + 1
+        kp, vp = _rand(rng, (n, page, hkv, d)), _rand(rng, (n, page, hkv, d))
+        bt = (rng.permutation(n - 1)[: b * p] + 1).reshape(b, p).astype(np.int32)
+        args = (q, kp, vp, lens)
+        got = _split_plan_replay(*map(torch.from_numpy, args),
+                                 torch.from_numpy(bt))
+        want = tref.paged_attention_ref(*map(torch.from_numpy, args),
+                                        block_tables=torch.from_numpy(bt))
+        jwant = jref.paged_attention_ref(*map(jnp.asarray, args),
+                                         block_tables=jnp.asarray(bt))
+    else:
+        kp = _rand(rng, (b, p, page, hkv, d))
+        vp = _rand(rng, (b, p, page, hkv, d))
+        args = (q, kp, vp, lens)
+        got = _split_plan_replay(*map(torch.from_numpy, args), None)
+        want = tref.paged_attention_ref(*map(torch.from_numpy, args))
+        jwant = jref.paged_attention_ref(*map(jnp.asarray, args))
+    assert decode_splits(p, page) == 16
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    _close(got, jwant)
+    assert got[0].abs().max().item() == 0.0
