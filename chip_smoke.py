@@ -16,7 +16,8 @@ Phases (each raises on failure; nothing is caught):
    contiguous decode pool, ``scaled_dot_product_attention``'s time as a
    yardstick only.  Each case's line names the body it ran: the
    prefills run bf16 with head dim 64 or 128 on tensor cores
-   (``tensor-core``) and everything else on f32 FMAs (``fma``);
+   (``tensor-core``), the SSD scan runs bf16 on tensor cores, and
+   everything else runs on f32 FMAs (``fma``);
 4. model: TinyLlama's widths at 2 layers, f32, seeded: ``forward``,
    ``prefill_chunk_paged`` and ``decode_step_paged`` logits on the card
    against the same on the CPU.  Then mamba2-1.3b's widths at 2 layers,
@@ -36,7 +37,9 @@ Phases (each raises on failure; nothing is caught):
    ``torch.profiler`` trace, and the CUDA-graph-replayed step; after
    TinyLlama also one chunked-prefill wave (4 rows x 256 tokens over a
    384-token context) replayed from a CUDA graph, and the paged prefill
-   kernel's share of it.
+   kernel's share of it; after mamba2-1.3b one 384-token prefill
+   (``Model.forward``, 48 layers) replayed from a CUDA graph, and the
+   SSD scan's share of it.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -74,13 +77,17 @@ F32_TOL = dict(atol=2e-5, rtol=2e-4)
 BF16_TOL = {"paged_decode": dict(atol=8e-3, rtol=1e-2),
             "chunked_prefill_paged": dict(atol=1.2e-2, rtol=1e-2),
             "flash_prefill": dict(atol=1.2e-2, rtol=1e-2),
-            # the scan and its plain version both compute in f32 from the
-            # same bf16 inputs and round y to bf16 once: where the f32
-            # values straddle a rounding boundary they differ by one bf16
-            # step, at most 2^-7 of |y|
+            # the plain scan computes in f32 from the bf16 inputs; the
+            # kernel's tensor-core body multiplies the exact bf16 B, C and
+            # x against its f32 factors (dt, the decays, the carried state)
+            # split into bf16 hi + lo, ~2^-16 relative, and sums in f32.
+            # Both round y to bf16 once: where the two sums straddle a
+            # rounding boundary they differ by one bf16 step, at most 2^-7
+            # of |y|
             "ssd_chunk_scan": dict(atol=1e-2, rtol=1e-2)}
 # the SSD scan's final state is f32 in every dtype: the reference's limit
-# for it (tests/test_kernels.py)
+# for it (tests/test_kernels.py), which one bf16 rounding of the f32
+# factors (~4e-3) would miss and their hi/lo split (~2^-16) meets
 SSD_STATE_TOL = dict(atol=1e-4, rtol=1e-3)
 # model logits, card vs CPU at f32 (TF32 off): cuBLAS and the CPU BLAS sum
 # each matmul in a different order, and the kernels' online softmax
@@ -238,13 +245,16 @@ def decode_case(gen, dtype, device, *, b, pages_per_seq, lengths, tables,
 
 def body_of(name: str, args) -> str:
     """The body a kernel case runs: the prefills choose by dtype and head
-    dims (``prefill_body``); the decode kernel and the SSD scan have one
-    body each, on f32 FMAs."""
+    dims (``prefill_body``), the SSD scan by dtype (``ssd_body``); the
+    decode kernel has one body, on f32 FMAs."""
     from repro_torch.kernels.chunked_prefill import prefill_body
+    from repro_torch.kernels.ssd_scan import ssd_body
 
     if name in ("flash_prefill", "chunked_prefill_paged"):
         q, k, v = args[:3]
         return prefill_body(q.dtype, q.shape[-1], v.shape[-1])
+    if name == "ssd_chunk_scan":
+        return ssd_body(args[0].dtype)
     return "fma"
 
 
@@ -508,6 +518,23 @@ def kernel_cases(device) -> list:
              dtype, False,
              lambda g, dt: ssd_case(g, dt, device, b=2, l=256, chunk=64,
                                     g=2, with_init=True),
+             run_ssd),
+            # the CPU tests' narrow widths: P below 32 leaves state rows and
+            # x columns of a block empty; N below 128 zero-fills the state
+            # columns; P12 N20 takes the element-by-element copies
+            ("ssd_chunk_scan", f"{tag} P8 N16 Q32 G2 H4 B2 L128, initial "
+             f"state", dtype, False,
+             lambda g, dt: ssd_case(g, dt, device, b=2, l=128, chunk=32, h=4,
+                                    p=8, g=2, n=16, with_init=True),
+             run_ssd),
+            ("ssd_chunk_scan", f"{tag} P16 N32 Q64 H8 L64", dtype, False,
+             lambda g, dt: ssd_case(g, dt, device, b=1, l=64, chunk=64, h=8,
+                                    p=16, n=32),
+             run_ssd),
+            ("ssd_chunk_scan", f"{tag} P12 N20 Q40 G2 H4 L120, initial "
+             f"state", dtype, False,
+             lambda g, dt: ssd_case(g, dt, device, b=1, l=120, chunk=40, h=4,
+                                    p=12, g=2, n=20, with_init=True),
              run_ssd),
         ]
     return cases
@@ -977,6 +1004,60 @@ def ssm_step_breakdown(model, device, *, batch=4) -> dict:
     return row
 
 
+def ssm_prefill(model, device, *, length=384):
+    """One mamba2 request's prefill: ``Model.forward`` over ``length``
+    tokens with the state collected, as ``DenseRuntime._prefill_one``
+    calls it, and the SSD scan's call at the prefill's shape (the kernel
+    case's inputs).  Returns both, ready to time, and the scan's chunk."""
+    from repro_torch.models.layers import torch_dtype
+
+    cfg = model.cfg
+    gen = torch.Generator(device=device).manual_seed(3)
+    toks = torch.randint(3, cfg.vocab_size, (1, length), device=device,
+                         generator=gen, dtype=torch.int32)
+
+    def prefill():
+        return model.forward(toks, collect_state=True)[0]
+
+    chunk = min(cfg.ssm_chunk, length)
+    args, _, _ = ssd_case(gen, torch_dtype(cfg.dtype), device, b=1,
+                          l=-(-length // chunk) * chunk, chunk=chunk,
+                          h=cfg.ssm_heads, p=cfg.ssm_head_dim,
+                          g=cfg.ssm_groups, n=cfg.ssm_state)
+    prefill()
+    return prefill, run_ssd(args)[0], chunk
+
+
+def ssm_prefill_breakdown(model, device, *, length=384) -> dict:
+    """``ssm_prefill``: its eager host wall time, the forward replayed
+    from a CUDA graph, and the SSD scan's share of the replay (one launch
+    per layer, timed alone at the prefill's shape with a cold L2).  Runs
+    after the main path's launch counts were read."""
+    from repro_torch.kernels.ssd_scan import ssd_body
+    from repro_torch.models.layers import torch_dtype
+
+    cfg = model.cfg
+    prefill, scan, chunk = ssm_prefill(model, device, length=length)
+    eager = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        eager.append((time.perf_counter() - t0) * 1e3)
+    graph_ms = graph_replay_ms(prefill, "mamba2 prefill", iters=5)
+    scan_ms = Timer(device).ms(scan)
+    row = dict(model=cfg.name, tokens=length, chunk=chunk,
+               body=ssd_body(torch_dtype(cfg.dtype)),
+               eager_prefill_ms=statistics.median(eager),
+               eager_prefill_ms_runs=eager, graph_prefill_ms=graph_ms,
+               ssd_chunk_scan_ms=scan_ms,
+               ssd_chunk_scan_share_of_graph_prefill=(
+                   cfg.num_layers * scan_ms / graph_ms))
+    log(f"[prefill] {json.dumps(row)}")
+    return row
+
+
 def phase_serve(cfg, device, *, seed=0, n_requests=8, max_new=32,
                 max_seq_len=1024, max_batch=4, free_list_pages=10,
                 block_size=128) -> dict:
@@ -1057,6 +1138,7 @@ def phase_ssm_serve(cfg, device, *, seed=0, n_requests=8, max_new=32,
         f"ssd_chunk_scan per prefill, {n_requests} prefills)")
     _require_launched(counts, ("ssd_chunk_scan",))
     ssm_step_breakdown(model, device, batch=max_batch)
+    ssm_prefill_breakdown(model, device)
     return counts
 
 

@@ -47,8 +47,8 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
            for t in ("f32", "bf16")},
     },
     "ssd_scan": {
-        f"ssd_scan_{t}": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P)
-        for t in ("f32", "bf16")
+        "ssd_scan_f32": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
+        "ssd_scan_bf16": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
     },
 }
 

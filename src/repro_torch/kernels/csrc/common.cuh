@@ -1,4 +1,4 @@
-// Shared helpers for the hand-written Hopper attention kernels: element
+// Shared helpers for the hand-written Hopper kernels: element
 // conversions between the storage type (f32 or bf16) and the f32 the
 // kernels accumulate in, warp reductions, the masked-score constant the
 // TPU kernels use, and inline PTX for cp.async, ldmatrix and mma.sync.
@@ -65,6 +65,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// 4-byte global -> shared copy (through L1); with ``valid`` false it
+// reads nothing and writes a zero.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid = true) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -118,6 +128,17 @@ __device__ __forceinline__ float exp2_approx(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// An f32 pair split into bf16 hi and lo pairs, hi + lo within ~2^-16 of
+// the pair: two MMAs against an exact bf16 operand then carry f32 factors
+// at about that precision.
+__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(v0 - hf.x, v1 - hf.y);
 }
 
 // Dynamic shared memory above 48 KB must be opted into per kernel.

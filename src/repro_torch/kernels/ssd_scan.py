@@ -4,6 +4,9 @@
 ``ssd_chunk_scan`` replaces the Pallas ``_kernel`` of
 ``repro/kernels/ssd_scan.py``.  It takes CUDA tensors only;
 ``kernels/ops.py`` sends CPU tensors to the plain ``ref.ssd_scan_ref``.
+Each launch runs one of the two bodies of the kernel, chosen by
+``ssd_body`` from the dtype alone: bf16 runs on tensor cores
+(``mma.sync``, one launch), f32 on f32 FMAs (two launches).
 """
 from __future__ import annotations
 
@@ -11,9 +14,20 @@ import torch
 
 from repro_torch.kernels import _build
 
-_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-MAX_CHUNK = 128     # the kernel's score tile: 4 key columns per lane
-MAX_STATE = 128     # its state tile: 4 state columns per lane
+_DTYPES = (torch.float32, torch.bfloat16)
+MAX_CHUNK = 128     # the kernel's score tile
+MAX_STATE = 128     # its state tile
+# the C entry point of each body; only the FMA body takes the f32 C.B^T
+# scratch, as its ninth pointer
+ENTRY = {"tensor-core": "ssd_scan_bf16", "fma": "ssd_scan_f32"}
+
+
+def ssd_body(dtype: torch.dtype) -> str:
+    """Which body of ``csrc/ssd_scan.cu`` a launch runs: ``"tensor-core"``
+    for bf16, ``"fma"`` for f32 (whose limit tensor cores would miss by
+    rounding through TF32).  Every chunk size and head dim the scan takes
+    runs its dtype's body."""
+    return "tensor-core" if dtype == torch.bfloat16 else "fma"
 
 
 def _check_inputs(tensors: dict) -> None:
@@ -64,17 +78,19 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             f"chunk <= {MAX_CHUNK}, N <= {MAX_STATE}, H % G == 0)")
     y = torch.empty_like(x)
     final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
-    # C.B^T of every (sequence, group, chunk), key columns padded to 32
-    key_cols = -(-chunk_size // 32) * 32
-    cb = torch.empty(bsz * g * seqlen * key_cols, dtype=torch.float32,
-                     device=x.device)
-    fn = getattr(_build.load("ssd_scan"), f"ssd_scan_{_DTYPES[x.dtype]}")
-    code = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
-              c_mat.data_ptr(),
-              None if initial_state is None else initial_state.data_ptr(),
-              cb.data_ptr(), y.data_ptr(), final.data_ptr(), bsz, seqlen, h,
-              p, g, n, chunk_size,
-              torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = [x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
+            c_mat.data_ptr(),
+            None if initial_state is None else initial_state.data_ptr()]
+    body = ssd_body(x.dtype)
+    if body == "fma":
+        # C.B^T of every (sequence, group, chunk), key columns padded to 32
+        key_cols = -(-chunk_size // 32) * 32
+        cb = torch.empty(bsz * g * seqlen * key_cols, dtype=torch.float32,
+                         device=x.device)
+        ptrs.append(cb.data_ptr())
+    fn = getattr(_build.load("ssd_scan"), ENTRY[body])
+    code = fn(*ptrs, y.data_ptr(), final.data_ptr(), bsz, seqlen, h, p, g,
+              n, chunk_size, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "ssd_chunk_scan")
     ssd_chunk_scan.launches += 1
     return y, final

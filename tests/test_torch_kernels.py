@@ -31,6 +31,8 @@ from repro_torch.kernels.paged_attention import (
     decode_splits,
     paged_decode,
 )
+from repro_torch.kernels.ssd_scan import ENTRY as SSD_ENTRY
+from repro_torch.kernels.ssd_scan import ssd_body, ssd_chunk_scan
 
 torch.set_num_threads(2)
 TOL = dict(atol=2e-5, rtol=2e-4)
@@ -214,6 +216,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         flash_prefill(q[:, None], q[:, None], q[:, None])
     with pytest.raises(NotImplementedError):
         flash_prefill(q[:, None], q[:, None], q[:, None], lengths=lens)
+    x = torch.zeros(1, 4, 2, 8)
+    bc = torch.zeros(1, 4, 1, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_chunk_scan(x, torch.zeros(1, 4, 2), torch.zeros(2), bc, bc,
+                       chunk_size=4)
+    assert ssd_chunk_scan.launches == 0
     assert paged_decode.launches == 0
     assert chunked_prefill_paged_kernel.launches == 0
     assert flash_prefill.launches == 0
@@ -250,6 +258,17 @@ def test_build_names_every_source_and_entry_point():
 def test_prefill_body_is_a_function_of_dtype_and_head_dims(dtype, dq, dv,
                                                            body):
     assert prefill_body(dtype, dq, dv) == body
+
+
+@pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "tensor-core"),
+                                        (torch.float32, "fma")])
+def test_ssd_body_is_a_function_of_dtype(dtype, body):
+    """bf16 scans on tensor cores and f32 on FMAs; the body's C entry point
+    takes the f32 C.B^T scratch (a ninth pointer before the sizes) exactly
+    when the body is the FMA one, so the wrapper's one choice fixes both."""
+    assert ssd_body(dtype) == body
+    argtypes = _build.SIGNATURES["ssd_scan"][SSD_ENTRY[body]]
+    assert argtypes.index(_build.I) == (9 if body == "fma" else 8)
 
 
 def _split_plan_replay(q, k_pages, v_pages, lengths, block_tables):

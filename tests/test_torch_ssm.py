@@ -6,6 +6,9 @@ through ``repro`` and ``repro_torch``:
 
 * the plain SSD scan against the Pallas kernel (interpret mode) and the
   jnp oracle, and the single-token recurrence;
+* the arithmetic of the scan's bf16 tensor-core body (f32 factors split
+  into bf16 hi + lo), replayed in plain torch, against the plain scan at
+  the limits the card holds the kernel to;
 * the smoke mamba2 model: forward logits and the collected snapshot, a
   resume from a snapshot, and the decode step;
 * the serving engine: identical greedy streams cold, with partial
@@ -62,7 +65,8 @@ def _scan_inputs(seed, b, l, h, p, g, n, with_init):
 
 
 # (b, l, h, p, g, n, chunk): the shapes of the reference's kernel test,
-# then chunk 1 and a ragged single chunk (a 37-token prompt)
+# then chunk 1, a ragged single chunk (a 37-token prompt), and
+# mamba2-1.3b's widths (heads of 64, state 128, chunk 128) at 8 heads
 SCAN_SHAPES = [
     (2, 128, 4, 8, 2, 16, 32),
     (1, 64, 8, 16, 1, 32, 64),
@@ -70,6 +74,7 @@ SCAN_SHAPES = [
     (1, 96, 4, 64, 4, 128, 32),
     (1, 5, 4, 8, 2, 16, 1),
     (2, 37, 4, 16, 1, 16, 37),
+    (1, 256, 8, 64, 1, 128, 128),
 ]
 
 
@@ -94,6 +99,97 @@ def test_ssd_scan_plain_matches_reference(shape, with_init):
         np.testing.assert_allclose(yt.numpy(), np.asarray(yw), **Y_TOL)
         np.testing.assert_allclose(ft.numpy(), np.asarray(fw), **STATE_TOL)
     assert yt.dtype == torch.float32 and ft.shape == (b, h, p, n)
+
+
+def _split(v: torch.Tensor):
+    """An f32 tensor as bf16 hi + lo, as the tensor-core body splits it."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _round_once(v: torch.Tensor):
+    """An f32 tensor rounded to bf16 once, with no lo part."""
+    return v.to(torch.bfloat16).float(), torch.zeros_like(v)
+
+
+def _tensor_core_replay(x, dt, a, b_mat, c_mat, chunk, init, split=_split):
+    """The bf16 body of ``csrc/ssd_scan.cu`` in plain torch: per chunk,
+    M' = C.B^T exp(seg_q - seg_t) dt_t selected on the causal triangle,
+    then y = M'.x + exp(seg) C.S_in^T and S = exp(total) S + (x dt w)^T.B,
+    with every f32 operand (M', S_in, x dt w) split into bf16 hi + lo by
+    ``split`` against an exact bf16 side, f32 sums, and y rounded to bf16
+    once."""
+    bsz, seqlen, h, p = x.shape
+    rep = h // b_mat.shape[2]
+    y = torch.empty(x.shape, dtype=torch.bfloat16)
+    fin = torch.empty(bsz, h, p, b_mat.shape[3])
+    for bi in range(bsz):
+        for hi in range(h):
+            s = (init[bi, hi].clone() if init is not None
+                 else torch.zeros(p, b_mat.shape[3]))
+            for c0 in range(0, seqlen, chunk):
+                rows = slice(c0, c0 + chunk)
+                xs = x[bi, rows, hi].float()
+                bm = b_mat[bi, rows, hi // rep].float()
+                cm = c_mat[bi, rows, hi // rep].float()
+                d = dt[bi, rows, hi]
+                seg = torch.cumsum(a[hi] * d, 0)
+                t = torch.arange(chunk)
+                m = torch.where(t[None] <= t[:, None],
+                                (cm @ bm.T) * torch.exp(seg[:, None]
+                                                        - seg[None]) * d,
+                                torch.zeros(()))
+                m_hi, m_lo = split(m)
+                s_hi, s_lo = split(s)
+                yc = (m_hi @ xs + m_lo @ xs
+                      + torch.exp(seg)[:, None] * (cm @ (s_hi + s_lo).T))
+                y[bi, rows, hi] = yc.to(torch.bfloat16)
+                xw_hi, xw_lo = split(xs * (d * torch.exp(seg[-1] - seg))[:, None])
+                s = torch.exp(seg[-1]) * s + (xw_hi + xw_lo).T @ bm
+            fin[bi, hi] = s
+    return y, fin
+
+
+@pytest.mark.parametrize("with_init", [False, True], ids=["zeros", "init"])
+@pytest.mark.parametrize("shape", [(1, 384, 4, 64, 1, 128, 128),
+                                   (1, 37, 4, 64, 1, 128, 37),
+                                   (1, 3, 4, 64, 1, 128, 1),
+                                   (2, 256, 4, 64, 2, 128, 64)],
+                         ids=lambda s: "b{}l{}h{}p{}g{}n{}q{}".format(*s))
+def test_ssd_tensor_core_arithmetic_meets_card_limits(shape, with_init):
+    """The bf16 body's precision scheme (hi/lo splits of the f32 factors)
+    against the plain scan on the same bf16 inputs, at mamba2-1.3b's
+    widths, held to the limits ``chip_smoke.py`` holds the kernel to:
+    y at atol/rtol 1e-2, the f32 final state at atol 1e-4 / rtol 1e-3.
+    One bf16 rounding of those factors instead misses the y limit."""
+    b, l, h, p, g, n, q = shape
+    arrs, init = _scan_inputs(sum(shape), b, l, h, p, g, n, with_init)
+    t = {k: torch.from_numpy(v) for k, v in arrs.items()}
+    for k in ("x", "b_mat", "c_mat"):
+        t[k] = t[k].to(torch.bfloat16)
+    t_init = None if init is None else torch.from_numpy(init)
+    args = (t["x"], t["dt"], t["a"], t["b_mat"], t["c_mat"])
+    yw, fw = ops.ssd_scan(*args, chunk_size=q, initial_state=t_init)
+    yg, fg = _tensor_core_replay(*args, q, t_init)
+    np.testing.assert_allclose(yg.float().numpy(), yw.float().numpy(),
+                               atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(fg.numpy(), fw.numpy(), **STATE_TOL)
+
+
+def test_ssd_single_bf16_rounding_misses_card_limits():
+    """Why the tensor-core body splits its f32 factors: rounded to bf16
+    once, the same arithmetic misses the y limit at mamba2-1.3b's
+    widths."""
+    b, l, h, p, g, n, q = 1, 384, 4, 64, 1, 128, 128
+    arrs, _ = _scan_inputs(0, b, l, h, p, g, n, False)
+    t = {k: torch.from_numpy(v) for k, v in arrs.items()}
+    for k in ("x", "b_mat", "c_mat"):
+        t[k] = t[k].to(torch.bfloat16)
+    args = (t["x"], t["dt"], t["a"], t["b_mat"], t["c_mat"])
+    yw, _ = ops.ssd_scan(*args, chunk_size=q)
+    yg, _ = _tensor_core_replay(*args, q, None, split=_round_once)
+    err = (yg.float() - yw.float()).abs()
+    assert (err / (1e-2 + 1e-2 * yw.float().abs())).max() > 1.0
 
 
 @pytest.mark.parametrize("g", [1, 2])

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's attention kernels and the layers they feed, for one or
-more checkouts of this repository, in turns, on one NVIDIA card.
+"""Time the port's kernels (attention and the SSD scan) and the layers
+they feed, for one or more checkouts of this repository, in turns, on one
+NVIDIA card.
 
     python3 tools/ab_attention.py ROOT [ROOT ...]
 
@@ -15,14 +16,19 @@ root runs in a process of its own, in the order given, and prints one
   wave, ``flash_prefill`` causal B4 x S512, each timed by its ``Timer``
   (CUDA-graph replays, L2 flushed before each), with
   ``scaled_dot_product_attention``'s time where it computes the same
-  function;
+  function; and ``ssd_chunk_scan`` at mamba2-1.3b's prefill shape (B1
+  L384 H64 P64 G1 N128, chunk 128);
 * full TinyLlama (22 layers, bf16, seeded random weights): the paged
   decode step at batch 4 over 384 cached tokens (``step_breakdown``) and
   one chunked-prefill wave (``prefill_wave``: 4 rows x 256 tokens over a
   384-token context) replayed from a CUDA graph, and
   ``chunked_prefill_paged`` alone at the wave's shape.  A tree whose wave
   cannot be captured in a graph (it reads the device from the host)
-  reports ``graph_wave_ms`` null, with the reason.
+  reports ``graph_wave_ms`` null, with the reason;
+* full mamba2-1.3b (48 layers, bf16, seeded random weights): one
+  384-token prefill (``ssm_prefill``: ``Model.forward`` with the state
+  collected) replayed from a CUDA graph, and ``ssd_chunk_scan`` alone at
+  its shape.
 
 The kernels build from each root's own sources into that root's
 ``build/``; the cases and the timing come from the ``chip_smoke.py``
@@ -39,7 +45,8 @@ HERE = Path(__file__).resolve().parents[1]
 
 
 AB_CASES = ("bf16 contiguous B4 P8", "bf16 block-table B8 P8",
-            "bf16 wave R4 C256", "bf16 causal B4 S512")
+            "bf16 wave R4 C256", "bf16 causal B4 S512",
+            "bf16 B1 L384 H64 P64 G1 N128 Q128")
 
 
 def one(root: Path) -> dict:
@@ -69,7 +76,13 @@ def one(root: Path) -> dict:
             continue
         left.discard(label)
         kern, plain = runner(args)
-        cs._check(f"{name} [{label}]", name, kern(), plain())
+        got, want = kern(), plain()
+        if isinstance(want, tuple):     # the SSD scan: y and final state
+            cs._check(f"{name} [{label}] y", name, got[0], want[0])
+            cs._check(f"{name} [{label}] final state", name, got[1],
+                      want[1], tol=cs.SSD_STATE_TOL)
+        else:
+            cs._check(f"{name} [{label}]", name, got, want)
         r = row[f"{name} [{label}]"] = {"ms": timer.ms(kern)}
         lib = cs.YARDSTICKS.get(name, lambda a: None)(args)
         if lib is not None:
@@ -90,6 +103,15 @@ def one(root: Path) -> dict:
     except RuntimeError as e:      # a host read inside the captured wave
         row["graph_wave_ms"] = None
         row["graph_wave_error"] = str(e).splitlines()[0]
+
+    del model, wave, attention
+    torch.cuda.empty_cache()
+    mamba = Model(get_config("mamba2-1.3b"), device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    prefill, scan, _ = cs.ssm_prefill(mamba, dev)
+    row["prefill_ssd_chunk_scan_ms"] = timer.ms(scan)
+    row["graph_mamba2_prefill_ms"] = cs.graph_replay_ms(
+        prefill, "mamba2 prefill", iters=5)
     return row
 
 
