@@ -39,7 +39,22 @@ Phases (each raises on failure; nothing is caught):
    384-token context) replayed from a CUDA graph, and the paged prefill
    kernel's share of it; after mamba2-1.3b one 384-token prefill
    (``Model.forward``, 48 layers) replayed from a CUDA graph, and the
-   SSD scan's share of it.
+   SSD scan's share of it;
+6. fabric: SkyMemory prefix hits served from the port's own
+   constellation, the paper's 19x5 testbed (10 LOS servers, 6 kB
+   chunks), a fresh one per model.  Full TinyLlama on the paged engine
+   and full mamba2-1.3b on the dense runtime each serve the same 8
+   requests twice through ``Engine(kvc=...)``: the first pass writes the
+   shared 256-token prefix back, the second (write-back off, launch
+   counts zeroed just before and read just after) must restore all 256
+   tokens of every request from the constellation, prefill only the
+   suffix through the paged prefill kernel (TinyLlama) or the SSD scan
+   (mamba2), and decode.  Every registered block's bytes, read back
+   through ``get_block``, must equal a fresh ``kvc_fn`` on the card.
+   The warm pass's TTFT, ITL and tokens/s print beside a ``kvc=None``
+   engine's in the same process, with the fabric's counters and modeled
+   Get flights; a TinyLlama run on a clocked fabric (``SimClock``) then
+   waits out those flights.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -200,6 +215,10 @@ def phase_build() -> None:
                     or "spill" in line or "error" in line):
                 log(f"[build] {name}: {line.strip()}")
     log(f"[build] {len(logs)} libraries in {dt:.2f} s -> {_build.BUILD_DIR}")
+    # loaded here, on the main thread, before any engine's write-back
+    # worker can launch a kernel
+    for name in _build.SIGNATURES:
+        _build.load(name)
 
 
 # ---------------------------------------------------------------------------
@@ -745,19 +764,32 @@ def zero_launches() -> dict:
     return fns
 
 
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def serve_mode(model, label: str, *, device, n_requests, max_new, **kw):
     from repro_torch.serving import Engine
 
+    eng = Engine(model, device=device, **kw)
+    row, res = run_pass(eng, label, n_requests=n_requests, max_new=max_new)
+    return row, [r.token_ids for r in res], eng
+
+
+def run_pass(eng, label: str, *, n_requests, max_new, tag="serve"):
+    """Serve ``make_requests(n_requests, max_new)`` once on ``eng`` with
+    fresh stats; check every stream; return the row and the results."""
+    from repro_torch.serving import EngineStats
+
     fns = kernel_fns()
     before = {k: f.launches for k, f in fns.items()}
-    eng = Engine(model, device=device, **kw)
+    eng.stats = EngineStats()
     reqs = make_requests(n_requests, max_new)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    sync(eng.device)
     t0 = time.perf_counter()
     res = eng.generate(reqs)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    sync(eng.device)
     wall = time.perf_counter() - t0
     s = eng.stats
     if len(res) != len(reqs):
@@ -767,7 +799,7 @@ def serve_mode(model, label: str, *, device, n_requests, max_new, **kw):
             raise AssertionError(f"{label}: request {r.request_id} stopped "
                                  f"at {len(r.token_ids)} tokens "
                                  f"({r.finish_reason})")
-        if not all(0 <= t < model.cfg.vocab_size for t in r.token_ids):
+        if not all(0 <= t < eng.cfg.vocab_size for t in r.token_ids):
             raise AssertionError(f"{label}: token id out of range")
     pct = s.latency_percentiles()
     launches = {k: f.launches - before[k] for k, f in fns.items()}
@@ -779,9 +811,17 @@ def serve_mode(model, label: str, *, device, n_requests, max_new, **kw):
                ttft_p50_s=pct["ttft_s"]["p50"], itl_p50_s=pct["itl_s"]["p50"],
                prefill_chunks=s.prefill_chunks, preemptions=s.preemptions,
                restores=s.restores, prompt_tokens=res[0].prompt_tokens,
+               cached_tokens=s.cached_tokens,
+               prefilled_tokens=s.prefilled_tokens,
+               l2_wait_s=s.l2_wait_s, l2_fetch_waits=s.l2_fetch_waits,
+               ttft_s=[r.ttft_s for r in res],
+               # the first wave (as many requests as slots) waits on no
+               # other request's decode: its TTFT is its own admission
+               ttft_wave1_p50_s=statistics.median(
+                   r.ttft_s for r in res[:eng.max_batch]),
                launches=launches)
-    log(f"[serve] {json.dumps(row)}")
-    return row, [r.token_ids for r in res], eng
+    log(f"[{tag}] {json.dumps(row)}")
+    return row, res
 
 
 def _busy_ms(prof) -> float | None:
@@ -1105,7 +1145,7 @@ def phase_serve(cfg, device, *, seed=0, n_requests=8, max_new=32,
                    batch=max_batch)
     wave_breakdown(model, device, rows=max_batch, chunk=256, context=384,
                    max_seq_len=max_seq_len, page=block_size)
-    return counts
+    return counts, model
 
 
 def _require_launched(counts: dict, path: tuple) -> None:
@@ -1139,7 +1179,283 @@ def phase_ssm_serve(cfg, device, *, seed=0, n_requests=8, max_new=32,
     _require_launched(counts, ("ssd_chunk_scan",))
     ssm_step_breakdown(model, device, batch=max_batch)
     ssm_prefill_breakdown(model, device)
-    return counts
+    return counts, model
+
+
+# ---------------------------------------------------------------------------
+# phase 6: prefix hits served from the port's constellation
+# ---------------------------------------------------------------------------
+
+def paper_kvc(*, clocked: bool = False):
+    """The paper's §5 fabric, as ``benchmarks/run.py`` builds it: the 19x5
+    constellation at 550 km, a 5x5 LOS window, 10 servers placed
+    rotation+hop, 6 kB chunks.  ``clocked`` puts the transport on a
+    ``SimClock``, so the engine waits out each Get's modeled flight."""
+    from repro_torch.core import (
+        ConstellationKVC,
+        ConstellationSpec,
+        IslTransport,
+        LosWindow,
+        Sat,
+        SimClock,
+        Strategy,
+    )
+
+    spec = ConstellationSpec(5, 19, 550.0)
+    transport = IslTransport(spec, clock=SimClock()) if clocked else None
+    return ConstellationKVC(spec, LosWindow(Sat(2, 9), 5, 5),
+                            Strategy.ROTATION_HOP, num_servers=10,
+                            chunk_bytes=6 * 1024, transport=transport)
+
+
+def fill_and_hit(model, label: str, kvc, *, n_requests, max_new, **kw):
+    """Serve the requests twice on ``Engine(model, kvc=kvc)``: pass 1
+    writes back (``kvc_fn``'s forward on the adapter's worker thread for
+    the paged engine, while the main thread decodes), pass 2 (write-back
+    off, fresh fabric counters) is the warm pass.  Returns its row, its
+    results, the engine, and the launch counts zeroed just before pass 2
+    and read just after.  The forward that computes the write-back
+    payloads must have launched the dense prefill (attention) or the
+    SSD scan in pass 1."""
+    from repro_torch.core import CacheStats, TransportStats
+    from repro_torch.serving import Engine
+
+    eng = Engine(model, kvc=kvc, **kw)
+    fns = zero_launches()
+    run_pass(eng, f"{label} pass 1 (write-back)", n_requests=n_requests,
+             max_new=max_new, tag="fabric")
+    if eng.paged:
+        eng.kv.drain_write_back()        # every block registered
+    counts = {k: f.launches for k, f in fns.items()}
+    log(f"[fabric] {label} pass-1 launches (write-back included): {counts}")
+    _require_launched(counts, ("flash_prefill",) if eng.paged
+                      else ("ssd_chunk_scan",))
+    eng.write_back = False
+    kvc.stats, kvc.transport.stats = CacheStats(), TransportStats()
+    fns = zero_launches()
+    row, res = run_pass(eng, f"{label} pass 2 (warm)", n_requests=n_requests,
+                        max_new=max_new, tag="fabric")
+    counts = {k: f.launches for k, f in fns.items()}
+    return row, res, eng, counts
+
+
+def fabric_report(label: str, kvc) -> dict:
+    """The warm pass's fabric counters: hits, messages, bytes, and the
+    modeled Get flight (the transport's latency model, not a time
+    measured on the card)."""
+    cs, ts = kvc.stats, kvc.transport.stats
+    pct = ts.latency_percentiles()
+    row = dict(model=label, block_hits=cs.block_hits,
+               block_misses=cs.block_misses, lookup_probes=cs.lookup_probes,
+               messages=ts.messages, bytes_moved=ts.bytes_moved,
+               bytes_raw=ts.bytes_raw, get_ops=ts.ops,
+               modeled_get_flight_p50_s=pct["p50"],
+               modeled_get_flight_max_s=ts.max_latency_s)
+    log(f"[fabric] {json.dumps(row)}")
+    return row
+
+
+def _f32(a) -> torch.Tensor:
+    """A decoded payload array (a bf16 tensor or a numpy array) in f32."""
+    if isinstance(a, torch.Tensor):
+        return a.float()
+    return torch.from_numpy(np.asarray(a, np.float32))
+
+
+def check_fabric_bytes(label: str, eng, kvc, *, n_requests, max_new) -> None:
+    """Every block the manager registered, read back through
+    ``get_block``, equals a fresh ``kvc_fn`` on the card for the same
+    tokens: block 0 from scratch, block i resumed from block i-1's bytes
+    as the write-back did.  Also times one Set and one Get of the block
+    on a scratch fabric (host time; the flight is only modeled)."""
+    from repro_torch.core import (
+        chain_hashes,
+        decode_payload_arrays,
+        num_chunks,
+    )
+
+    bs = eng.block_size
+    registered = set(eng.manager._hash_to_chain)
+    tokens = {}
+    for r in make_requests(n_requests, max_new):
+        toks = eng.tokenizer.encode(r.prompt)
+        for i, h in enumerate(chain_hashes(toks, bs)):
+            tokens.setdefault(h, (i, toks[:(i + 1) * bs]))
+    if not registered or not registered <= set(tokens):
+        raise AssertionError(f"{label}: registered blocks {len(registered)} "
+                             "are not blocks of the requests")
+    checked, past = 0, {}
+    for h, (i, toks) in sorted(tokens.items(), key=lambda kv: kv[1][0]):
+        if h not in registered:
+            continue
+        got = kvc.get_block(h)
+        prev = None if i == 0 else past[tuple(toks[:i * bs])]
+        want = eng.adapter.kvc_fn(toks, prev, i * bs)
+        sync(eng.device)
+        if got != want:
+            diff = [float((_f32(a) - _f32(b)).abs().max())
+                    for a, b in zip(decode_payload_arrays(got),
+                                    decode_payload_arrays(want))]
+            raise AssertionError(
+                f"{label}: block {i} bytes differ from a fresh kvc_fn "
+                f"({len(got)} vs {len(want)} bytes, max abs diff {diff})")
+        past[tuple(toks)] = got
+        checked += 1
+        scratch = paper_kvc()
+        t0 = time.perf_counter()
+        scratch.set_block(h, got)
+        t_set = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = scratch.get_block(h)
+        t_get = time.perf_counter() - t0
+        if back != got:
+            raise AssertionError(f"{label}: scratch Set/Get changed block {i}")
+        row = dict(model=label, block=i, tokens=len(toks),
+                   payload_bytes=len(got),
+                   chunks=num_chunks(len(got), kvc.chunk_bytes),
+                   host_set_ms=t_set * 1e3, host_get_ms=t_get * 1e3)
+        log(f"[fabric] {json.dumps(row)}")
+    log(f"[fabric] {label}: {checked} registered blocks equal a fresh "
+        "kvc_fn on the card")
+
+
+def resume_drift(model, eng, kvc, *, n_requests, max_new) -> dict:
+    """A prefill resumed from the fabric's snapshot against the full
+    prefill, both in bf16, for every request: the last position's logits
+    and the final conv and SSM states must be bitwise equal (the scan
+    runs every prefill at the configured chunk, so the suffix's chunks
+    are the full prefill's last ones).  Both are also measured against
+    the full prefill of an f32 copy of the same weights; greedy
+    agreement with it is counted, not asserted (random weights leave
+    near-tied logits)."""
+    from repro_torch.core import chain_hashes
+    from repro_torch.models.model import Model
+
+    f32 = Model(model.cfg.replace(dtype="float32"), device=model.device)
+    f32.load_state_dict(model.state_dict())
+    bs = eng.block_size
+    err = {k: [] for k in ("full", "resumed", "resumed_vs_full",
+                           "state_full", "state_resumed")}
+    agree = dict(full=0, resumed=0, both=0)
+    bitwise = dict(logits=0, conv=0, state=0)   # resumed == full
+    for r in make_requests(n_requests, max_new):
+        toks = eng.tokenizer.encode(r.prompt)
+        n = (len(toks) - 1) // bs * bs        # the engine's lookup
+        h = chain_hashes(toks, bs)[n // bs - 1]
+        prefix = eng.adapter.payload_to_state(kvc.get_block(h))
+        t = torch.as_tensor(toks, dtype=torch.int32, device=model.device)[None]
+        with torch.no_grad():
+            lg, st = model.forward(t, collect_state=True)
+            lr, sr = model.forward(t[:, n:], q_offset=n, prefix_state=prefix,
+                                   collect_state=True)
+            lw, sw = f32.forward(t, collect_state=True)
+        full, resumed, want = lg[0, -1].float(), lr[0, -1].float(), lw[0, -1]
+        for k, a, b in (("full", full, want), ("resumed", resumed, want),
+                        ("resumed_vs_full", resumed, full),
+                        ("state_full", st["ssm"]["state"],
+                         sw["ssm"]["state"]),
+                        ("state_resumed", sr["ssm"]["state"],
+                         sw["ssm"]["state"])):
+            err[k].append(float((a.float() - b.float()).abs().max()))
+        bitwise["logits"] += bool(torch.equal(lr[0, -1], lg[0, -1]))
+        for k in ("conv", "state"):
+            bitwise[k] += bool(torch.equal(sr["ssm"][k], st["ssm"][k]))
+        top = int(want.argmax())
+        agree["full"] += int(full.argmax()) == top
+        agree["resumed"] += int(resumed.argmax()) == top
+        agree["both"] += int(full.argmax()) == int(resumed.argmax())
+    del f32
+    row = dict(model=model.cfg.name, requests=n_requests,
+               f32_logit_max_abs=float(want.abs().max()),
+               f32_state_max_abs=float(sw["ssm"]["state"].abs().max()),
+               **{f"{k}_max_abs_err": max(v) for k, v in err.items()},
+               argmax_equal=agree, bitwise_equal_resumed_vs_full=bitwise)
+    log(f"[fabric] resume drift (bf16 vs an f32 copy) {json.dumps(row)}")
+    unequal = {k: v for k, v in bitwise.items() if v != n_requests}
+    if unequal:
+        raise AssertionError(f"{model.cfg.name}: a resumed prefill is not "
+                             f"bitwise the full one ({unequal} of "
+                             f"{n_requests} equal)")
+    return row
+
+
+def warm_vs_cold(name: str, warm: dict, cold: dict, **extra) -> dict:
+    out = dict(model=name, **extra)
+    for k in ("ttft_p50_s", "ttft_wave1_p50_s", "itl_p50_s",
+              "tokens_per_s"):
+        out[f"{k}_cold"], out[f"{k}_warm"] = cold[k], warm[k]
+    out.update(l2_wait_s=warm["l2_wait_s"],
+               l2_fetch_waits=warm["l2_fetch_waits"])
+    return out
+
+
+def _require_warm(label: str, row: dict, res, cold: dict, counts: dict,
+                  path: tuple, prefix: int) -> None:
+    short = [r.cached_tokens for r in res if r.cached_tokens != prefix]
+    if short:
+        raise AssertionError(f"{label}: warm requests restored {short} "
+                             f"tokens, not {prefix}")
+    if not row["prefilled_tokens"] < cold["prefilled_tokens"]:
+        raise AssertionError(f"{label}: warm pass prefilled "
+                             f"{row['prefilled_tokens']} tokens, the "
+                             f"kvc=None engine {cold['prefilled_tokens']}")
+    _require_launched(counts, path)
+
+
+def phase_fabric(tiny, mamba, device, *, n_requests=8, max_new=32,
+                 block_size=128, max_seq_len=1024, max_batch=4,
+                 prefix=256) -> dict:
+    """Full TinyLlama and full mamba2-1.3b served from the port's
+    constellation; returns each model's warm-pass launch counts."""
+    from repro_torch.serving import Engine
+
+    common = dict(n_requests=n_requests, max_new=max_new)
+    kw = dict(block_size=block_size, max_seq_len=max_seq_len,
+              max_batch=max_batch, device=device)
+    out = {}
+    for model, path in ((tiny, ("chunked_prefill_paged", "paged_decode")),
+                        (mamba, ("ssd_chunk_scan",))):
+        name = model.cfg.name
+        cold_eng = Engine(model, **kw)
+        cold, cold_res = run_pass(cold_eng, f"{name} kvc=None",
+                                  tag="fabric", **common)
+        _, again = run_pass(cold_eng, f"{name} kvc=None again",
+                            tag="fabric", **common)
+        del cold_eng
+        kvc = paper_kvc()
+        row, res, eng, counts = fill_and_hit(model, name, kvc, **common,
+                                             **kw)
+        log(f"[fabric] {name} warm-pass launches: {counts}")
+        report = fabric_report(name, kvc)
+        if report["block_hits"] <= 0:
+            raise AssertionError(f"{name}: the warm pass hit no block")
+        _require_warm(name, row, res, cold, counts, path, prefix)
+        same = sum(a.token_ids == b.token_ids for a, b in zip(res, cold_res))
+        cold_same = sum(a.token_ids == b.token_ids
+                        for a, b in zip(again, cold_res))
+        first_diff = [next((i for i, (x, y) in enumerate(
+            zip(a.token_ids, b.token_ids)) if x != y), None)
+            for a, b in zip(res, cold_res)]
+        log(f"[fabric] {name}: {same}/{len(res)} warm greedy streams equal "
+            f"the kvc=None streams (first differing token {first_diff}); "
+            f"{cold_same}/{len(res)} of a second kvc=None pass do")
+        log(f"[fabric] {json.dumps(warm_vs_cold(name, row, cold))}")
+        check_fabric_bytes(name, eng, kvc, **common)
+        if not eng.paged:
+            resume_drift(model, eng, kvc, **common)
+        out[name] = counts
+        if eng.paged:
+            # the same warm pass on a clocked fabric: the engine waits
+            # out (or hides behind decode) each Get's modeled flight
+            row, res, eng, counts = fill_and_hit(
+                model, f"{name} clocked", paper_kvc(clocked=True), **common,
+                **kw)
+            _require_warm(f"{name} clocked", row, res, cold, counts, path,
+                          prefix)
+            row = warm_vs_cold(name, row, cold, clocked=True)
+            log(f"[fabric] {json.dumps(row)}")
+        del eng
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1173,11 +1489,15 @@ def main() -> int:
     log(f"[phase] model {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    counts = phase_serve(tiny, device)
+    counts, tiny_model = phase_serve(tiny, device)
     log(f"[phase] serve {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    counts["ssd_chunk_scan"] = phase_ssm_serve(mamba, device)["ssd_chunk_scan"]
+    ssm_counts, mamba_model = phase_ssm_serve(mamba, device)
+    counts["ssd_chunk_scan"] = ssm_counts["ssd_chunk_scan"]
     log(f"[phase] serve {mamba.name} {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_fabric(tiny_model, mamba_model, device)
+    log(f"[phase] fabric {time.perf_counter() - t0:.1f} s")
 
     meta = {
         "paged_decode": ("src/repro_torch/kernels/csrc/paged_attention.cu",

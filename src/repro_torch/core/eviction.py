@@ -1,9 +1,29 @@
-"""The shared recency policy every cache tier consults: the port's own copy
-of ``repro/core/eviction.py``'s ``LRUClock``."""
+"""Eviction policies (paper §3.9): the port's own copy of
+``repro/core/eviction.py``.
+
+Three policies over ``ConstellationKVC``:
+
+* **gossip**  -- an LRU eviction of one chunk triggers an immediate
+  neighborhood broadcast purging the block's remaining chunks (the default
+  wired into ``ConstellationKVC._on_evict`` -> ``purge_block``).  The
+  concentric-ring placement keeps all affected chunks in the immediate
+  neighborhood, so a simple broadcast in all directions suffices.
+* **lazy**    -- nothing is propagated; a later ``get_block`` discovering a
+  missing chunk purges the block and notifies the radix index.
+* **periodic** -- ``sweep_incomplete`` scans for blocks with missing chunks.
+
+This module adds the shared recency policy every cache tier consults
+(``LRUClock``), the gossip *cost model* (how many ISL messages a broadcast
+takes), and a helper to run the periodic sweep policy.
+"""
 from __future__ import annotations
 
 import itertools
+from dataclasses import dataclass
 from typing import Hashable, Iterable
+
+from repro_torch.core.chunking import chunk_server
+from repro_torch.core.protocol import ConstellationKVC
 
 
 class LRUClock:
@@ -56,3 +76,29 @@ class LRUClock:
 
     def forget(self, key: Hashable) -> None:
         self._stamp.pop(key, None)
+
+
+@dataclass(frozen=True)
+class GossipCost:
+    messages: int
+    max_hops: int
+
+
+def gossip_cost(kvc: ConstellationKVC, block_hash: bytes) -> GossipCost:
+    """Cost of broadcasting an eviction of ``block_hash`` from its chunk-0
+    server to every other server holding chunks of the block."""
+    n_chunks = kvc.directory.get(block_hash)
+    if not n_chunks:
+        return GossipCost(messages=0, max_hops=0)
+    origin = kvc.server_sat(chunk_server(0, kvc.num_servers))
+    targets = {
+        kvc.server_sat(chunk_server(cid, kvc.num_servers))
+        for cid in range(n_chunks)
+    } - {origin}
+    hops = [kvc.spec.hops(origin, t) for t in targets]
+    return GossipCost(messages=len(targets), max_hops=max(hops, default=0))
+
+
+def run_periodic_sweep(kvc: ConstellationKVC) -> int:
+    """Periodic cleanup policy: purge all incomplete blocks."""
+    return kvc.sweep_incomplete()

@@ -10,7 +10,12 @@ of a kernel wrapper builds (or loads) its library; ``build_all`` builds
 every source at once, one ``nvcc`` process each, all started together.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
-``check`` turns a non-zero code into an exception.
+``check`` turns a non-zero code into an exception.  ``count`` adds one
+to a wrapper's ``launches``.
+
+The serving engine calls the wrappers from two threads (the decode loop
+and the adapter's write-back worker), so the first build of a library
+and the launch counts are taken under locks.
 """
 from __future__ import annotations
 
@@ -20,12 +25,16 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOAD_LOCK = threading.Lock()    # one nvcc per source, even from two threads
+_COUNT_LOCK = threading.Lock()
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -107,15 +116,17 @@ def _finish(name: str, started) -> str:
 def build_all() -> dict[str, str]:
     """Build every kernel source in parallel; returns nvcc's output per
     source (empty for a library that was already built)."""
-    started = {name: _start(name) for name in SIGNATURES}
-    return {name: _finish(name, st) for name, st in started.items()}
+    with _LOAD_LOCK:
+        started = {name: _start(name) for name in SIGNATURES}
+        return {name: _finish(name, st) for name, st in started.items()}
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    _finish(name, _start(name))
-    lib = ctypes.CDLL(str(library_path(name)))
+    with _LOAD_LOCK:
+        _finish(name, _start(name))
+        lib = ctypes.CDLL(str(library_path(name)))
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
@@ -127,3 +138,10 @@ def check(code: int, what: str) -> None:
     """Raise if a launch reported a CUDA error."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {code}")
+
+
+def count(wrapper) -> None:
+    """Add one to ``wrapper.launches``: call it where the wrapper has
+    launched its kernel, and nowhere else."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1

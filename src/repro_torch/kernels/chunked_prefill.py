@@ -96,7 +96,7 @@ def chunked_prefill_paged(q: torch.Tensor, k_pool: torch.Tensor,
               page, block_tables.shape[1], scale, tc,
               torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "chunked_prefill_paged")
-    chunked_prefill_paged.launches += 1
+    _build.count(chunked_prefill_paged)
     return out
 
 
@@ -134,7 +134,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               int(sliding_window or 0), tc,
               torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "flash_prefill")
-    flash_prefill.launches += 1
+    _build.count(flash_prefill)
     return out
 
 

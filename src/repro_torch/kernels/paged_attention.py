@@ -117,7 +117,7 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
               pages_per_seq, page, h, hkv, d, dv, scale,
               torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "paged_decode")
-    paged_decode.launches += 1
+    _build.count(paged_decode)
     return out
 
 

@@ -92,7 +92,7 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     code = fn(*ptrs, y.data_ptr(), final.data_ptr(), bsz, seqlen, h, p, g,
               n, chunk_size, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "ssd_chunk_scan")
-    ssd_chunk_scan.launches += 1
+    _build.count(ssd_chunk_scan)
     return y, final
 
 

@@ -134,7 +134,11 @@ def ssd_prefill(m: SSD, x: torch.Tensor, cfg: ModelConfig, *,
     c_mat = cbc[..., g * n:].reshape(bsz, seqlen, g, n)
     dt = F.softplus(dt.float() + m.dt_bias)
 
-    chunk = min(cfg.ssm_chunk, seqlen)
+    # always the configured chunk, padded (the reference takes
+    # min(chunk, seqlen)): the card's scan rounds the final state by the
+    # chunk length, so a prefill resumed from a snapshot would otherwise
+    # leave another state than the full prefill it replaces
+    chunk = cfg.ssm_chunk
     pad = (-seqlen) % chunk
     if pad:
         # zero-pad to a chunk multiple; dt = 0 on padded steps keeps the

@@ -7,8 +7,8 @@ from ``repro/serving/engine.py``.
 * ``repro_torch.serving.kv_manager`` -- the ``TieredKVManager``: L0
   device page pool -> L1 host-RAM page cache -> L2 KVC manager.
 
-Per request: tokenize -> SkyMemory longest-prefix lookup (with a
-``manager``) -> fetched 128-token blocks drop straight into KV pages ->
+Per request: tokenize -> SkyMemory longest-prefix lookup (with ``kvc``
+or a ``manager``) -> fetched 128-token blocks drop straight into KV pages ->
 the uncached suffix prefills in page-aligned chunks that ride the decode
 step -> continuous-batching decode, with preemption-by-offload absorbing
 pool pressure.  A model without paged decode (the SSM family) is served
@@ -16,14 +16,14 @@ by the executor's ``DenseRuntime`` instead: per-request prefill (resuming
 from a SkyMemory snapshot on a hit) and batched decode over a dense
 cache.
 
-Not in this slice (see ROADMAP.md queue 1): ``kvc=`` (building the
-manager needs the port's own copy of the constellation fabric),
-``payload_codec=`` (payloads are f32 ``SKYM`` until a second codec is
-ported), the streaming worker (``submit`` / ``start`` / ``stop``), and
-the non-paged families other than SSM.
+Not in this slice (see ROADMAP.md queue 1): ``payload_codec=`` (payloads
+are f32 ``SKYM`` until a second codec is ported), the streaming worker
+(``submit`` / ``start`` / ``stop``), and the non-paged families other
+than SSM.
 """
 from __future__ import annotations
 
+from repro_torch.core.protocol import ConstellationKVC, KVCManager
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.serving.executor import DenseRuntime, PagedExecutor
@@ -39,17 +39,20 @@ class Engine:
     """Continuous-batching engine over ``model`` on ``device``: paged for
     the dense families, the dense runtime for the SSM family.
 
-    ``manager`` is any object with ``KVCManager``'s interface
-    (``get_cache_tokens``, ``add_blocks_tokens``,
-    ``add_precomputed_blocks``, ``block_size``, ``policy``, ``cache``),
-    built over this engine's ``adapter.kvc_fn`` or an equivalent one.
-    ``device`` defaults to ``"cuda"`` and must be the model's device."""
+    With ``kvc`` (a ``ConstellationKVC``, or a view of one) the engine
+    builds its own ``KVCManager`` over the constellation and this
+    engine's ``adapter.kvc_fn``.  A ``manager`` built elsewhere (a
+    sibling over a shared radix index, or any object with
+    ``KVCManager``'s interface over an equivalent ``kvc_fn``) takes
+    precedence over ``kvc``.  ``device`` defaults to ``"cuda"`` and must
+    be the model's device."""
 
     def __init__(
         self,
         model: Model,
         *,
-        manager=None,
+        kvc: ConstellationKVC | None = None,
+        manager: KVCManager | None = None,
         block_size: int = 128,
         max_seq_len: int = 512,
         max_batch: int = 8,
@@ -64,10 +67,6 @@ class Engine:
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "
                              f"{self.device}")
-        if manager is not None and manager.block_size != block_size:
-            raise ValueError(
-                f"manager block_size {manager.block_size} != engine "
-                f"block_size {block_size}")
         self.model = model
         self.cfg = model.cfg
         self.tokenizer = ByteTokenizer(self.cfg.vocab_size)
@@ -75,9 +74,21 @@ class Engine:
         self.max_batch = max_batch
         self.block_size = block_size
         self.adapter = SkyKVCAdapter(model)
-        self.manager = manager
+        if manager is not None:
+            if manager.block_size != block_size:
+                raise ValueError(
+                    f"manager block_size {manager.block_size} != engine "
+                    f"block_size {block_size}")
+            self.manager = manager
+        elif kvc is not None:
+            self.manager = KVCManager(
+                self.tokenizer.encode, self.adapter.kvc_fn, kvc,
+                block_size=block_size)
+        else:
+            self.manager = None
         self.paged = model.supports_paged_decode
         if self.paged:
+            self.page_size = block_size
             # page size == SkyMemory block size: fetched blocks are pages
             self.cache = model.init_paged_cache(
                 num_slots=max_batch, page_size=block_size,
@@ -108,7 +119,7 @@ class Engine:
         else:
             self.cache = self.kv = self.executor = self.scheduler = None
             self._dense = DenseRuntime(
-                model, self.tokenizer, self.adapter, manager,
+                model, self.tokenizer, self.adapter, self.manager,
                 max_seq_len=max_seq_len, max_batch=max_batch,
                 write_back=write_back, seed=seed)
         self.stats = EngineStats()
@@ -138,6 +149,10 @@ class Engine:
     def chunk_log(self) -> list[tuple[int, int, int]]:
         return self.scheduler.chunk_log
 
+    @chunk_log.setter
+    def chunk_log(self, value) -> None:
+        self.scheduler.chunk_log = value
+
     @property
     def write_back(self) -> bool:
         return self.kv.write_back if self.paged else self._dense.write_back
@@ -148,3 +163,6 @@ class Engine:
             self.kv.write_back = value
         else:
             self._dense.write_back = value
+
+    def _chunk_buf(self, v: int) -> int:
+        return self.executor.chunk_buf(v)

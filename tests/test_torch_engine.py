@@ -5,8 +5,11 @@ reference's ``Model.init``, converted with ``params_from_numpy``),
 greedy, f32, on the CPU.  Greedy token streams must be identical:
 chunked admission, stop-the-world admission, a free-list pool under
 preemption with host-tier (L1) restores, and SkyMemory prefix hits over
-each engine's own reference ``KVCManager`` + ``ConstellationKVC``.  The
-payload bytes the port writes must be the reference's.
+each engine's own package's constellation (the port's ``KVCManager`` and
+``ConstellationKVC`` on the port's side).  The facade members the
+reference's tests use (``page_size``, ``chunk_log``, ``_chunk_buf``)
+behave as the reference's.  The payload bytes the port writes must be
+the reference's.
 """
 import jax
 import ml_dtypes
@@ -15,9 +18,9 @@ import pytest
 import torch
 
 from repro.configs import get_config, smoke_config
-from repro.core import ConstellationKVC, ConstellationSpec, LosWindow, Sat, Strategy
+import repro.core as J
+import repro_torch.core as T
 from repro.core import chunking as jchunking
-from repro.core.protocol import KVCManager
 from repro.models.model import Model as JaxModel
 from repro.serving import Engine as JaxEngine
 from repro.serving import Request as JaxRequest
@@ -50,10 +53,13 @@ def setup():
     return jm, params, tm
 
 
-def make_kvc():
-    return ConstellationKVC(
-        ConstellationSpec(15, 15, 550.0), LosWindow(Sat(7, 7), 9, 9),
-        Strategy.ROTATION_HOP, num_servers=10, chunk_bytes=6 * 1024,
+def make_kvc(mod):
+    """The same constellation, built from ``repro.core`` or
+    ``repro_torch.core``."""
+    return mod.ConstellationKVC(
+        mod.ConstellationSpec(15, 15, 550.0),
+        mod.LosWindow(mod.Sat(7, 7), 9, 9), mod.Strategy.ROTATION_HOP,
+        num_servers=10, chunk_bytes=6 * 1024,
     )
 
 
@@ -66,11 +72,13 @@ def _serve(setup, prompts, max_new, *, manager_passes=0, **kw):
     treqs = [Request(prompt=p, sampling=SamplingParams(max_new_tokens=n))
              for p, n in zip(prompts, news)]
     if manager_passes:
-        jeng = JaxEngine(jm, params, kvc=make_kvc(), **kw)
+        # the port's side takes a port KVCManager the test builds, so the
+        # ``manager=`` path stays covered (``kvc=``: test_torch_fabric.py)
+        jeng = JaxEngine(jm, params, kvc=make_kvc(J), **kw)
         adapter = SkyKVCAdapter(tm)
-        mgr = KVCManager(ByteTokenizer(tm.cfg.vocab_size).encode,
-                         adapter.kvc_fn, make_kvc(),
-                         block_size=kw["block_size"])
+        mgr = T.KVCManager(ByteTokenizer(tm.cfg.vocab_size).encode,
+                           adapter.kvc_fn, make_kvc(T),
+                           block_size=kw["block_size"])
         teng = Engine(tm, manager=mgr, device="cpu", **kw)
     else:
         jeng = JaxEngine(jm, params, **kw)
@@ -118,8 +126,9 @@ def test_preemption_with_l1_restore_identical(setup):
 
 
 def test_constellation_prefix_hits_identical(setup):
-    """Each engine over its own KVCManager + ConstellationKVC: the first
-    pass writes back (through ``kvc_fn``), the second pass hits."""
+    """Each engine over its own package's KVCManager + ConstellationKVC:
+    the first pass writes back (through ``kvc_fn``), the second pass
+    hits."""
     prompts = [PROMPT * 2 + f"q{i}" for i in range(3)]
     want, got, jres, tres, jeng, teng = _serve(
         setup, prompts, 5, manager_passes=2, block_size=16, max_seq_len=256,
@@ -132,6 +141,72 @@ def test_constellation_prefix_hits_identical(setup):
     assert ts.block_hits == js.block_hits > 0
     assert ts.block_misses == js.block_misses
     assert ts.blocks_set == js.blocks_set > 0
+
+
+def test_chunk_buf_is_bounded_and_sufficient(setup):
+    """The chunk buffer of ``v`` valid tokens: the reference's length,
+    at least ``v`` and at most the chunk budget."""
+    jm, params, tm = setup
+    kw = dict(block_size=16, max_seq_len=256, max_batch=2, chunk_tokens=64)
+    jeng, teng = JaxEngine(jm, params, **kw), Engine(tm, device="cpu", **kw)
+    assert teng.page_size == jeng.page_size == 16
+    for v in (1, 2, 31, 32, 33, 63, 64):
+        b = teng._chunk_buf(v)
+        assert b == jeng._chunk_buf(v)
+        assert v <= b <= 64
+
+
+def _facade_engines(setup, **kw):
+    """A reference and a port engine, each over its own constellation."""
+    jm, params, tm = setup
+    kw = dict(block_size=16, max_seq_len=256, max_batch=2, **kw)
+    return (JaxEngine(jm, params, kvc=make_kvc(J), **kw),
+            Engine(tm, kvc=make_kvc(T), device="cpu", **kw))
+
+
+def test_whole_prompt_cached_replays_one_token(setup):
+    """A whole-prompt hit keeps every restored block and recomputes one
+    token through the paged chunk path, in both engines; the warm stream
+    is the cold one."""
+    jm, params, tm = setup
+    prompt = "x" * 63                     # + bos = 64 tokens = 4 blocks
+    sp = dict(max_new_tokens=6)
+    results = []
+    for eng, req, samp in zip(_facade_engines(setup),
+                              (JaxRequest, Request),
+                              (JaxSampling, SamplingParams)):
+        eng.generate([req(prompt=prompt, sampling=samp(**sp))])
+        eng.chunk_log = []
+        rc = eng.generate([req(prompt=prompt, sampling=samp(**sp))])[0]
+        assert rc.prompt_tokens == 64
+        assert rc.cached_tokens == 63 and rc.prefill_tokens == 1
+        assert eng.chunk_log == [(0, 63, 1)]  # the only chunk: 1-token replay
+        results.append(rc.token_ids)
+    cold = Engine(tm, device="cpu", max_seq_len=256, max_batch=2).generate(
+        [Request(prompt=prompt, sampling=SamplingParams(**sp))])[0]
+    assert results[1] == results[0] == cold.token_ids
+
+
+def test_partial_prefix_hit_chunks_only_suffix(setup):
+    """A partial hit restores its blocks into pages and chunks only the
+    uncached suffix from the cached boundary: the reference's chunk log."""
+    prompt = PROMPT * 3
+    logs, cached = [], []
+    for eng, req, samp in zip(_facade_engines(setup, chunk_tokens=32),
+                              (JaxRequest, Request),
+                              (JaxSampling, SamplingParams)):
+        eng.generate([req(prompt=prompt, sampling=samp(max_new_tokens=4))])
+        eng.chunk_log = []
+        r = eng.generate([req(prompt=prompt + " more text afterwards",
+                              sampling=samp(max_new_tokens=4))])[0]
+        assert 0 < r.cached_tokens < r.prompt_tokens
+        assert r.cached_tokens % 16 == 0
+        assert eng.chunk_log[0][1] == r.cached_tokens
+        assert sum(c[2] for c in eng.chunk_log) == r.prefill_tokens
+        logs.append(list(eng.chunk_log))
+        cached.append((r.cached_tokens, r.token_ids))
+    assert logs[1] == logs[0]
+    assert cached[1] == cached[0]
 
 
 def test_payload_bytes_match_reference(setup):

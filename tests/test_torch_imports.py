@@ -69,15 +69,37 @@ def test_importing_every_module_loads_no_jax_or_repro():
     assert out.returncode == 0, out.stderr
     assert "repro_torch.serving.engine" in mods
     assert "repro_torch.kernels._build" in mods
+    assert "repro_torch.core.protocol" in mods
+
+
+def test_fabric_imports_no_torch():
+    """The SkyMemory fabric (``repro_torch.core``) is numpy and plain
+    Python: importing it loads no torch, no JAX and nothing of ``repro``."""
+    code = (
+        "import sys\n"
+        "import repro_torch.core, repro_torch.core.eviction\n"
+        "bad = sorted(m for m in sys.modules\n"
+        f"             if m.split('.')[0] in {FORBIDDEN + ('torch',)!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core import ConstellationKVC, ConstellationSpec, LosWindow, Sat
     from repro_torch.device import resolve_device
     from repro_torch.models.model import Model
     from repro_torch.serving import Engine
+
+    def kvc():
+        return ConstellationKVC(ConstellationSpec(5, 19, 550.0),
+                                LosWindow(Sat(2, 9), 5, 5), num_servers=10)
 
     cfg = smoke_config(get_config("skymemory-tinyllama"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -87,9 +109,16 @@ def test_default_device_raises_without_cuda():
     cpu_model = Model(cfg.replace(dtype="float32"), device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(cpu_model, block_size=16, max_seq_len=64, max_batch=1)
+    # a constellation does not change the rule
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cpu_model, kvc=kvc(), block_size=16, max_seq_len=64,
+               max_batch=1)
     eng = Engine(cpu_model, block_size=16, max_seq_len=64, max_batch=1,
                  device="cpu")
     assert eng.cache.k_pool.device.type == "cpu"
+    eng = Engine(cpu_model, kvc=kvc(), block_size=16, max_seq_len=64,
+                 max_batch=1, device="cpu")
+    assert eng.kv.manager is eng.manager is not None
     # the SSM family, served by the dense runtime, follows the same rule
     ssm = smoke_config(get_config("mamba2-1.3b"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -97,6 +126,9 @@ def test_default_device_raises_without_cuda():
     cpu_ssm = Model(ssm.replace(dtype="float32"), device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(cpu_ssm, block_size=16, max_seq_len=64, max_batch=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cpu_ssm, kvc=kvc(), block_size=16, max_seq_len=64,
+               max_batch=1)
     eng = Engine(cpu_ssm, block_size=16, max_seq_len=64, max_batch=1,
                  device="cpu")
     assert not eng.paged and eng.cache is None

@@ -338,3 +338,34 @@ def test_decode_split_plan_matches_reference(tables):
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
     _close(got, jwant)
     assert got[0].abs().max().item() == 0.0
+
+
+def test_launch_counts_survive_two_threads():
+    """The serving engine launches kernels from its decode loop and its
+    write-back worker at once: ``_build.count`` loses no launch when
+    more threads than cores count the same wrapper, switching often."""
+    import sys
+    import threading
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    n_threads, per_thread = 16, 500
+
+    def work():
+        for _ in range(per_thread):
+            _build.count(wrapper)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert wrapper.launches == n_threads * per_thread

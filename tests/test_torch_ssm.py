@@ -12,7 +12,8 @@ through ``repro`` and ``repro_torch``:
 * the smoke mamba2 model: forward logits and the collected snapshot, a
   resume from a snapshot, and the decode step;
 * the serving engine: identical greedy streams cold, with partial
-  SkyMemory snapshot hits, and across more requests than slots; payload
+  SkyMemory snapshot hits (each engine over its own package's
+  constellation, ``kvc=``), and across more requests than slots; payload
   bytes; and the invariant the reference breaks -- a prompt served from
   the cache gives the stream it gives cold.
 """
@@ -23,9 +24,9 @@ import pytest
 import torch
 
 from repro.configs import get_config, smoke_config
-from repro.core import ConstellationKVC, ConstellationSpec, LosWindow, Sat, Strategy
+import repro.core as J
+import repro_torch.core as T
 from repro.core import chunking as jchunking
-from repro.core.protocol import KVCManager
 from repro.kernels import ref as jref
 from repro.kernels.ssd_scan import ssd_chunk_scan
 from repro.models.model import Model as JaxModel
@@ -277,6 +278,36 @@ def test_resume_from_snapshot_matches_reference(setup):
     _close_state(st, {"ssm": {k: v.numpy() for k, v in fst["ssm"].items()}})
 
 
+def test_prefill_scans_at_the_configured_chunk(setup, monkeypatch):
+    """Every prefill scans at ``cfg.ssm_chunk``, padding a short or ragged
+    sequence with dt = 0 (the reference takes ``min(chunk, seqlen)``):
+    the card's scan rounds the final state by the chunk length, so a
+    suffix resumed from a snapshot must run the full prefill's chunks to
+    leave its state.  The logits and state still match the reference."""
+    jm, params, tm = setup
+    seen = []
+    scan = ops.ssd_scan
+
+    def recording_scan(*args, chunk_size, **kw):
+        seen.append((args[0].shape[1], chunk_size))
+        return scan(*args, chunk_size=chunk_size, **kw)
+
+    monkeypatch.setattr(ops, "ssd_scan", recording_scan)
+    toks = _tokens(tm.cfg, 3, (1, 37))
+    _, snap = tm.forward(torch.from_numpy(toks[:, :32]), collect_state=True)
+    lt, st = tm.forward(torch.from_numpy(toks[:, 32:]), q_offset=32,
+                        prefix_state=snap, collect_state=True)
+    q = tm.cfg.ssm_chunk
+    assert q == 16 and seen and all(c == q and n % q == 0 for n, c in seen)
+    assert {n for n, _ in seen} == {32, 16}       # 5 tokens padded to 16
+    _, _, jsnap = jm.forward(params, jnp.asarray(toks[:, :32]),
+                             collect_state=True)
+    lw, _, sw = jm.forward(params, jnp.asarray(toks[:, 32:]), q_offset=32,
+                           prefix_state=jsnap, collect_state=True)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lw), **Y_TOL)
+    _close_state(st, sw)
+
+
 def test_decode_steps_match_reference_and_prefill(setup):
     """Decode steps from an empty cache: the reference's logits and
     cache, and the prefill logits of the same tokens (the chunked scan
@@ -300,24 +331,24 @@ def test_decode_steps_match_reference_and_prefill(setup):
 # the engine
 # ---------------------------------------------------------------------------
 
-def make_kvc():
-    return ConstellationKVC(
-        ConstellationSpec(15, 15, 550.0), LosWindow(Sat(7, 7), 9, 9),
-        Strategy.ROTATION_HOP, num_servers=10, chunk_bytes=6 * 1024,
+def make_kvc(mod):
+    """The same constellation, built from ``repro.core`` or
+    ``repro_torch.core``."""
+    return mod.ConstellationKVC(
+        mod.ConstellationSpec(15, 15, 550.0),
+        mod.LosWindow(mod.Sat(7, 7), 9, 9), mod.Strategy.ROTATION_HOP,
+        num_servers=10, chunk_bytes=6 * 1024,
     )
 
 
 def _engines(setup, *, cached: bool, **kw):
-    """A reference engine and a port engine; with ``cached`` each over its
-    own reference ``KVCManager`` + ``ConstellationKVC``."""
+    """A reference engine and a port engine; with ``cached`` each builds
+    its manager over its own package's ``ConstellationKVC``."""
     jm, params, tm = setup
     if not cached:
         return JaxEngine(jm, params, **kw), Engine(tm, device="cpu", **kw)
-    adapter = SkyKVCAdapter(tm)
-    mgr = KVCManager(ByteTokenizer(tm.cfg.vocab_size).encode,
-                     adapter.kvc_fn, make_kvc(), block_size=kw["block_size"])
-    return (JaxEngine(jm, params, kvc=make_kvc(), **kw),
-            Engine(tm, manager=mgr, device="cpu", **kw))
+    return (JaxEngine(jm, params, kvc=make_kvc(J), **kw),
+            Engine(tm, kvc=make_kvc(T), device="cpu", **kw))
 
 
 def _run(eng, prompts, max_new, jax_side: bool):
