@@ -54,7 +54,30 @@ Phases (each raises on failure; nothing is caught):
    The warm pass's TTFT, ITL and tokens/s print beside a ``kvc=None``
    engine's in the same process, with the fabric's counters and modeled
    Get flights; a TinyLlama run on a clocked fabric (``SimClock``) then
-   waits out those flights.
+   waits out those flights;
+7. cluster: scale-out serving, two full TinyLlama replicas of one model
+   on one card over one clocked int8 constellation (``EngineCluster``,
+   the fabric of ``benchmarks/run.py``'s cluster scenarios).  A closed
+   batch of the same 8 requests twice under prefix affinity (the second
+   pass must hit blocks; the paged decode, paged prefill and dense
+   prefill kernels must launch), the same under the random router, and
+   one engine alone beside them; the sustained stream (48 seeded
+   arrivals of three tenants, deterministic pump-budget mode, admission
+   capacity 600: the protected tenant sheds nothing, and a second run on
+   a fresh build routes and sheds identically); the chaos arc at k=2
+   (96 arrivals, kills, link cuts, a directory-stripe wipeout and a
+   replica-home-pair kill over a ground tier, free-list pools: the
+   protected tenant sheds nothing and the injector applies its events);
+   each replica must serve a request over the phase.  Last, full
+   TinyLlama and full mamba2-1.3b each on one engine with int8 payloads
+   through ``submit`` / ``start`` / ``stop``: every warm request must
+   restore 256 tokens, every stored block must equal a fresh
+   ``kvc_fn``, and the int8 block's bytes, chunks and host Set / Get /
+   decode times print beside warm and cold TTFT.  A replica thread's or
+   worker's exception fails the run.
+
+The ``kernels`` line counts each kernel's launches over the main-path
+runs of phases 5-7, each counted from 0 just before it.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -777,9 +800,13 @@ def serve_mode(model, label: str, *, device, n_requests, max_new, **kw):
     return row, [r.token_ids for r in res], eng
 
 
-def run_pass(eng, label: str, *, n_requests, max_new, tag="serve"):
+def run_pass(eng, label: str, *, n_requests, max_new, tag="serve",
+             stream=False):
     """Serve ``make_requests(n_requests, max_new)`` once on ``eng`` with
-    fresh stats; check every stream; return the row and the results."""
+    fresh stats; check every stream; return the row and the results.
+    ``stream`` drives the streaming front door instead of ``generate``:
+    every request is submitted, then the worker thread starts and
+    ``stop(drain=True)`` waits for it to finish them."""
     from repro_torch.serving import EngineStats
 
     fns = kernel_fns()
@@ -788,7 +815,13 @@ def run_pass(eng, label: str, *, n_requests, max_new, tag="serve"):
     reqs = make_requests(n_requests, max_new)
     sync(eng.device)
     t0 = time.perf_counter()
-    res = eng.generate(reqs)
+    if stream:
+        futs = [eng.submit(r) for r in reqs]
+        eng.start()
+        eng.stop(drain=True)
+        res = [f.result(timeout=0) for f in futs]
+    else:
+        res = eng.generate(reqs)
     sync(eng.device)
     wall = time.perf_counter() - t0
     s = eng.stats
@@ -1267,7 +1300,9 @@ def check_fabric_bytes(label: str, eng, kvc, *, n_requests, max_new) -> None:
     ``get_block``, equals a fresh ``kvc_fn`` on the card for the same
     tokens: block 0 from scratch, block i resumed from block i-1's bytes
     as the write-back did.  Also times one Set and one Get of the block
-    on a scratch fabric (host time; the flight is only modeled)."""
+    on a scratch fabric (host time; the flight is only modeled), and one
+    decode of its payload to arrays (the dequantize, under a quantized
+    codec)."""
     from repro_torch.core import (
         chain_hashes,
         decode_payload_arrays,
@@ -1310,10 +1345,14 @@ def check_fabric_bytes(label: str, eng, kvc, *, n_requests, max_new) -> None:
         t_get = time.perf_counter() - t0
         if back != got:
             raise AssertionError(f"{label}: scratch Set/Get changed block {i}")
+        t0 = time.perf_counter()
+        decode_payload_arrays(got)
+        t_decode = time.perf_counter() - t0
         row = dict(model=label, block=i, tokens=len(toks),
                    payload_bytes=len(got),
                    chunks=num_chunks(len(got), kvc.chunk_bytes),
-                   host_set_ms=t_set * 1e3, host_get_ms=t_get * 1e3)
+                   host_set_ms=t_set * 1e3, host_get_ms=t_get * 1e3,
+                   host_decode_ms=t_decode * 1e3)
         log(f"[fabric] {json.dumps(row)}")
     log(f"[fabric] {label}: {checked} registered blocks equal a fresh "
         "kvc_fn on the card")
@@ -1459,6 +1498,467 @@ def phase_fabric(tiny, mamba, device, *, n_requests=8, max_new=32,
 
 
 # ---------------------------------------------------------------------------
+# phase 7: scale-out serving -- two replicas on one card, one constellation
+# ---------------------------------------------------------------------------
+
+SUSTAINED_FILLER = ("SkyMemory serves an open request stream from orbit: "
+                    "arrivals route at arrival time, loads release per "
+                    "request, and overload sheds the lowest priority first. ")
+
+
+def cluster_kvc(*, chaos: bool = False):
+    """The fabric of ``benchmarks/run.py``'s two cluster scenarios: a
+    15x15 constellation at 550 km, a 9x9 LOS window at (7, 7), 10 servers
+    placed rotation+hop, 6 kB chunks, a transport on a ``SimClock`` at 5x
+    with 0.2 ms per chunk.  ``chaos`` adds the chaos scenario's pieces
+    at k=2: two data and two directory copies, a 5 ms probe timeout and
+    a write-through ground tier."""
+    from repro_torch.core import (
+        ConstellationKVC,
+        ConstellationSpec,
+        GroundStationTier,
+        IslTransport,
+        LosWindow,
+        Sat,
+        SimClock,
+        Strategy,
+    )
+
+    spec = ConstellationSpec(15, 15, 550.0)
+    kw = {}
+    tkw = {}
+    if chaos:
+        kw = dict(replication=2, dir_replication=2,
+                  ground=GroundStationTier(spec, processing_time_s=1e-3),
+                  ground_write="all")
+        tkw = dict(probe_timeout_s=5e-3)
+    return ConstellationKVC(
+        spec, LosWindow(Sat(7, 7), 9, 9), Strategy.ROTATION_HOP,
+        num_servers=10, chunk_bytes=6 * 1024,
+        transport=IslTransport(spec, clock=SimClock(rate=5.0),
+                               chunk_processing_time_s=2e-4, **tkw), **kw)
+
+
+def drain_write_backs(cluster) -> None:
+    """Wait until every write-back the replicas queued has landed (the
+    shared ``kvc_fn`` forward included)."""
+    for eng in cluster.engines:
+        eng.kv.drain_write_back()
+
+
+def build_cluster(model, device, *, num_replicas=2, policy="prefix_affinity",
+                  chaos=False, block_size=128, **kw):
+    """``num_replicas`` replicas of ``model`` over one fresh
+    ``cluster_kvc`` (anchored by ``spread_anchors``, so one replica sits
+    where replica 0 of two does), int8 payloads, rotation every 2
+    virtual seconds, each replica warmed by one short request, its
+    write-back drained, stats reset (the scenarios' ``build``)."""
+    from repro_torch.serving import EngineCluster, Request, SamplingParams
+
+    cluster = EngineCluster(
+        model, cluster_kvc(chaos=chaos), num_replicas=num_replicas,
+        policy=policy, router_seed=0, block_size=block_size,
+        max_seq_len=512, max_batch=4, rotate_every_s=2.0,
+        payload_codec="int8", device=device, **kw)
+    for i, eng in enumerate(cluster.engines):
+        eng.generate([Request(prompt=f"[warm {i}] " + SUSTAINED_FILLER,
+                              sampling=SamplingParams(max_new_tokens=2))])
+    drain_write_backs(cluster)
+    cluster.reset_stats()
+    return cluster
+
+
+def counted(run) -> tuple:
+    """``run()`` as one main-path run: every launch count is zeroed just
+    before it and read just after.  Returns its value and the counts."""
+    fns = zero_launches()
+    out = run()
+    return out, {k: f.launches for k, f in fns.items()}
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k in KERNELS:
+        total[k] += counts[k]
+
+
+def cluster_pass(cluster, label: str, *, n_requests, max_new) -> tuple:
+    """One closed batch through ``cluster.serve`` (replica threads) with
+    fresh serving and fabric counters (the router keeps its affinity
+    memory); every request must finish with in-range tokens.  The row's
+    ``launches`` are counted from 0 over the batch and the write-backs
+    it queued."""
+    from repro_torch.core import CacheStats, TransportStats
+    from repro_torch.serving import EngineStats
+
+    reqs = make_requests(n_requests, max_new)
+    for eng in cluster.engines:
+        eng.stats = EngineStats()
+    for view in cluster.views:
+        view.stats, view.transport.stats = CacheStats(), TransportStats()
+    dev = cluster.engines[0].device
+    sync(dev)
+    fns = zero_launches()
+    t0 = time.perf_counter()
+    res = cluster.serve(reqs, parallel=True)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    drain_write_backs(cluster)
+    sync(dev)
+    launches = {k: f.launches for k, f in fns.items()}
+    vocab = cluster.engines[0].cfg.vocab_size
+    for r in res:
+        if r is None or not (len(r.token_ids) == max_new
+                             or r.finish_reason == "eos"):
+            raise AssertionError(f"{label}: a request did not finish")
+        if not all(0 <= t < vocab for t in r.token_ids):
+            raise AssertionError(f"{label}: token id out of range")
+    m = cluster.merged_stats()
+    pct = m.latency_percentiles()
+    fab = cluster.fabric_stats()
+    per_replica = [s["requests"] for s in cluster.replica_stats()]
+    row = dict(mode=label, requests=len(res), wall_s=wall,
+               decoded_tokens=m.decoded_tokens,
+               tokens_per_s=m.decoded_tokens / wall,
+               ttft_p50_s=pct["ttft_s"]["p50"], itl_p50_s=pct["itl_s"]["p50"],
+               cached_tokens=m.cached_tokens,
+               prefilled_tokens=m.prefilled_tokens,
+               requests_per_replica=per_replica,
+               routes=[d.replica for d in cluster.decisions],
+               block_hits=fab["block_hits"],
+               block_misses=fab["block_misses"],
+               bytes_encoded=fab["bytes_encoded"], bytes_raw=fab["bytes_raw"],
+               l2_wait_s=fab["l2_wait_s"], rotations=fab["rotations"],
+               launches=launches)
+    log(f"[cluster] {json.dumps(row)}")
+    return row, res
+
+
+def _fingerprint(report) -> tuple:
+    """(route decisions, shed set, token streams) of a stream report."""
+    routes = [r.decision.replica if r.decision else None
+              for r in report.records]
+    shed = [i for i, r in enumerate(report.records) if r.shed]
+    toks = [tuple(r.result.token_ids) if r.result else None
+            for r in report.records]
+    return routes, shed, toks
+
+
+def _probe_rate(cluster, requests, overload: float, rate_rps: float):
+    """The scenarios' calibration: submit ``requests``, count the
+    ``_pump_all`` rounds that drain them, and size the pump budget per
+    virtual second so arrivals outpace service by ``overload``."""
+    for r in requests:
+        cluster.submit(r)
+    rounds = 0
+    t0 = time.perf_counter()
+    while cluster._pump_all():
+        rounds += 1
+    wall = time.perf_counter() - t0
+    drain_write_backs(cluster)
+    rounds = max(rounds, 1)
+    per_round = len(requests) / rounds
+    return rate_rps / (per_round * overload), wall / rounds, rounds
+
+
+def _stream_row(label: str, report, **extra) -> dict:
+    s = report.slo
+    row = dict(run=label, offered=s["offered"], shed=s["shed"],
+               completed=s["completed"], attained=s["attained"],
+               attainment=s["attainment"], elapsed_s=report.elapsed_s,
+               goodput_tokens_per_s=s["goodput_tokens_per_s"],
+               tokens_per_s=s["tokens_per_s"], itl_tail_s=s["itl_tail_s"],
+               rotations=report.rotations,
+               per_tenant={k: {kk: v[kk] for kk in (
+                   "offered", "shed", "completed", "attainment")}
+                   for k, v in s["per_tenant"].items()}, **extra)
+    log(f"[cluster] {json.dumps(row)}")
+    return row
+
+
+def peak_admission(capacity_tokens: int):
+    """``AdmissionController(capacity_tokens, protect_priority=1)`` that
+    also keeps the highest router load it was asked to admit at, and
+    counts the protected arrivals it let in at or above capacity (each
+    one the protection kept from being shed)."""
+    import dataclasses
+
+    from repro_torch.serving import AdmissionController
+
+    @dataclasses.dataclass
+    class PeakAdmission(AdmissionController):
+        peak_load_tokens: int = dataclasses.field(default=0, init=False)
+        protected_over_capacity: int = dataclasses.field(default=0,
+                                                         init=False)
+
+        def admit(self, priority: int, load_tokens: int) -> bool:
+            self.peak_load_tokens = max(self.peak_load_tokens, load_tokens)
+            if (priority >= self.protect_priority
+                    and load_tokens >= self.capacity_tokens):
+                self.protected_over_capacity += 1
+            return super().admit(priority, load_tokens)
+
+    return PeakAdmission(capacity_tokens=capacity_tokens, protect_priority=1)
+
+
+def _require_protected(label: str, report) -> None:
+    pro = report.slo["per_tenant"]["pro"]
+    if pro["shed"] or pro["completed"] != pro["offered"]:
+        raise AssertionError(f"{label}: the protected tenant lost requests "
+                             f"({pro})")
+
+
+def sustained_stream(model, device) -> tuple:
+    """``benchmarks/run.py``'s ``sustained_load`` at its full sizes: 48
+    seeded arrivals of three tenants, deterministic pump-budget mode,
+    admission capacity 600 with ``pro`` protected; run twice on fresh
+    builds.  Returns each replica's request count and the launches of
+    the two ``serve_stream`` runs, each counted from 0."""
+    from repro_torch.serving import (
+        SLO,
+        Request,
+        SamplingParams,
+        TenantSpec,
+        TrafficGenerator,
+    )
+
+    mnt = (8, 24, 12)
+    tenants = [
+        TenantSpec(name="pro", rate_rps=0.25, process="poisson", priority=1,
+                   max_new_tokens=mnt[0], prompt_chars=(48, 96)),
+        TenantSpec(name="burst", rate_rps=0.5, process="bursty",
+                   burst_size=4, burst_spread_s=0.05, prefix_reuse_p=0.6,
+                   num_documents=3, max_new_tokens=mnt[1],
+                   prompt_chars=(48, 96)),
+        TenantSpec(name="diurnal", rate_rps=0.25, process="diurnal",
+                   diurnal_period_s=8.0, max_new_tokens=mnt[2],
+                   prompt_chars=(48, 96)),
+    ]
+    arrivals = TrafficGenerator(tenants, seed=0).take(48)
+    probe = build_cluster(model, device)
+    pump, step_wall, rounds = _probe_rate(
+        probe, [Request(prompt=f"[probe {i}] " + SUSTAINED_FILLER,
+                        sampling=SamplingParams(max_new_tokens=mnt[i % 3]))
+                for i in range(8)],
+        1.2, sum(t.rate_rps for t in tenants))
+    del probe
+    slos = {t.name: SLO(ttft_s=max(1.0, 8.0 * step_wall)) for t in tenants}
+    log(f"[cluster] sustained: probe {rounds} rounds, {step_wall:.4f} s per "
+        f"round, pump budget {pump:.4f} rounds per virtual s, TTFT SLO "
+        f"{slos['pro'].ttft_s:.3f} s")
+    runs, served = [], [0, 0]
+    total = dict.fromkeys(KERNELS, 0)
+    for i in range(2):
+        cluster = build_cluster(model, device)
+        admission = peak_admission(600)
+        report, counts = counted(lambda: cluster.serve_stream(
+            arrivals, parallel=False, slos=slos, admission=admission,
+            pump_steps_per_s=pump))
+        add_counts(total, counts)
+        _require_protected(f"sustained run {i}", report)
+        for r in report.records:
+            if r.decision is not None:
+                served[r.decision.replica] += 1
+        _stream_row(f"sustained run {i}", report,
+                    capacity_tokens=admission.capacity_tokens,
+                    peak_load_tokens=admission.peak_load_tokens,
+                    protected_over_capacity=admission.protected_over_capacity,
+                    fabric_block_hits=cluster.fabric_stats()["block_hits"],
+                    launches=counts)
+        runs.append(_fingerprint(report))
+        del cluster
+    (routes_a, shed_a, toks_a), (routes_b, shed_b, toks_b) = runs
+    if routes_a != routes_b or shed_a != shed_b:
+        raise AssertionError("sustained: two runs on fresh builds routed or "
+                             "shed differently")
+    same = sum(a == b for a, b in zip(toks_a, toks_b) if a is not None)
+    log(f"[cluster] sustained: routes and shed set equal over two runs "
+        f"({len(shed_a)} shed); {same}/{sum(t is not None for t in toks_a)} "
+        "token streams equal (not asserted: the card's decode need not be "
+        "bitwise reproducible)")
+    return served, total
+
+
+def chaos_stream(model, device) -> tuple:
+    """``benchmarks/run.py``'s ``chaos_sustained_load`` with k=2: 96
+    arrivals of ``standard_tenants(4, 4.0)`` at seed 11, a fault arc of
+    two survivable kills, two link cuts, a directory-stripe wipeout and
+    a replica-home-pair kill over a write-through ground tier, 64-token
+    blocks, free-list pools of 25 pages.  Returns each replica's request
+    count and the launches of the ``serve_stream`` run, counted from 0."""
+    import dataclasses
+
+    from repro_torch.core import FaultPlan
+    from repro_torch.serving import (
+        Request,
+        TrafficGenerator,
+        standard_tenants,
+    )
+
+    kw = dict(chaos=True, block_size=64, num_pages=25)
+    tenants = standard_tenants(4, 4.0, max_new_tokens=4,
+                               prompt_chars=(48, 96), prefix_reuse_p=0.5)
+    tenants[0] = dataclasses.replace(tenants[0], prefix_reuse_p=0.9,
+                                     num_documents=2, doc_chars=320)
+    arrivals = TrafficGenerator(tenants, seed=11).take(96)
+    window_s = arrivals[-1].t_s / 8 * (1.0 + 1e-9)
+    probe = build_cluster(model, device, **kw)
+    pump, _, rounds = _probe_rate(
+        probe, [Request(prompt=a.request.prompt, sampling=a.request.sampling,
+                        priority=a.request.priority, tenant=a.request.tenant)
+                for a in arrivals[:8]],
+        1.2, sum(t.rate_rps for t in tenants))
+    del probe
+    cluster = build_cluster(model, device, **kw)
+    plan = FaultPlan.chaos_arc(
+        cluster.kvc, seed=29, churn_start_s=4.0 * window_s,
+        churn_window_s=window_s, heal_s=6.0 * window_s, n_sat_kills=2,
+        n_link_cuts=2, dir_stripe_wipeout=True, ground_pair_server=4)
+    admission = peak_admission(3900)
+    report, counts = counted(lambda: cluster.serve_stream(
+        arrivals, parallel=False, admission=admission,
+        pump_steps_per_s=pump, faults=plan, slo_window_s=window_s))
+    _require_protected("chaos", report)
+    applied = sum(report.faults[k] for k in (
+        "sat_kills", "sat_heals", "link_kills", "link_heals"))
+    if applied <= 0:
+        raise AssertionError("chaos: the injector applied no event")
+    served = [0, 0]
+    for r in report.records:
+        if r.decision is not None:
+            served[r.decision.replica] += 1
+    _stream_row("chaos k=2", report, probe_rounds=rounds,
+                pump_steps_per_s=pump,
+                capacity_tokens=admission.capacity_tokens,
+                peak_load_tokens=admission.peak_load_tokens,
+                protected_over_capacity=admission.protected_over_capacity,
+                launches=counts, faults=report.faults,
+                phases={k: {kk: v[kk] for kk in ("offered", "shed",
+                                                 "attained_tokens")}
+                        for k, v in report.slo["phases"].items()},
+                ground_fall_throughs=report.faults["ground_hits"],
+                fabric_ground_hits=cluster.fabric_stats()["ground_hits"])
+    return served, counts
+
+
+def int8_snapshots(model, device, *, n_requests=8, max_new=32,
+                   prefix=256) -> dict:
+    """One engine alone on the paper's 19x5 fabric with int8 payloads,
+    driven through ``submit`` / ``start`` / ``stop(drain=True)``: a pass
+    that writes back, then a warm pass in which every request must
+    restore the 256-token prefix, beside a ``kvc=None`` engine's cold
+    pass through the same front door.  Prints the int8 block's bytes
+    and chunks, host Set / Get / decode ms, and warm against cold TTFT.
+    Returns the launches of the three passes, each counted from 0 (the
+    write-back's ``kvc_fn`` forwards included)."""
+    from repro_torch.core import CacheStats, TransportStats
+    from repro_torch.serving import Engine
+
+    name = model.cfg.name
+    kw = dict(block_size=128, max_seq_len=1024, max_batch=4, device=device)
+    common = dict(n_requests=n_requests, max_new=max_new)
+    total = dict.fromkeys(KERNELS, 0)
+    (cold, cold_res), counts = counted(lambda: run_pass(
+        Engine(model, **kw), f"{name} kvc=None", tag="cluster", stream=True,
+        **common))
+    add_counts(total, counts)
+    kvc = paper_kvc()
+    eng = Engine(model, kvc=kvc, payload_codec="int8", **kw)
+
+    def write_back():
+        run_pass(eng, f"{name} int8 write-back", tag="cluster", stream=True,
+                 **common)
+        if eng.paged:
+            eng.kv.drain_write_back()
+        sync(eng.device)
+
+    _, counts = counted(write_back)
+    add_counts(total, counts)
+    eng.write_back = False
+    kvc.stats, kvc.transport.stats = CacheStats(), TransportStats()
+    (warm, res), counts = counted(lambda: run_pass(
+        eng, f"{name} int8 warm", tag="cluster", stream=True, **common))
+    add_counts(total, counts)
+    path = (("chunked_prefill_paged", "paged_decode") if eng.paged
+            else ("ssd_chunk_scan",))
+    _require_warm(f"{name} int8", warm, res, cold, counts, path, prefix)
+    same = sum(a.token_ids == b.token_ids for a, b in zip(res, cold_res))
+    row = warm_vs_cold(name, warm, cold, codec="int8",
+                       streams_equal_to_cold=same,
+                       block_hits=kvc.stats.block_hits,
+                       bytes_moved=kvc.transport.stats.bytes_moved)
+    log(f"[cluster] {json.dumps(row)}")
+    check_fabric_bytes(f"{name} int8", eng, kvc, **common)
+    return total
+
+
+def phase_cluster(tiny, mamba, device, *, n_requests=8, max_new=32) -> dict:
+    """Two full TinyLlama replicas on one card over one clocked int8
+    constellation: a closed batch (prefix affinity twice, then one pass
+    under the random router and one on a single replica), the sustained
+    stream, the chaos arc; then int8 snapshots on one engine per model
+    through the streaming worker.  Returns the launch counts summed over
+    the phase's main-path runs, each counted from 0; the warm-ups, the
+    pump-rate probes and the byte checks are left out."""
+    t_phase = time.perf_counter()
+    common = dict(n_requests=n_requests, max_new=max_new)
+    total = dict.fromkeys(KERNELS, 0)
+    served = [0, 0]
+    t0 = time.perf_counter()
+    cluster = build_cluster(tiny, device)
+    rows, closed = [], dict.fromkeys(KERNELS, 0)
+    for p in (1, 2):
+        row, _ = cluster_pass(cluster, f"prefix_affinity pass {p}", **common)
+        rows.append(row)
+        add_counts(closed, row["launches"])
+        served = [a + b for a, b in zip(served, row["requests_per_replica"])]
+    del cluster
+    if rows[1]["block_hits"] <= 0:
+        raise AssertionError("cluster: the second pass hit no block")
+    _require_launched(closed, ("paged_decode", "chunked_prefill_paged",
+                               "flash_prefill"))
+    log(f"[cluster] closed batch launches: {closed}")
+    # affinity pass 1 beside the same first pass on a fresh build under
+    # the random router, and on one replica at replica 0's anchor (the
+    # same fabric hop costs): each starts on an empty fabric
+    for label, kw in (("random pass 1", dict(policy="random")),
+                      ("one replica pass 1", dict(num_replicas=1))):
+        cluster = build_cluster(tiny, device, **kw)
+        row, _ = cluster_pass(cluster, label, **common)
+        rows.append(row)
+        add_counts(closed, row["launches"])
+        if cluster.num_replicas == 2:
+            served = [a + b
+                      for a, b in zip(served, row["requests_per_replica"])]
+        del cluster
+    add_counts(total, closed)
+    for row in rows:
+        log(f"[cluster] closed batch {row['mode']}: "
+            f"{row['tokens_per_s']:.2f} tokens/s, l2_wait_s "
+            f"{row['l2_wait_s']:.3f}, requests per replica "
+            f"{row['requests_per_replica']}")
+    log(f"[phase] cluster closed batch {time.perf_counter() - t0:.1f} s")
+    for label, run in (("sustained", sustained_stream),
+                       ("chaos", chaos_stream)):
+        t0 = time.perf_counter()
+        per_replica, counts = run(tiny, device)
+        add_counts(total, counts)
+        served = [a + b for a, b in zip(served, per_replica)]
+        log(f"[phase] cluster {label} {time.perf_counter() - t0:.1f} s")
+    if min(served) <= 0:
+        raise AssertionError(f"cluster: a replica served no request over the "
+                             f"phase ({served})")
+    log(f"[cluster] requests per replica over the phase: {served}")
+    t0 = time.perf_counter()
+    for model in (tiny, mamba):
+        add_counts(total, int8_snapshots(model, device, **common))
+    log(f"[phase] cluster int8 snapshots {time.perf_counter() - t0:.1f} s")
+    _require_launched(total, KERNELS)
+    log(f"[cluster] main-path launches: {total}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1496,8 +1996,15 @@ def main() -> int:
     counts["ssd_chunk_scan"] = ssm_counts["ssd_chunk_scan"]
     log(f"[phase] serve {mamba.name} {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_fabric(tiny_model, mamba_model, device)
+    fabric_counts = phase_fabric(tiny_model, mamba_model, device)
     log(f"[phase] fabric {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cluster_counts = phase_cluster(tiny_model, mamba_model, device)
+    log(f"[phase] cluster {time.perf_counter() - t0:.1f} s")
+    # launches over every phase's main-path runs, each counted from 0
+    for phase in (*fabric_counts.values(), cluster_counts):
+        for k in KERNELS:
+            counts[k] += phase[k]
 
     meta = {
         "paged_decode": ("src/repro_torch/kernels/csrc/paged_attention.cu",

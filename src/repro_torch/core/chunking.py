@@ -1,27 +1,30 @@
-"""Chunking and KVC payload serialization: the port's own copy of the
-parts of ``repro/core/chunking.py`` the serving engine and the fabric
-need.
+"""Chunking and KVC payload serialization: the port's own copy of
+``repro/core/chunking.py`` (paper §3.1 and §5's quantized blocks).
 
 * chunk striping (paper §3.1): ``split_chunks``, ``num_chunks``,
   ``join_chunks``, ``chunk_server``, ``replica_delta``;
 * the ``SKYM`` wire format (``arrays_to_bytes`` / ``bytes_to_arrays``),
   byte for byte: magic | version | n | per array (dtype tag, shape, raw);
-* the ``SKYC`` container headers the fabric reads without decoding a
-  body: ``is_delta_payload``, ``delta_info``, ``cat_payloads``,
-  ``split_cat_payload`` and ``payload_raw_bytes``;
-* ``decode_payload_arrays`` for raw ``SKYM`` payloads;
-* ``PayloadCodec`` for ``"f32"`` (verbatim arrays).
+* the versioned codec layer under the ``SKYC`` magic, byte for byte:
+  ``PayloadCodec`` (``"f32"``, ``"int8"``, ``"int4"``, each optionally
+  ``+delta``), ``encode_arrays`` (symmetric per-last-axis-channel
+  quantization with one scale row per ``block_tokens`` chunk of the
+  token axis; int4 packs two codes per byte; integer and bool arrays are
+  stored verbatim), ``make_delta_payload`` (one block's own tokens
+  behind a back-pointer to the previous block), ``cat_payloads`` (a
+  reassembled chain), the header scans (``is_delta_payload``,
+  ``delta_info``, ``split_cat_payload``, ``payload_raw_bytes``) and
+  ``decode_payload_arrays``, which decodes any of them.
 
 Arrays may be numpy arrays or torch tensors.  numpy has no bfloat16
 here, so a bf16 tensor is written as its raw 2-byte words under the tag
 ``b"bfloat16"`` -- the bytes ``repro`` writes for a bf16 payload -- and
-that tag decodes straight to a ``torch.bfloat16`` tensor.  Other dtypes
-decode to numpy arrays.  The module imports ``torch`` only to decode a
-bf16 array, so the fabric (``protocol.py``) runs without it.
-
-Decoding a quantized ``SKYC`` body (int8, int4, ``+delta``) waits for
-ROADMAP.md queue 1, 'int8/int4/+delta payload codecs'; it raises
-``NotImplementedError`` here.
+quantized from its exact f32 values; that tag decodes straight to a
+``torch.bfloat16`` tensor (a quantized one is dequantized in f32 and
+rounded to nearest-even, as ``ml_dtypes`` rounds).  Other dtypes decode
+to numpy arrays.  Quantization runs in numpy on the host.  The module
+imports ``torch`` only to decode a bf16 array, so the fabric
+(``protocol.py``) runs without it.
 """
 from __future__ import annotations
 
@@ -39,11 +42,14 @@ _CODEC_VERSION = 1
 _KIND_ENC = 1     # quantized array container (codec id + per-array header)
 _KIND_DELTA = 2   # back-pointer + inner payload for one block's new tokens
 _KIND_CAT = 3     # ordered segments whose decoded arrays concatenate
-# per-array storage tag inside an ENC container: verbatim bytes
-_STORE_RAW = 0
+
+_CODEC_IDS = {"int8": 1, "int4": 2}
+_CODEC_NAMES = {v: k for k, v in _CODEC_IDS.items()}
+_QMAX = {"int8": 127.0, "int4": 7.0}
+# per-array storage tags inside an ENC container
+_STORE_RAW = 0    # verbatim bytes (integer and bool arrays)
+_STORE_Q = 1      # quantized codes + per-(chunk, channel) scale table
 _BF16 = b"bfloat16"
-_CODECS_TODO = ("the quantized payload codecs wait for ROADMAP.md queue 1, "
-                "'int8/int4/+delta payload codecs'")
 
 
 def split_chunks(data: bytes, chunk_bytes: int) -> list[bytes]:
@@ -173,7 +179,7 @@ def bytes_to_arrays(data: bytes) -> list:
     return out
 
 
-# -- SKYC container headers (the bodies wait for the codecs) ----------------
+# -- SKYC containers --------------------------------------------------------
 
 def _codec_kind(data: bytes) -> int | None:
     """SKYC container kind, or None for anything else (incl. SKYM)."""
@@ -306,30 +312,307 @@ def _payload_raw_bytes(data: bytes) -> int:
     return len(data)
 
 
-def decode_payload_arrays(data: bytes) -> list:
-    """Decode a raw ``SKYM`` payload back to arrays."""
-    if data[:4] == _CODEC_MAGIC:
-        raise NotImplementedError(_CODECS_TODO)
-    return bytes_to_arrays(data)
+
+
+# ---------------------------------------------------------------------------
+# The versioned payload codec layer.
+# ---------------------------------------------------------------------------
+
+def _host_array(a) -> tuple[bytes, np.ndarray]:
+    """(dtype tag, host numpy array) of one array or tensor.  A bf16
+    tensor keeps its tag and yields its exact f32 values, which is what
+    quantization reads (numpy has no bfloat16 here)."""
+    torch = sys.modules.get("torch")   # no tensor exists before its import
+    if torch is not None and isinstance(a, torch.Tensor):
+        a = a.detach()
+        if a.dtype == torch.bfloat16:
+            return _BF16, a.float().cpu().numpy()
+        a = a.cpu().numpy()
+    a = np.asarray(a)
+    return a.dtype.str.encode(), a
+
+
+def _quant_geometry(shape: tuple[int, ...]) -> tuple[int, int, int]:
+    """(token_axis, n_tokens, channels) used for per-chunk scale tables.
+
+    KVC payload arrays put the token axis at axis 1 (``[L, T, Hkv, hd]``
+    dense K/V) and channels on the last axis; lower-rank arrays fall back
+    to axis 0 -- the segmentation is self-consistent between encode and
+    decode either way, which is all correctness needs.
+    """
+    axis = 1 if len(shape) >= 3 else 0
+    return axis, shape[axis], shape[-1]
+
+
+def _quantize_segmented(
+    a: np.ndarray, qmax: float, seg: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-last-axis-channel quantization with one scale row
+    per ``seg``-token chunk of the token axis: returns ``(codes, scales)``
+    where ``codes`` is int8 in [-qmax, qmax] with ``a``'s shape and
+    ``scales`` is float32 ``[n_segs, channels]``."""
+    orig_shape = a.shape
+    af = np.asarray(a, dtype=np.float32)
+    if af.ndim < 2:
+        af = af.reshape(1, af.size)
+    axis, n_tok, chans = _quant_geometry(af.shape)
+    seg = seg if seg and seg > 0 else max(n_tok, 1)
+    n_segs = max(1, -(-n_tok // seg)) if n_tok else 1
+    scales = np.ones((n_segs, chans), np.float32)
+    q = np.zeros(af.shape, np.int8)
+    red = tuple(range(af.ndim - 1))
+    sl: list[slice] = [slice(None)] * af.ndim
+    for s in range(n_segs):
+        sl[axis] = slice(s * seg, (s + 1) * seg)
+        part = af[tuple(sl)]
+        if part.size == 0:
+            continue
+        amax = np.max(np.abs(part), axis=red, keepdims=True)
+        scale = np.where(amax > 0, amax / qmax, 1.0).astype(np.float32)
+        q[tuple(sl)] = np.clip(
+            np.round(part / scale), -qmax, qmax).astype(np.int8)
+        scales[s] = scale.reshape(chans)
+    return q.reshape(orig_shape), scales
+
+
+def _dequantize_segmented(q: np.ndarray, scales: np.ndarray, seg: int,
+                          tag: bytes):
+    """Codes and their scale table back to the source dtype ``tag``:
+    dequantized in f32, then cast (a bf16 source becomes a
+    ``torch.bfloat16`` tensor, rounded to nearest-even)."""
+    orig_shape = q.shape
+    qf = q.astype(np.float32)
+    if qf.ndim < 2:
+        qf = qf.reshape(1, qf.size)
+    axis, n_tok, chans = _quant_geometry(qf.shape)
+    seg = seg if seg and seg > 0 else max(n_tok, 1)
+    n_segs = max(1, -(-n_tok // seg)) if n_tok else 1
+    if scales.shape != (n_segs, chans):
+        raise ValueError("corrupt codec payload: scale table shape "
+                         f"{scales.shape} != {(n_segs, chans)}")
+    out = np.empty(qf.shape, np.float32)
+    sl: list[slice] = [slice(None)] * qf.ndim
+    for s in range(n_segs):
+        sl[axis] = slice(s * seg, (s + 1) * seg)
+        out[tuple(sl)] = qf[tuple(sl)] * scales[s]
+    out = out.reshape(orig_shape)
+    if tag == _BF16:
+        import torch
+
+        return torch.from_numpy(out).to(torch.bfloat16)
+    return out.astype(_dtype_from_name(tag.decode()))
+
+
+def _pack_int4(q: np.ndarray) -> bytes:
+    """[-7, 7] codes -> two offset nibbles per byte (odd tails padded)."""
+    flat = (q.reshape(-1).astype(np.int16) + 8).astype(np.uint8)
+    if flat.size % 2:
+        flat = np.concatenate([flat, np.zeros(1, np.uint8)])
+    return (flat[0::2] | (flat[1::2] << 4)).tobytes()
+
+
+def _unpack_int4(data: bytes, size: int) -> np.ndarray:
+    if len(data) != (size + 1) // 2:
+        raise ValueError("corrupt codec payload: truncated int4 codes")
+    b = np.frombuffer(data, np.uint8)
+    out = np.empty(b.size * 2, np.int8)
+    out[0::2] = (b & 0x0F).astype(np.int16) - 8
+    out[1::2] = (b >> 4).astype(np.int16) - 8
+    return out[:size]
 
 
 @dataclass(frozen=True)
 class PayloadCodec:
-    """How a KVC payload's bytes are produced: ``"f32"`` ships the arrays
-    verbatim in the ``SKYM`` format (whatever their dtype)."""
+    """How a KVC payload's bytes are produced.
+
+    ``name``: ``"f32"`` (verbatim, the ``SKYM`` wire format), ``"int8"``
+    or ``"int4"`` (symmetric per-channel quantization).  ``block_tokens``
+    is the scale-table chunk along the token axis (0 = one table for the
+    whole tensor) AND the block size delta chains are hashed at.
+    ``delta`` opts cumulative dense payloads into delta encoding -- it
+    requires ``block_tokens`` so back-pointers can be recomputed from the
+    token chain.  Decoding never needs a codec (payloads are
+    self-describing); this object only shapes *encoding* and the router's
+    bytes-per-token price model.
+    """
 
     name: str = "f32"
+    block_tokens: int = 0
+    delta: bool = False
 
     def __post_init__(self) -> None:
-        if self.name != "f32":
-            raise NotImplementedError(_CODECS_TODO)
+        if self.name not in ("f32", "int8", "int4"):
+            raise ValueError(f"unknown payload codec {self.name!r}")
+        if self.delta and self.block_tokens <= 0:
+            raise ValueError("delta encoding needs block_tokens > 0")
 
     @classmethod
-    def parse(cls, spec) -> "PayloadCodec":
-        """``None`` / ``"f32"`` / a ready ``PayloadCodec``."""
+    def parse(cls, spec, block_tokens: int = 0) -> "PayloadCodec":
+        """``None`` / ``"f32"`` / ``"int8"`` / ``"int4"`` / ``"int8+delta"``
+        / ``"int4+delta"`` / a ready ``PayloadCodec`` -> a codec whose
+        chunked scale tables (and delta hashing) use ``block_tokens``."""
         if isinstance(spec, cls):
             return spec
-        return cls("f32" if spec is None else spec)
+        if spec is None:
+            spec = "f32"
+        base, _, suffix = spec.partition("+")
+        if suffix not in ("", "delta"):
+            raise ValueError(f"unknown payload codec {spec!r}")
+        return cls(base, block_tokens, delta=suffix == "delta")
+
+    @property
+    def quantized(self) -> bool:
+        return self.name != "f32"
+
+    def bytes_per_value(self, src_itemsize: int) -> float:
+        """Encoded payload bytes per stored value -- the router's
+        codec-derived size model (scale tables and headers are noise at
+        KVC payload sizes and are deliberately not modeled)."""
+        if self.name == "int8":
+            return 1.0
+        if self.name == "int4":
+            return 0.5
+        return float(src_itemsize)
 
     def encode(self, arrays) -> bytes:
+        return encode_arrays(arrays, self)
+
+
+def encode_arrays(arrays, codec: PayloadCodec) -> bytes:
+    """Serialize ``arrays`` under ``codec``.  ``f32`` emits the ``SKYM``
+    format byte for byte; quantized codecs emit a ``SKYC`` container
+    recording the codec id and, per array, the source dtype, shape, and
+    per-chunk scale table.  Integer/bool arrays (e.g. an already-int8
+    pool's pages) are always stored verbatim -- re-quantizing quantized
+    codes would corrupt them."""
+    if not codec.quantized:
         return arrays_to_bytes(arrays)
+    qmax = _QMAX[codec.name]
+    parts = [_CODEC_MAGIC,
+             struct.pack("<HBB", _CODEC_VERSION, _KIND_ENC,
+                         _CODEC_IDS[codec.name]),
+             struct.pack("<I", len(arrays))]
+    for a in arrays:
+        dt, a = _host_array(a)
+        parts.append(struct.pack("<B", len(dt)))
+        parts.append(dt)
+        parts.append(struct.pack("<B", a.ndim))
+        parts.append(struct.pack(f"<{a.ndim}q", *a.shape))
+        if a.dtype.kind in "iub":
+            raw = a.tobytes()
+            parts.append(struct.pack("<B", _STORE_RAW))
+            parts.append(struct.pack("<q", len(raw)))
+            parts.append(raw)
+            continue
+        q, scales = _quantize_segmented(a, qmax, codec.block_tokens)
+        body = (_pack_int4(q) if codec.name == "int4" else q.tobytes())
+        parts.append(struct.pack("<B", _STORE_Q))
+        parts.append(struct.pack("<ii", codec.block_tokens, scales.shape[0]))
+        parts.append(scales.tobytes())
+        parts.append(struct.pack("<q", len(body)))
+        parts.append(body)
+    return b"".join(parts)
+
+
+def _decode_enc(data: bytes) -> list:
+    out: list = []
+    try:
+        codec_id, = struct.unpack_from("<B", data, 7)
+        name = _CODEC_NAMES.get(codec_id)
+        if name is None:
+            raise ValueError(f"unknown KVC codec id {codec_id}")
+        n, = struct.unpack_from("<I", data, 8)
+        off = 12
+        for _ in range(n):
+            (dlen,) = struct.unpack_from("<B", data, off)
+            off += 1
+            tag = data[off:off + dlen]
+            dt = _dtype_from_name(tag.decode())
+            off += dlen
+            (ndim,) = struct.unpack_from("<B", data, off)
+            off += 1
+            shape = struct.unpack_from(f"<{ndim}q", data, off)
+            off += 8 * ndim
+            (store,) = struct.unpack_from("<B", data, off)
+            off += 1
+            if store == _STORE_RAW:
+                (rlen,) = struct.unpack_from("<q", data, off)
+                off += 8
+                if off + rlen > len(data):
+                    raise ValueError("truncated")
+                out.append(_from_raw(tag, data[off:off + rlen], shape))
+                off += rlen
+                continue
+            if store != _STORE_Q:
+                raise ValueError(f"unknown storage tag {store}")
+            seg, n_segs = struct.unpack_from("<ii", data, off)
+            off += 8
+            chans = shape[-1] if ndim else 1
+            slen = 4 * n_segs * chans
+            if n_segs < 1 or off + slen > len(data):
+                raise ValueError("truncated")
+            scales = np.frombuffer(
+                data[off:off + slen], np.float32).reshape(n_segs, chans)
+            off += slen
+            (qlen,) = struct.unpack_from("<q", data, off)
+            off += 8
+            if off + qlen > len(data):
+                raise ValueError("truncated")
+            size = int(np.prod(shape, dtype=np.int64)) if ndim else 1
+            if name == "int4":
+                q = _unpack_int4(data[off:off + qlen], size)
+            else:
+                if qlen != size:
+                    raise ValueError("truncated")
+                q = np.frombuffer(data[off:off + qlen], np.int8)
+            off += qlen
+            out.append(_dequantize_segmented(
+                q.reshape(shape), scales, seg, tag))
+    except struct.error as e:
+        raise ValueError(f"corrupt codec payload: {e}") from e
+    return out
+
+
+def make_delta_payload(inner: bytes, prev_hash: bytes,
+                       prev_tokens: int) -> bytes:
+    """Wrap ``inner`` (this block's *own* tokens, already encoded) with a
+    back-pointer: the previous block's hash and how many tokens its
+    cumulative payload covers."""
+    return b"".join([
+        _CODEC_MAGIC, struct.pack("<HB", _CODEC_VERSION, _KIND_DELTA),
+        struct.pack("<B", len(prev_hash)), prev_hash,
+        struct.pack("<q", prev_tokens), inner,
+    ])
+
+
+def _concat_tokens(pieces: list):
+    """Concatenate one array's segments along the token axis (1 for rank
+    >= 3, else 0); bf16 segments are tensors, the rest numpy arrays."""
+    axis = 1 if pieces[0].ndim >= 3 else 0
+    torch = sys.modules.get("torch")
+    if torch is not None and any(isinstance(p, torch.Tensor) for p in pieces):
+        return torch.cat([torch.as_tensor(p) for p in pieces], dim=axis)
+    return np.concatenate(pieces, axis=axis)
+
+
+def decode_payload_arrays(data: bytes) -> list:
+    """Decode ANY payload this module can emit back to arrays: ``SKYM``,
+    quantized ``SKYC`` containers (source dtype restored), a bare delta
+    segment (its own tokens only), or a cat container (the segments'
+    arrays concatenated position-wise along the token axis)."""
+    kind = _codec_kind(data)
+    if kind is None:
+        return bytes_to_arrays(data)
+    if kind == _KIND_ENC:
+        return _decode_enc(data)
+    if kind == _KIND_DELTA:
+        return decode_payload_arrays(delta_info(data)[2])
+    if kind == _KIND_CAT:
+        seg_arrays = [decode_payload_arrays(s)
+                      for s in split_cat_payload(data)]
+        n = len(seg_arrays[0])
+        if any(len(sa) != n for sa in seg_arrays):
+            raise ValueError("corrupt cat payload: ragged segments")
+        return [_concat_tokens([sa[i] for sa in seg_arrays])
+                for i in range(n)]
+    raise ValueError(f"unknown KVC container kind {kind}")

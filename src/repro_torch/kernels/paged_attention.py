@@ -12,6 +12,8 @@ version in ``kernels/ref.py``.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import _build
@@ -20,10 +22,16 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 SPLIT = 64   # tokens per block: ``SPLIT`` in csrc/paged_attention.cu
 
 # Per device, the kernel's arrival counters: zeros, and zero again after
-# every launch, so one buffer serves every call and CUDA-graph replay on
-# the device's streams in order.  Buffers are only ever added, never
-# freed, because a captured graph keeps the address it was captured with.
+# every launch, so one buffer serves every call and CUDA-graph replay.
+# That holds only while every launch that shares the buffer is ordered
+# on one stream: two launches running at once on two streams would count
+# each other's arrivals.  The serving threads (replicas, adapter workers,
+# the streaming worker) all launch on the device's default stream.
+# Buffers are only ever added, never freed, because a captured graph
+# keeps the address it was captured with; ``_COUNTERS_LOCK`` makes the
+# check-then-grow atomic across those threads.
 _COUNTERS: dict[torch.device, list[torch.Tensor]] = {}
+_COUNTERS_LOCK = threading.Lock()
 
 
 def decode_splits(pages_per_seq: int, page: int) -> int:
@@ -35,14 +43,18 @@ def decode_splits(pages_per_seq: int, page: int) -> int:
 
 
 def _counters(device: torch.device, n: int) -> torch.Tensor:
-    bufs = _COUNTERS.setdefault(device, [])
-    if not bufs or bufs[-1].numel() < n:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("paged_decode: call it once outside CUDA-graph "
-                               "capture first, so that its counters exist")
-        bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32,
-                                device=device))
-    return bufs[-1]
+    """The device's counter buffer, grown to at least ``n`` entries."""
+    with _COUNTERS_LOCK:
+        bufs = _COUNTERS.setdefault(device, [])
+        if not bufs or bufs[-1].numel() < n:
+            if (device.type == "cuda"
+                    and torch.cuda.is_current_stream_capturing()):
+                raise RuntimeError(
+                    "paged_decode: call it once outside CUDA-graph capture "
+                    "first, so that its counters exist")
+            bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32,
+                                    device=device))
+        return bufs[-1]
 
 
 def _check_inputs(q, k, v, lengths, block_tables):

@@ -16,13 +16,18 @@ by the executor's ``DenseRuntime`` instead: per-request prefill (resuming
 from a SkyMemory snapshot on a hit) and batched decode over a dense
 cache.
 
-Not in this slice (see ROADMAP.md queue 1): ``payload_codec=`` (payloads
-are f32 ``SKYM`` until a second codec is ported), the streaming worker
-(``submit`` / ``start`` / ``stop``), and the non-paged families other
-than SSM.
+``payload_codec`` (``"f32"``, ``"int8"``, ``"int4"``, optionally
+``+delta``) chooses the bytes of every block payload the engine writes;
+any payload decodes.  Besides the closed batch (``generate``) the engine
+streams: ``submit`` returns a ``Future`` that ``pump`` (inline) or the
+worker loop (``start`` / ``stop``, ``serving/worker.py``) resolves.  The
+non-paged families other than SSM are not ported (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
+from concurrent.futures import Future
+
+from repro_torch.core.chunking import PayloadCodec
 from repro_torch.core.protocol import ConstellationKVC, KVCManager
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
@@ -33,6 +38,7 @@ from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.skycache import SkyKVCAdapter
 from repro_torch.serving.stats import EngineStats
 from repro_torch.serving.tokenizer import ByteTokenizer
+from repro_torch.serving.worker import StreamWorker
 
 
 class Engine:
@@ -61,6 +67,7 @@ class Engine:
         num_pages: int | None = None,
         chunk_tokens: int | None = None,
         host_cache_pages: int | None = None,
+        payload_codec: "PayloadCodec | str | None" = None,
         device="cuda",
     ) -> None:
         self.device = resolve_device(device)
@@ -73,7 +80,10 @@ class Engine:
         self.max_seq_len = max_seq_len
         self.max_batch = max_batch
         self.block_size = block_size
-        self.adapter = SkyKVCAdapter(model)
+        # the codec's scale-table chunk (and delta block) is the engine's
+        # block size, so per-chunk scales align with constellation blocks
+        self.adapter = SkyKVCAdapter(
+            model, codec=PayloadCodec.parse(payload_codec, block_size))
         if manager is not None:
             if manager.block_size != block_size:
                 raise ValueError(
@@ -123,13 +133,40 @@ class Engine:
                 max_seq_len=max_seq_len, max_batch=max_batch,
                 write_back=write_back, seed=seed)
         self.stats = EngineStats()
+        # streaming front door (worker thread started on demand)
+        self.worker = StreamWorker(self)
 
     def generate(self, requests: list[Request]) -> list[GenerationResult]:
         if not requests:
             return []
+        if self.running:
+            raise RuntimeError(
+                "engine worker loop is running; submit() requests instead "
+                "of calling generate(), or stop() the worker first")
         if self.paged:
             return self.scheduler.run(requests)
         return self._dense.generate(requests)
+
+    # streaming, delegated to the StreamWorker (serving/worker.py)
+    @property
+    def running(self) -> bool:
+        return self.worker.running
+
+    @property
+    def backlog(self) -> bool:
+        return self.worker.backlog
+
+    def submit(self, request: Request) -> Future:
+        return self.worker.submit(request)
+
+    def pump(self) -> bool:
+        return self.worker.pump()
+
+    def start(self) -> None:
+        self.worker.start()
+
+    def stop(self, *, drain: bool = True) -> None:
+        self.worker.stop(drain=drain)
 
     # one stats / chunk-log / write-back view across the layers
     @property

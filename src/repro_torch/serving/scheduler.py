@@ -172,6 +172,40 @@ class Scheduler:
         while self._inbox:
             self._pending.append(self._inbox.popleft())
 
+    def cancel_queued(self) -> int:
+        """Cancel every submitted-but-unstarted request (fresh QUEUED
+        seqs; preempted ones are mid-request and keep their claim).
+        Returns how many were cancelled -- the ``stop(drain=False)``
+        path."""
+        self._drain_inbox()
+        kept: deque[Seq] = deque()
+        n = 0
+        for s in self._pending:
+            if (s.state is SeqState.QUEUED and s.future is not None
+                    and s.future.cancel()):
+                n += 1
+            else:
+                kept.append(s)
+        self._pending = kept
+        return n
+
+    def fail_all(self, exc: BaseException) -> None:
+        """A worker-loop crash: fail every in-flight future so no waiter
+        hangs, release their slots/pages, and reset the machine."""
+        self._drain_inbox()
+        seqs = list(self._pending)
+        for slot, s in (list(self._active.items())
+                        + list(self._prefilling.items())):
+            self.kv.release(slot)
+            seqs.append(s)
+        for s in seqs:
+            if s.future is not None:
+                try:
+                    s.future.set_exception(exc)
+                except InvalidStateError:
+                    pass
+        self._reset_stream()
+
     # ------------------------------------------------------------------
     def run(self, requests: list[Request]) -> list[GenerationResult]:
         """Closed-batch serve: a thin wrapper over the streaming path.

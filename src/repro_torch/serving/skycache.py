@@ -11,8 +11,15 @@ ported from ``repro/serving/skycache.py`` (dense and SSM families).
 ``kvc_fn`` plugs into a ``KVCManager``: it computes one block's payload
 by resuming from the previous block's payload through ``Model.forward``
 with ``prefix_state`` and ``q_offset`` -- never recomputing the cached
-prefix.  Under the f32 codec the bytes are the ``SKYM`` format the
-reference writes.
+prefix.
+
+``codec=`` (a ``core.chunking.PayloadCodec``, or its string spec) shapes
+what the payload bytes are: f32 ships the arrays verbatim (the ``SKYM``
+format the reference writes), int8/int4 quantize with per-block-chunk
+scale tables, and ``+delta`` makes each dense cumulative block carry only
+its own ``block_size`` tokens plus a back-pointer (the KVC manager
+reassembles the chain on restore).  Decoding is codec-agnostic --
+payloads are self-describing.
 """
 from __future__ import annotations
 
@@ -21,17 +28,41 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.chunking import PayloadCodec, decode_payload_arrays
+from repro_torch.core.chunking import (
+    PayloadCodec,
+    decode_payload_arrays,
+    make_delta_payload,
+)
+from repro_torch.core.hashing import chain_hashes
+from repro_torch.models.layers import torch_dtype
 from repro_torch.models.model import Model
 
 
 class SkyKVCAdapter:
-    def __init__(self, model: Model):
+    def __init__(self, model: Model, *,
+                 codec: "PayloadCodec | str | None" = None):
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
-        self.codec = PayloadCodec()
+        self.codec = PayloadCodec.parse(codec)
+        # delta chains concatenate along the token axis, which only the
+        # dense cumulative K/V payload has; an SSM snapshot is not
+        # token-sliceable
+        self._delta_ok = self.cfg.arch_type != "ssm"
         self._executor = None    # lazy fetch-ahead worker (run_async)
+
+    # -- codec-derived size model (the router's fallback price) -----------
+    def payload_bytes_per_token(self) -> float | None:
+        """Encoded payload bytes one cached token costs under this
+        adapter's codec -- the size model the router falls back to when a
+        block has no registered ``payload_bytes``.  None for families
+        whose payload is not token-linear (SSM snapshots)."""
+        cfg = self.cfg
+        if cfg.arch_type == "ssm":
+            return None
+        values = 2 * cfg.num_kv_heads * cfg.head_dim * cfg.num_layers
+        itemsize = torch_dtype(cfg.dtype).itemsize
+        return values * self.codec.bytes_per_value(itemsize)
 
     def _tensor(self, a) -> torch.Tensor:
         if not isinstance(a, torch.Tensor):
@@ -39,15 +70,28 @@ class SkyKVCAdapter:
         return a.to(self.device)
 
     # -- state <-> payload ------------------------------------------------
-    def state_to_payload(self, state: dict, n_tokens: int) -> bytes:
+    def state_to_payload(self, state: dict, n_tokens: int, *,
+                         past_len: int = 0,
+                         prev_hash: bytes | None = None) -> bytes:
         """Serialize the decode state (batch dim of 1, dropped): the K/V
         of the first ``n_tokens`` positions, or the SSM snapshot (which
-        is the state after the last token ``forward`` saw)."""
+        is the state after the last token ``forward`` saw).
+
+        Under a ``+delta`` codec, a dense block that extends a chain
+        (``past_len > 0`` with ``prev_hash``) serializes only its own
+        ``[past_len:n_tokens]`` token slice behind a back-pointer -- the
+        O(1)-byte Set; everything else stays cumulative."""
         if "ssm" in state:
             return self.codec.encode([state["ssm"]["conv"][:, 0],
                                       state["ssm"]["state"][:, 0]])
-        return self.codec.encode([state["kv"]["k"][:, 0, :n_tokens],
-                                  state["kv"]["v"][:, 0, :n_tokens]])
+        delta = (self.codec.delta and self._delta_ok
+                 and past_len > 0 and prev_hash is not None)
+        lo = past_len if delta else 0
+        inner = self.codec.encode([state["kv"]["k"][:, 0, lo:n_tokens],
+                                   state["kv"]["v"][:, 0, lo:n_tokens]])
+        if delta:
+            return make_delta_payload(inner, prev_hash, past_len)
+        return inner
 
     def payload_to_state(self, payload: bytes) -> dict:
         a, b = decode_payload_arrays(payload)
@@ -76,15 +120,30 @@ class SkyKVCAdapter:
         """Page-shaped K/V ``[layers, n_pages, page, Hkv, hd]`` (e.g. a
         preempted sequence's exported pages) -> the payload covering the
         first ``n_tokens`` positions: a reshape and an encode, no model
-        recompute.  ``tokens`` is accepted for the reference's signature
-        (the delta codecs need it)."""
+        recompute.  Under the f32 codec (and for integer pools under any
+        codec) a later ``payload_to_pages`` returns the identical arrays.
+
+        Under a ``+delta`` codec the caller passes the entry's
+        ``tokens`` so the back-pointer hash of the preceding block can be
+        recomputed from the chain: the payload for a block past the first
+        then carries only its own token slice."""
         k, v = torch.as_tensor(k_blocks), torch.as_tensor(v_blocks)
         la, nb, page, hkv, hd = k.shape
         if n_tokens > nb * page:
             raise ValueError("n_tokens exceeds the exported pages")
         flat = (la, nb * page, hkv, hd)
-        return self.codec.encode([k.reshape(flat)[:, :n_tokens],
-                                  v.reshape(flat)[:, :n_tokens]])
+        bt = self.codec.block_tokens
+        lo = 0
+        prev_hash = None
+        if (self.codec.delta and self._delta_ok and tokens is not None
+                and n_tokens > bt):
+            lo = n_tokens - bt
+            prev_hash = chain_hashes(list(tokens[:lo]), bt)[-1]
+        inner = self.codec.encode([k.reshape(flat)[:, lo:n_tokens],
+                                   v.reshape(flat)[:, lo:n_tokens]])
+        if prev_hash is not None:
+            return make_delta_payload(inner, prev_hash, lo)
+        return inner
 
     def pages_async(self, payload: bytes, n_tokens: int, page_size: int):
         """Decode a payload into pages on the worker thread (a Future of
@@ -107,7 +166,10 @@ class SkyKVCAdapter:
     def kvc_fn(self, tokens: Sequence[int], past: bytes | None,
                past_len: int) -> bytes:
         """Payload for the block ending at ``len(tokens)``, resuming from
-        ``past`` (a payload covering the first ``past_len`` tokens)."""
+        ``past`` (a payload -- possibly a reassembled cat container --
+        covering the first ``past_len`` tokens).  Under a ``+delta`` codec
+        the payload carries only the new tokens plus a back-pointer
+        recomputed from the token chain."""
         toks = torch.as_tensor(list(tokens), dtype=torch.int32,
                                device=self.device)[None]
         if past is None or past_len == 0:
@@ -119,4 +181,9 @@ class SkyKVCAdapter:
             _, state = self.model.forward(
                 toks[:, past_len:], q_offset=past_len,
                 prefix_state=self.payload_to_state(past), collect_state=True)
-        return self.state_to_payload(state, len(tokens))
+        prev_hash = None
+        if self.codec.delta and self._delta_ok and past_len > 0:
+            prev_hash = chain_hashes(
+                list(tokens[:past_len]), self.codec.block_tokens)[-1]
+        return self.state_to_payload(state, len(tokens), past_len=past_len,
+                                     prev_hash=prev_hash)

@@ -305,14 +305,3 @@ def test_engine_serves_sampled_requests(setup):
                for r in res)
     assert all(0 <= t < tm.cfg.vocab_size for r in res for t in r.token_ids)
 
-
-def test_quantized_codecs_wait_for_their_roadmap_item():
-    """Only the f32 codec is ported; the others name the ROADMAP item."""
-    assert tchunking.PayloadCodec.parse(None).name == "f32"
-    for spec in ("int8", "int4", "int8+delta"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tchunking.PayloadCodec.parse(spec)
-    skyc = jchunking.encode_arrays([np.zeros((1, 2, 1, 4), np.float32)],
-                                   jchunking.PayloadCodec("int8"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tchunking.decode_payload_arrays(skyc)

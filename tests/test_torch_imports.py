@@ -70,14 +70,46 @@ def test_importing_every_module_loads_no_jax_or_repro():
     assert "repro_torch.serving.engine" in mods
     assert "repro_torch.kernels._build" in mods
     assert "repro_torch.core.protocol" in mods
+    for m in ("core.faults", "serving.cluster", "serving.router",
+              "serving.slo", "serving.traffic", "serving.worker"):
+        assert f"repro_torch.{m}" in mods
+
+
+@pytest.mark.parametrize("package,names", [
+    ("repro_torch.serving",
+     ("EngineCluster", "StreamWorker", "PrefixAffinityRouter", "SLOTracker",
+      "AdmissionController", "TrafficGenerator", "standard_tenants",
+      "spread_anchors")),
+    ("repro_torch.core",
+     ("FaultPlan", "FaultInjector", "plan_survivable_kills", "PayloadCodec",
+      "encode_arrays", "make_delta_payload")),
+])
+def test_package_exports_load_no_jax_or_repro(package, names):
+    """The scale-out names come through the packages' own ``__init__``
+    and bring no JAX, ``ml_dtypes`` or ``repro`` with them."""
+    code = (
+        "import importlib, sys\n"
+        f"pkg = importlib.import_module({package!r})\n"
+        f"missing = [n for n in {names!r} if not hasattr(pkg, n)]\n"
+        "assert not missing, missing\n"
+        "bad = sorted(m for m in sys.modules\n"
+        f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_fabric_imports_no_torch():
-    """The SkyMemory fabric (``repro_torch.core``) is numpy and plain
-    Python: importing it loads no torch, no JAX and nothing of ``repro``."""
+    """The SkyMemory fabric (``repro_torch.core``, its fault model and
+    codecs included) is numpy and plain Python: importing it loads no
+    torch, no JAX and nothing of ``repro``."""
     code = (
         "import sys\n"
         "import repro_torch.core, repro_torch.core.eviction\n"
+        "import repro_torch.core.faults\n"
         "bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {FORBIDDEN + ('torch',)!r})\n"
         "assert not bad, bad\n"
@@ -119,6 +151,14 @@ def test_default_device_raises_without_cuda():
     eng = Engine(cpu_model, kvc=kvc(), block_size=16, max_seq_len=64,
                  max_batch=1, device="cpu")
     assert eng.kv.manager is eng.manager is not None
+    # nor does scale-out: every replica is an engine on the same device
+    from repro_torch.serving import EngineCluster
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EngineCluster(cpu_model, kvc(), num_replicas=2, block_size=16,
+                      max_seq_len=64, max_batch=1)
+    cluster = EngineCluster(cpu_model, kvc(), num_replicas=2, block_size=16,
+                            max_seq_len=64, max_batch=1, device="cpu")
+    assert all(e.device.type == "cpu" for e in cluster.engines)
     # the SSM family, served by the dense runtime, follows the same rule
     ssm = smoke_config(get_config("mamba2-1.3b"))
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -26,6 +26,7 @@ from repro_torch.kernels.chunked_prefill import flash_prefill, prefill_body
 from repro_torch.kernels.chunked_prefill import (
     chunked_prefill_paged as chunked_prefill_paged_kernel,
 )
+from repro_torch.kernels import paged_attention as paged_attention_mod
 from repro_torch.kernels.paged_attention import (
     SPLIT,
     decode_splits,
@@ -369,3 +370,45 @@ def test_launch_counts_survive_two_threads():
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert wrapper.launches == n_threads * per_thread
+
+
+def test_decode_counters_grow_once_across_threads():
+    """``paged_decode``'s arrival-counter buffer is shared per device by
+    every serving thread (cluster replicas, adapter workers, the stream
+    worker).  Growing it from more threads than cores, switching often,
+    appends each size once: the buffers grow strictly, and every call
+    gets one at least as large as it asked for.  A CPU device stands in
+    for the card; the buffer logic is the same."""
+    import random
+    import sys
+    import threading
+
+    dev = torch.device("cpu")
+    n_threads, calls = 16, 200
+    barrier = threading.Barrier(n_threads)
+    short = []
+
+    def work(seed):
+        rng = random.Random(seed)
+        barrier.wait(timeout=30)
+        for _ in range(calls):
+            n = 1024 * rng.randint(1, 96)
+            if paged_attention_mod._counters(dev, n).numel() < n:
+                short.append(n)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,))
+                   for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        sizes = [b.numel() for b in paged_attention_mod._COUNTERS[dev]]
+    finally:
+        sys.setswitchinterval(old)
+        paged_attention_mod._COUNTERS.pop(dev, None)
+    assert not any(t.is_alive() for t in threads)
+    assert not short
+    assert sizes == sorted(set(sizes)) and sizes[-1] == 96 * 1024
