@@ -15,16 +15,26 @@ Phases (each raises on failure; nothing is caught):
    version's time, its bound and, for the dense prefill and the
    contiguous decode pool, ``scaled_dot_product_attention``'s time as a
    yardstick only.  Each case's line names the body it ran: the
-   prefills run bf16 with head dim 64 or 128 on tensor cores
+   prefills run bf16 with head dim 64, 128, 160 or 192 on tensor cores
    (``tensor-core``), the SSD scan runs bf16 on tensor cores, and
-   everything else runs on f32 FMAs (``fma``);
+   everything else runs on f32 FMAs (``fma``).  Four bf16 cases hold
+   the other paged families' head shapes: the dense and paged prefills
+   at stablelm-12b's H32 / Hkv8 / D 160 and the dense prefill at
+   nemotron-4-340b's H96 / Hkv8 / D 192 (each must run ``tensor-core``),
+   and the decode kernel at D 160;
 4. model: TinyLlama's widths at 2 layers, f32, seeded: ``forward``,
    ``prefill_chunk_paged`` and ``decode_step_paged`` logits on the card
    against the same on the CPU.  Then mamba2-1.3b's widths at 2 layers,
    f32: ``forward`` logits and state on the card against the CPU, a
    resume from the snapshot at token 256 against the uninterrupted
    forward, and ``decode_step`` from that snapshot against the prefill
-   logits of the same tokens;
+   logits of the same tokens.  Then stablelm-12b and
+   granite-moe-3b-a800m at full width, 2 layers, f32, the same three
+   checks on 120-token prompts; for granite every MoE layer's top-k
+   routes are compared token by token first (``RouteCheck``: a route
+   may differ only where the CPU's k-th and (k+1)-th probabilities are
+   within 1e-5, and the logits are held on the rows whose routes agreed
+   in every layer);
 5. serve: full TinyLlama (22 layers, bf16, seeded random weights) behind
    the paged ``Engine``: 8 requests with a shared 256-token prefix in
    three modes (chunked contiguous pool, stop-the-world admission, a
@@ -74,10 +84,22 @@ Phases (each raises on failure; nothing is caught):
    restore 256 tokens, every stored block must equal a fresh
    ``kvc_fn``, and the int8 block's bytes, chunks and host Set / Get /
    decode times print beside warm and cold TTFT.  A replica thread's or
-   worker's exception fails the run.
+   worker's exception fails the run;
+8. families: the other paged families at full width, bf16, seeded
+   random weights, one model at a time, on the same 8 requests.  Full
+   granite-moe-3b-a800m (32 layers, 40 experts top-8): stop-the-world
+   admission (``eng.chunked`` is False), cold; twice through
+   ``Engine(kvc=...)`` on the paper's 19x5 fabric, the second pass
+   restoring 256 tokens for every request (paged prefill and paged
+   decode launched); then a free-list pool small enough to preempt
+   (block-table decode), with nothing replayed and every greedy stream
+   equal to the cold engine's; then one decode step's breakdown.  Full
+   stablelm-12b (40 layers, head_dim 160): chunked and stop-the-world
+   admission, each prefill on the tensor-core body at D 160, then one
+   decode step's breakdown.
 
 The ``kernels`` line counts each kernel's launches over the main-path
-runs of phases 5-7, each counted from 0 just before it.
+runs of phases 5-8, each counted from 0 just before it.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -579,9 +601,38 @@ def kernel_cases(device) -> list:
                                     p=12, g=2, n=20, with_init=True),
              run_ssd),
         ]
+    # the other paged families' head shapes, bf16 on the tensor-core
+    # instances D 160 (stablelm-12b) and D 192 (nemotron-4-340b), and
+    # stablelm's decode at D 160
+    cases += [
+        ("flash_prefill", "bf16 stablelm H32 Hkv8 D160 causal B4 S512",
+         torch.bfloat16, False,
+         lambda g, dt: flash_case(g, dt, device, b=4, sq=512, skv=512, off=0,
+                                  hkv=8, d=160, dv=160),
+         run_flash),
+        ("chunked_prefill_paged", "bf16 stablelm H32 Hkv8 D160 R4 C256 over "
+         "384", torch.bfloat16, False,
+         lambda g, dt: prefill_paged_case(
+             g, dt, device, offs=[128] * 4, valid=[256] * 4, c=256,
+             pages_per_seq=3, hkv=8, d=160),
+         run_prefill_paged),
+        ("flash_prefill", "bf16 nemotron H96 Hkv8 D192 causal B1 S512",
+         torch.bfloat16, False,
+         lambda g, dt: flash_case(g, dt, device, b=1, sq=512, skv=512, off=0,
+                                  h=96, hkv=8, d=192, dv=192),
+         run_flash),
+        ("paged_decode", "bf16 stablelm H32 Hkv8 D160 contiguous B4 P4",
+         torch.bfloat16, False,
+         lambda g, dt: decode_case(g, dt, device, b=4, pages_per_seq=4,
+                                   lengths=main_lens, tables=False, hkv=8,
+                                   d=160),
+         run_decode),
+    ]
     return cases
 
 
+# the new head shapes must run the tensor-core body of the prefills
+TENSOR_CORE_CASES = ("D160", "D192")
 YARDSTICKS = {"paged_decode": sdpa_decode, "flash_prefill": sdpa_flash}
 
 
@@ -618,6 +669,9 @@ def phase_kernels(device, timer: Timer) -> dict:
                    tol=BF16_TOL[name])
             lib_ms = timer.ms(lib)
         body = body_of(name, args)
+        if (name != "paged_decode" and body != "tensor-core"
+                and any(t in label for t in TENSOR_CORE_CASES)):
+            raise AssertionError(f"{name} [{label}] ran body {body}")
         log(f"[kernel] {name} [{label}] body {body}: max_abs_err {err:.3e} "
             f"({worst:.2f} x limit)  ms {ms:.4f}  plain_ms {plain_ms:.4f}  "
             f"bound_ms {bms:.5f} ({by})  "
@@ -650,19 +704,93 @@ def _close(name: str, got: torch.Tensor, want: torch.Tensor,
     return err.max().item()
 
 
+class RouteCheck:
+    """The MoE rule of the card-vs-CPU check.  Capacity routing may pick
+    another expert on the card than on the CPU where an expert's
+    probability ties the k-th within rounding.  Forward hooks on every
+    MoE layer of both models record each call's routes; ``rows`` compares
+    the top-k sets token by token, counts and prints the tokens whose
+    choice differs, and fails on any such flip where the CPU's gap
+    between the k-th and (k+1)-th probability is ``GAP`` or more.  A
+    flip changes the expert buffers of its whole group (capacity) and,
+    through attention, every later position, so after one no row of the
+    phase is held to the logit limit any more; the logits are held, at
+    ``MODEL_TOL``, on the rows whose routes agreed in every layer so
+    far."""
+
+    GAP = 1e-5
+
+    def __init__(self, card, cpu):
+        from repro_torch.models.moe import moe_route
+
+        self.calls = {"card": [], "cpu": []}
+        self.tainted = False
+        self.flips = 0
+
+        def hook(tag):
+            def record(mod, inputs, _):
+                *_, probs, _, top_i = moe_route(mod, inputs[0], mod.cfg)
+                self.calls[tag].append((probs.cpu(), top_i.cpu()))
+            return record
+
+        for tag, m in (("card", card), ("cpu", cpu)):
+            for blk in m.blocks:
+                blk.moe.register_forward_hook(hook(tag))
+
+    def rows(self, name: str, batch: int) -> list:
+        flips = 0
+        for (_, ti_card), (p_cpu, ti_cpu) in zip(self.calls["card"],
+                                                 self.calls["cpu"]):
+            k = ti_cpu.shape[-1]
+            differ = (ti_card.sort(-1).values
+                      != ti_cpu.sort(-1).values).any(-1)
+            top = p_cpu.sort(-1, descending=True).values
+            gap = top[..., k - 1] - top[..., k]
+            bad = differ & (gap >= self.GAP)
+            if bool(bad.any()):
+                raise AssertionError(
+                    f"{name}: {int(bad.sum())} tokens route to other experts "
+                    f"on the card though the CPU's k-th probability leads by "
+                    f"{gap[bad].min().item():.2e} or more")
+            flips += int(differ.sum())
+        self.calls = {"card": [], "cpu": []}
+        self.flips += flips
+        self.tainted = self.tainted or flips > 0
+        log(f"[model] {name}: {flips} tokens route to other experts on "
+            f"the card than on the CPU (allowed only where the CPU's k-th "
+            f"and (k+1)-th probabilities are within {self.GAP})")
+        return [] if self.tainted else list(range(batch))
+
+
+def _close_rows(name: str, got, want, routes) -> None:
+    """``_close`` on the rows ``routes`` still holds (all of them for a
+    model without experts)."""
+    if routes is None:
+        _close(name, got, want)
+        return
+    rows = routes.rows(name, got.shape[0])
+    if not rows:
+        log(f"[model] {name}: not compared (a route flipped earlier)")
+        return
+    _close(name, got[rows], want[rows])
+
+
 def phase_model(cfg, device, *, seed=0, prompt_len=200, page=128,
                 max_seq_len=512) -> None:
     from repro_torch.models.model import Model
 
+    log(f"[model] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"head_dim {cfg.head_dim}, {cfg.dtype}")
     gpu = Model(cfg, device=device).init(
         torch.Generator(device=device).manual_seed(seed))
     cpu = Model(cfg, device="cpu")
     cpu.load_state_dict(gpu.state_dict())
+    routes = RouteCheck(gpu, cpu) if cfg.num_experts else None
     rng = np.random.default_rng(seed)
     toks = torch.from_numpy(rng.integers(3, cfg.vocab_size, (2, prompt_len)))
     lg_g, _ = gpu.forward(toks.to(device))
     lg_c, _ = cpu.forward(toks)
-    _close("forward", lg_g, lg_c)
+    _close_rows("forward", lg_g, lg_c, routes)
 
     for contiguous in (True, False):
         mode = "contiguous" if contiguous else "free-list"
@@ -686,7 +814,7 @@ def phase_model(cfg, device, *, seed=0, prompt_len=200, page=128,
         out = [m.prefill_chunk_paged(p.k_pool, p.v_pool, buf.to(dev),
                                      bt.to(dev), offs.to(dev), nv.to(dev))
                for (m, dev), p in zip(runs, pools)]
-        _close(f"prefill_chunk_paged ({mode})", out[0], out[1])
+        _close_rows(f"prefill_chunk_paged ({mode})", out[0], out[1], routes)
         # three decode steps, both devices fed the CPU's greedy tokens
         nxt = torch.argmax(out[1], dim=-1).to(torch.int32)
         lens = nv.clone()
@@ -696,7 +824,8 @@ def phase_model(cfg, device, *, seed=0, prompt_len=200, page=128,
                        None if contiguous else bt.to(dev), lens.to(dev),
                        contiguous=contiguous)[:, 0]
                    for (m, dev), p in zip(runs, pools)]
-            _close(f"decode_step_paged {step} ({mode})", out[0], out[1])
+            _close_rows(f"decode_step_paged {step} ({mode})", out[0],
+                        out[1], routes)
             nxt = torch.argmax(out[1], dim=-1).to(torch.int32)
             lens = lens + 1
 
@@ -967,9 +1096,9 @@ def time_step(step, device, *, iters=20, repeats=5) -> dict:
 
 def step_breakdown(model, device, *, batch=4, length=384, max_seq_len=1024,
                    page=128) -> dict:
-    """TinyLlama's paged decode step at the serving shape (``time_step``),
-    and the attention kernel's share of the graph-replayed step (22
-    launches per step).  Runs after the main path's launch counts were
+    """A paged model's decode step at the serving shape (``time_step``),
+    and the attention kernel's share of the graph-replayed step (one
+    launch per layer).  Runs after the main path's launch counts were
     read."""
     from repro_torch.kernels.paged_attention import paged_decode
 
@@ -1959,6 +2088,156 @@ def phase_cluster(tiny, mamba, device, *, n_requests=8, max_new=32) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the other paged families at full width
+# ---------------------------------------------------------------------------
+
+def _build_model(cfg, device, seed: int):
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(seed))
+    sync(device)
+    n = sum(p.numel() for p in model.parameters())
+    moe = (f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok} of "
+           f"width {cfg.expert_d_ff}, " if cfg.num_experts else "")
+    log(f"[families] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, {moe}"
+        f"{n / 1e9:.2f} B parameters ({cfg.dtype}), KV "
+        f"{cfg.kv_cache_bytes_per_token()} B per token, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def serve_moe(cfg, device, *, seed, n_requests, max_new, prefix,
+              free_list_pages, **kw) -> dict:
+    """Full granite-moe-3b-a800m: stop-the-world admission (exact
+    per-sequence prefill), cold; warm from the paper's fabric (every
+    request restores the prefix, the suffix runs as one paged chunk);
+    then a free-list pool small enough to preempt, whose pinned host-tier
+    restores replay nothing and leave the cold streams unchanged; last,
+    one decode step's breakdown."""
+    from repro_torch.serving import Engine
+
+    name = cfg.name
+    model = _build_model(cfg, device, seed)
+    common = dict(n_requests=n_requests, max_new=max_new)
+    serve_mode(model, f"{name} warm-up", device=device,
+               **{**common, "n_requests": 2}, **kw)
+    kw = dict(kw, device=device)
+    total = dict.fromkeys(KERNELS, 0)
+
+    cold_eng = Engine(model, **kw)
+    if cold_eng.chunked:
+        raise AssertionError(f"{name}: a MoE engine admitted in chunks")
+    (cold, cold_res), counts = counted(lambda: run_pass(
+        cold_eng, f"{name} kvc=None", tag="families", **common))
+    log(f"[families] {name} kvc=None launches: {counts}")
+    _require_launched(counts, ("flash_prefill", "paged_decode"))
+    add_counts(total, counts)
+    del cold_eng
+
+    kvc = paper_kvc()
+    row, res, eng, counts = fill_and_hit(model, name, kvc, **common, **kw)
+    if eng.chunked:
+        raise AssertionError(f"{name}: a MoE engine admitted in chunks")
+    log(f"[families] {name} warm-pass launches: {counts}")
+    fabric_report(name, kvc)
+    # the warm pass hits every prefix and writes nothing back (each
+    # prompt's blocks past the prefix are partial), so its prefill is the
+    # paged suffix chunk; the dense prefill ran in pass 1 and cold
+    _require_warm(name, row, res, cold, counts,
+                  ("chunked_prefill_paged", "paged_decode"), prefix)
+    add_counts(total, counts)
+    log(f"[families] {json.dumps(warm_vs_cold(name, row, cold))}")
+    del eng
+
+    pre_eng = Engine(model, num_pages=free_list_pages, **kw)
+    (prow, pres), counts = counted(lambda: run_pass(
+        pre_eng, f"{name} free-list-preempt", tag="families", **common))
+    log(f"[families] {name} free-list-preempt launches: {counts}; "
+        f"preemptions {prow['preemptions']}, restores {prow['restores']}, "
+        f"replayed tokens {pre_eng.stats.replayed_tokens}")
+    if prow["preemptions"] <= 0:
+        raise AssertionError(f"{name}: the free-list pool did not preempt")
+    if pre_eng.stats.replayed_tokens != 0:
+        raise AssertionError(f"{name}: a MoE restore replayed "
+                             f"{pre_eng.stats.replayed_tokens} tokens")
+    want = [r.token_ids for r in cold_res]
+    got = [r.token_ids for r in pres]
+    if got != want:
+        same = sum(a == b for a, b in zip(got, want))
+        raise AssertionError(f"{name}: {same}/{len(want)} preempted streams "
+                             "equal the unconstrained engine's")
+    log(f"[families] {name}: {len(got)}/{len(want)} preempted greedy "
+        "streams equal the unconstrained engine's")
+    _require_launched(counts, ("flash_prefill", "paged_decode"))
+    add_counts(total, counts)
+    del pre_eng
+    step_breakdown(model, device, max_seq_len=kw["max_seq_len"],
+                   page=kw["block_size"], batch=kw["max_batch"])
+    del model
+    return total
+
+
+def serve_wide_heads(cfg, device, *, seed, n_requests, max_new,
+                     **kw) -> dict:
+    """Full stablelm-12b (head_dim 160): chunked admission (the paged
+    prefill at D 160) and stop-the-world admission (the dense prefill at
+    D 160), both on the tensor-core body, then one decode step's
+    breakdown."""
+    from repro_torch.kernels.chunked_prefill import prefill_body
+    from repro_torch.models.layers import torch_dtype
+
+    name = cfg.name
+    model = _build_model(cfg, device, seed)
+    common = dict(n_requests=n_requests, max_new=max_new, **kw)
+    serve_mode(model, f"{name} warm-up", device=device,
+               **{**common, "n_requests": 2})
+    total = dict.fromkeys(KERNELS, 0)
+    body = prefill_body(torch_dtype(cfg.dtype), cfg.head_dim, cfg.head_dim)
+    for label, extra, prefill in (
+            ("chunked", {}, "chunked_prefill_paged"),
+            ("stop-the-world", {"chunk_tokens": 0}, "flash_prefill")):
+        _, counts = counted(lambda: serve_mode(
+            model, f"{name} {label}", device=device, **common, **extra))
+        log(f"[families] {name} {label} launches: {counts}; {prefill} ran "
+            f"the {body} body (head_dim {cfg.head_dim}, {cfg.dtype})")
+        if body != "tensor-core":
+            raise AssertionError(f"{name}: {prefill} ran the {body} body")
+        _require_launched(counts, (prefill, "paged_decode"))
+        add_counts(total, counts)
+    step_breakdown(model, device, max_seq_len=kw["max_seq_len"],
+                   page=kw["block_size"], batch=kw["max_batch"])
+    del model
+    return total
+
+
+def phase_families(device, *, n_requests=8, max_new=32, max_seq_len=1024,
+                   max_batch=4, block_size=128, free_list_pages=10,
+                   prefix=256) -> dict:
+    """Full granite-moe-3b-a800m and full stablelm-12b (bf16, seeded
+    random weights) behind the paged engine, one after the other; returns
+    the launch counts of their main-path runs."""
+    from repro_torch.configs import get_config
+
+    kw = dict(block_size=block_size, max_seq_len=max_seq_len,
+              max_batch=max_batch)
+    total = dict.fromkeys(KERNELS, 0)
+    add_counts(total, serve_moe(
+        get_config("granite-moe-3b-a800m"), device, seed=0,
+        n_requests=n_requests, max_new=max_new, prefix=prefix,
+        free_list_pages=free_list_pages, **kw))
+    torch.cuda.empty_cache()
+    add_counts(total, serve_wide_heads(
+        get_config("stablelm-12b"), device, seed=0, n_requests=n_requests,
+        max_new=max_new, **kw))
+    torch.cuda.empty_cache()
+    log(f"[families] main-path launches: {total}")
+    return total
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1986,6 +2265,11 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_model(tiny.replace(num_layers=2, dtype="float32"), device)
     phase_ssm_model(mamba.replace(num_layers=2, dtype="float32"), device)
+    # the other paged families at full width: head_dim 160 with LayerNorm
+    # and partial rotary, and 40 experts top-8 (routes checked per layer)
+    for fam in ("stablelm-12b", "granite-moe-3b-a800m"):
+        phase_model(get_config(fam).replace(num_layers=2, dtype="float32"),
+                    device, prompt_len=120)
     log(f"[phase] model {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2001,8 +2285,13 @@ def main() -> int:
     t0 = time.perf_counter()
     cluster_counts = phase_cluster(tiny_model, mamba_model, device)
     log(f"[phase] cluster {time.perf_counter() - t0:.1f} s")
+    del tiny_model, mamba_model           # room for the next two models
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    family_counts = phase_families(device)
+    log(f"[phase] families {time.perf_counter() - t0:.1f} s")
     # launches over every phase's main-path runs, each counted from 0
-    for phase in (*fabric_counts.values(), cluster_counts):
+    for phase in (*fabric_counts.values(), cluster_counts, family_counts):
         for k in KERNELS:
             counts[k] += phase[k]
 

@@ -2,9 +2,10 @@
 
 The port's own copy of ``repro/configs/__init__.py``'s ``get_config`` and
 ``smoke_config``.  The registry holds the paper's own model,
-``skymemory-tinyllama``, and the attention-free ``mamba2-1.3b``; the
-reference's other architectures arrive with the families that serve them
-(see ROADMAP.md).
+``skymemory-tinyllama``, the dense GQA, MoE and VLM families the paged
+engine serves, and the attention-free ``mamba2-1.3b``; the reference's
+MLA, hybrid and encoder-decoder architectures arrive with the families
+that serve them (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -14,7 +15,13 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 ARCH_IDS = [
+    "llava-next-34b",        # VLM: patch embeddings before the tokens
+    "nemotron-4-340b",       # head_dim 192, squared ReLU, LayerNorm
+    "yi-9b",
+    "internlm2-1.8b",
     "mamba2-1.3b",           # attention-free SSD, the dense runtime
+    "granite-moe-3b-a800m",  # MoE, stop-the-world admission
+    "stablelm-12b",          # head_dim 160, partial rotary, LayerNorm
     "skymemory-tinyllama",   # the paper's own testbed model (§5)
 ]
 

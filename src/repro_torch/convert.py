@@ -1,11 +1,12 @@
 """Load the reference's parameter tree into the port's ``Model``.
 
 ``params_from_numpy`` takes the pytree ``repro.models.model.Model.init``
-returns, already mapped to numpy arrays by the caller (for instance
-``jax.tree.map(np.asarray, params)``), so this module needs no JAX.  The
-reference stacks the layers of ``params["blocks"]`` along a leading axis
-(``repro/models/model.py:514``); they are unstacked into
-``Model.blocks``.  Weight layouts are the same (``[in, out]``).
+returns (dense, MoE, VLM or SSM), already mapped to numpy arrays by the
+caller (for instance ``jax.tree.map(np.asarray, params)``), so this
+module needs no JAX.  The reference stacks the layers of
+``params["blocks"]`` along a leading axis (``repro/models/model.py:514``);
+they are unstacked into ``Model.blocks``.  Weight layouts are the same
+(``[in, out]``).
 """
 from __future__ import annotations
 
@@ -39,11 +40,14 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> Model:
         put(model.embed.unembed, tree["embed"]["unembed"])
     blocks = tree["blocks"]
     for l, blk in enumerate(model.blocks):
-        # a block's children are named as the reference's subtrees:
-        # norm1/attn/norm2/mlp (dense) or norm1/ssd (SSM)
-        for part, mod in blk.named_children():
-            for name, param in mod.named_parameters():
-                put(param, blocks[part][name][l])
+        # a block's parameters are named as the reference's subtrees:
+        # norm1/attn/norm2/mlp (dense, VLM), norm1/attn/norm2/moe with
+        # its nested ``shared`` (MoE), or norm1/ssd (SSM)
+        for name, param in blk.named_parameters():
+            node = blocks
+            for key in name.split("."):
+                node = node[key]
+            put(param, node[l])
     for name, param in model.final_norm.named_parameters():
         put(param, tree["final_norm"][name])
     return model

@@ -11,8 +11,8 @@
 Both take CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the
 plain versions in ``kernels/ref.py``.  Each launch runs one of the two
 bodies of the kernel, chosen by ``prefill_body`` from the dtype and the
-head dims alone: bf16 with Dq == Dv in {64, 128} runs on tensor cores
-(``mma.sync``), everything else on f32 FMAs.
+head dims alone: bf16 with Dq == Dv in {64, 128, 160, 192} runs on
+tensor cores (``mma.sync``), everything else on f32 FMAs.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-TENSOR_CORE_HEAD_DIMS = (64, 128)   # template instances of prefill_tc
+TENSOR_CORE_HEAD_DIMS = (64, 128, 160, 192)   # instances of prefill_tc
 
 
 def prefill_body(dtype: torch.dtype, dq: int, dv: int) -> str:

@@ -26,10 +26,14 @@
 // 0.064 ms on the 67 TFLOP/s f32 FMA pipe alone.  So bf16 runs on tensor
 // cores, in two bodies chosen by the wrapper from (dtype, Dq, Dv) alone:
 //
-//   * prefill_tc, bf16 with Dq == Dv in {64, 128} (template on D): the
-//     FlashAttention-2 arrangement on mma.sync.m16n8k16.  4 warps take 64
-//     query rows, 16 each; the Q tile is staged once and its A fragments
-//     stay in registers (ldmatrix) for the whole key loop.  S = Q.K^T
+//   * prefill_tc, bf16 with Dq == Dv in {64, 128, 160, 192} (template on
+//     D): the FlashAttention-2 arrangement on mma.sync.m16n8k16.  4 warps
+//     take 64 query rows, 16 each; the Q tile is staged once in shared
+//     memory.  At D <= 128 its A fragments stay in registers (ldmatrix)
+//     for the whole key loop; at D 160 and 192 the f32 O accumulator
+//     alone takes 80 and 96 registers a thread, so the Q fragments are
+//     read again from shared memory at each k-step of every tile (one
+//     ldmatrix per 8 mma) instead of holding 40-48 more.  S = Q.K^T
 //     accumulates in f32 registers; the online softmax runs there too,
 //     the row max and sum reduced over the 4 lanes of a quad.  P is
 //     rounded to bf16 in the registers that hold it (as the plain version
@@ -152,11 +156,13 @@ prefill_tc(const __nv_bfloat16* __restrict__ q,
   using namespace tc_body;
   constexpr int LD = D + PAD;         // shared row stride, elements
   constexpr int CPR = D / 8;          // 16-byte chunks per row
-  constexpr int RPP = THREADS / CPR;  // rows per copy pass
   constexpr int KSTEPS = D / 16;      // k-steps of Q.K^T
   constexpr int NT = BK / 8;          // 8-key n-tiles of S
   constexpr int OT = D / 8;           // 8-column n-tiles of O
-  static_assert(D % 16 == 0 && THREADS % CPR == 0 && BK % RPP == 0, "tile");
+  constexpr bool Q_IN_REGS = D <= 128;
+  static_assert(D % 16 == 0 && (BQ * CPR) % THREADS == 0 &&
+                    (BK * CPR) % THREADS == 0,
+                "tile");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][LD]
@@ -180,10 +186,10 @@ prefill_tc(const __nv_bfloat16* __restrict__ q,
   const int n_tiles =
       kr.kv_end > kr.kv_begin ? (kr.kv_end - kr.kv_begin + BK - 1) / BK : 0;
 
-  // copy roles: thread -> one 16-byte column chunk of rows r0, r0 + RPP..
-  const int cc = (tid % CPR) * 8;
-  const int r0 = tid / CPR;
-  for (int r = r0; r < BQ; r += RPP) {
+  // copy roles: 16-byte chunk i of a tile is row i / CPR, column
+  // (i % CPR) * 8; thread tid copies chunks tid, tid + THREADS, ...
+  for (int i = tid; i < BQ * CPR; i += THREADS) {
+    const int r = i / CPR, cc = (i % CPR) * 8;
     const bool ok = r < n_rows;
     cp_async16(qs + r * LD + cc,
                q + (((size_t)b * sq + q0 + (ok ? r : 0)) * h + hq) * D + cc,
@@ -191,7 +197,8 @@ prefill_tc(const __nv_bfloat16* __restrict__ q,
   }
   auto load_kv = [&](int k0, int buf) {
 #pragma unroll
-    for (int r = r0; r < BK; r += RPP) {
+    for (int i = tid; i < BK * CPR; i += THREADS) {
+      const int r = i / CPR, cc = (i % CPR) * 8;
       const int kpos = k0 + r;
       const bool ok = kpos < kr.kv_end;
       const size_t row =
@@ -204,7 +211,7 @@ prefill_tc(const __nv_bfloat16* __restrict__ q,
   cp_async_commit();  // group 0: Q and the first K/V tile
 
   const float scale2 = scale * LOG2E;  // scores in log2 units
-  uint32_t qf[KSTEPS][4];
+  uint32_t qf[Q_IN_REGS ? KSTEPS : 1][4];
   float o[OT][4];
 #pragma unroll
   for (int n = 0; n < OT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -219,11 +226,11 @@ prefill_tc(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
     cp_async_wait<1>();  // everything but the tile just issued has landed
     __syncthreads();
-    if (t == 0) {
+    const __nv_bfloat16* qrow = qs + (warp * 16 + (lane & 15)) * LD +
+                                (lane >> 4) * 8;
+    if (Q_IN_REGS && t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
-        ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
-                                (lane >> 4) * 8);
+      for (int kk = 0; kk < KSTEPS; ++kk) ldmatrix_x4(qf[kk], qrow + kk * 16);
     }
 
     // S = Q . K^T over the tile's 64 keys
@@ -232,14 +239,16 @@ prefill_tc(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t(&a)[4] = qf[Q_IN_REGS ? kk : 0];
+      if (!Q_IN_REGS) ldmatrix_x4(a, qrow + kk * 16);
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
+      for (int np = 0; np < NT / 2; ++np) {
         uint32_t bf[4];
         ldmatrix_x4(bf, kb + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
                             kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16_16816(s[2 * np], qf[kk], bf[0], bf[1]);
-        mma_bf16_16816(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+        mma_bf16_16816(s[2 * np], a, bf[0], bf[1]);
+        mma_bf16_16816(s[2 * np + 1], a, bf[2], bf[3]);
       }
     }
 
@@ -494,8 +503,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
 }
 
 // ``tensor_cores`` is the wrapper's choice of body; the tensor-core body
-// exists for bf16 with Dq == Dv in {64, 128} only, and asking for it
-// elsewhere is an error, never a silent switch to the other body.
+// exists for bf16 with Dq == Dv in {64, 128, 160, 192} only, and asking
+// for it elsewhere is an error, never a silent switch to the other body.
 template <typename T, bool PAGED>
 int launch(const void* q, const void* k, const void* v, void* out,
            PagedArgs pa, DenseArgs da, int nb, int sq, int h, int hkv, int d,
@@ -509,6 +518,12 @@ int launch(const void* q, const void* k, const void* v, void* out,
                                   st);
     if (d == 128)
       return launch_tc<128, PAGED>(q, k, v, out, pa, da, nb, sq, h, hkv,
+                                   scale, st);
+    if (d == 160)
+      return launch_tc<160, PAGED>(q, k, v, out, pa, da, nb, sq, h, hkv,
+                                   scale, st);
+    if (d == 192)
+      return launch_tc<192, PAGED>(q, k, v, out, pa, da, nb, sq, h, hkv,
                                    scale, st);
     return (int)cudaErrorInvalidValue;
   }

@@ -1,13 +1,17 @@
-"""The model, ported from ``repro/models/model.py``: the dense GQA
-decoder and the attention-free SSM (Mamba-2) stack.
+"""The model, ported from ``repro/models/model.py``: the GQA decoder
+(dense, MoE, and the VLM backbone) and the attention-free SSM (Mamba-2)
+stack.
 
 ``Model`` is an ``nn.Module`` holding its weights (``embed``, an
 ``nn.ModuleList`` of ``blocks``, ``final_norm``) on one device.  The
 reference's ``lax.scan`` over stacked layers is a Python loop over
-``self.blocks``.  The dense family serves through the paged steps, which
-write each layer's K/V into ``k_pool[l]`` / ``v_pool[l]`` in place; the
-SSM family through ``decode_step`` over the fixed-size dense cache of
-``init_cache``.  Any other family raises ``NotImplementedError``.
+``self.blocks``.  A block's feed-forward is its ``mlp`` or, when
+``cfg.num_experts``, its ``moe`` (every layer: ``first_k_dense`` applies
+only with MLA in the reference).  The GQA families serve through the
+paged steps, which write each layer's K/V into ``k_pool[l]`` /
+``v_pool[l]`` in place; the SSM family through ``decode_step`` over the
+fixed-size dense cache of ``init_cache``.  Any other family raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,25 +32,38 @@ from repro_torch.models.cache import (
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, Embed, Norm
+from repro_torch.models.moe import MoE
 from repro_torch.models.ssd import SSD, ssd_decode, ssd_prefill
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if (cfg.arch_type not in ("dense", "ssm") or cfg.num_experts
+    if (cfg.arch_type not in ("dense", "moe", "vlm", "ssm")
             or cfg.use_mla or cfg.is_encoder_decoder or cfg.sliding_window):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA and SSM families are ported; "
-            "the MoE, MLA, hybrid, encoder-decoder and sliding-window "
-            "families wait for ROADMAP.md queue 1")
+            f"{cfg.name}: only the dense GQA, MoE, VLM and SSM families "
+            "are ported; the MLA, hybrid, encoder-decoder and "
+            "sliding-window families wait for ROADMAP.md queue 1")
 
 
 class Block(nn.Module):
+    """Attention and a feed-forward: ``mlp``, or ``moe`` for the MoE
+    family (the reference's ``_init_block``)."""
+
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         self.norm1 = Norm(cfg, device)
         self.attn = Attention(cfg, device)
         self.norm2 = Norm(cfg, device)
-        self.mlp = MLP(cfg, device)
+        self.is_moe = cfg.num_experts > 0
+        if self.is_moe:
+            self.moe = MoE(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device)
+
+    def ffn(self, h: torch.Tensor) -> torch.Tensor:
+        if self.is_moe:
+            return self.moe(h)[0]       # (y, aux): serving drops the aux
+        return self.mlp(h)
 
 
 class SSMBlock(nn.Module):
@@ -86,14 +103,18 @@ class Model(nn.Module):
                 blk.ssd.init(generator)
             else:
                 blk.attn.init(generator)
-                blk.mlp.init(generator)
+                (blk.moe if blk.is_moe else blk.mlp).init(generator)
         return self
 
     # ------------------------------------------------------------------
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, *, q_offset: int = 0,
-                collect_state: bool = False, prefix_state: dict | None = None):
-        """Full-sequence causal forward over ``tokens`` [B, S].
+                collect_state: bool = False, prefix_state: dict | None = None,
+                image_embeds: torch.Tensor | None = None):
+        """Full-sequence causal forward over ``tokens`` [B, S].  The VLM
+        family prepends ``image_embeds`` [B, N_img, D] (the stubbed anyres
+        patch embeddings), as the reference's ``Model.embed`` does; ``S``
+        then counts both.
 
         Returns ``(logits [B, S, V], state)``; ``state`` is
         ``{"kv": {"k": [L, B, S', Hkv, hd], "v": ...}}`` when
@@ -108,6 +129,8 @@ class Model(nn.Module):
         only the snapshot's position)."""
         cfg = self.cfg
         x = self.embed.embed(tokens)
+        if cfg.arch_type == "vlm" and image_embeds is not None:
+            x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
         if self.is_ssm:
             return self._ssm_forward(x, collect_state, prefix_state)
         ks, vs = [], []
@@ -118,7 +141,7 @@ class Model(nn.Module):
             a, (k, v) = attention_prefill(blk.attn, blk.norm1(x), cfg,
                                           q_offset=q_offset, kv_cache=pref)
             x = x + a
-            x = x + blk.mlp(blk.norm2(x))
+            x = x + blk.ffn(blk.norm2(x))
             if collect_state:
                 ks.append(k)
                 vs.append(v)
@@ -200,7 +223,7 @@ class Model(nn.Module):
                 blk.attn, blk.norm1(x), cfg, k_pool=k_pool[l],
                 v_pool=v_pool[l], block_tables=block_tables,
                 lengths=lengths, contiguous=contiguous)
-            x = x + blk.mlp(blk.norm2(x))
+            x = x + blk.ffn(blk.norm2(x))
         return self.embed.logits(self.final_norm(x))
 
     @torch.no_grad()
@@ -219,7 +242,7 @@ class Model(nn.Module):
                 blk.attn, blk.norm1(x), cfg, k_pool=k_pool[l],
                 v_pool=v_pool[l], block_tables=block_tables,
                 q_offsets=q_offsets, n_valid=n_valid)
-            x = x + blk.mlp(blk.norm2(x))
+            x = x + blk.ffn(blk.norm2(x))
         idx = torch.clamp(n_valid.long() - 1, min=0)
         last = x[torch.arange(x.shape[0], device=x.device), idx]   # [R, D]
         return self.embed.logits(self.final_norm(last))

@@ -21,7 +21,8 @@ cache.
 any payload decodes.  Besides the closed batch (``generate``) the engine
 streams: ``submit`` returns a ``Future`` that ``pump`` (inline) or the
 worker loop (``start`` / ``stop``, ``serving/worker.py``) resolves.  The
-non-paged families other than SSM are not ported (ROADMAP.md queue 1).
+MoE family always admits stop-the-world (``chunk_tokens`` is forced to 0).
+The non-paged families other than SSM are not ported (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ from repro_torch.serving.worker import StreamWorker
 
 class Engine:
     """Continuous-batching engine over ``model`` on ``device``: paged for
-    the dense families, the dense runtime for the SSM family.
+    the GQA families (dense, MoE, VLM), the dense runtime for the SSM
+    family.
 
     With ``kvc`` (a ``ConstellationKVC``, or a view of one) the engine
     builds its own ``KVCManager`` over the constellation and this
@@ -104,9 +106,15 @@ class Engine:
                 num_slots=max_batch, page_size=block_size,
                 max_seq_len=max_seq_len, num_pages=num_pages)
             # chunk budget: prompt tokens prefilled per step, fused with
-            # decode; page-aligned; 0 is stop-the-world admission
+            # decode; page-aligned; 0 is stop-the-world admission.  MoE
+            # families always take the stop-the-world path: capacity
+            # routing depends on the group's composition, so chunk splits
+            # would change real tokens' routing (the same reason their
+            # prefill is never padded)
             if chunk_tokens is None:
                 chunk_tokens = 2 * block_size
+            if chunk_tokens and self.cfg.num_experts > 0:
+                chunk_tokens = 0
             if chunk_tokens:
                 chunk_tokens = min(chunk_tokens,
                                    self.cache.pages_per_seq * block_size)

@@ -104,6 +104,14 @@ class PagedExecutor:
         ``(logits, state)`` of ``Model.forward``."""
         return self.model.forward(self.to_device(toks), collect_state=True)
 
+    def prefill_exact(self, tokens: list[int]):
+        """Unpadded, per-sequence prefill (MoE families, where padding
+        would perturb capacity-based routing of real tokens).  Returns
+        ``(last_logits, state)``."""
+        lg, state = self.model.forward(self.to_device(tokens)[None],
+                                       collect_state=True)
+        return lg[0, len(tokens) - 1], state
+
     def sample_first(self, logits_rows, samplings) -> np.ndarray:
         """First tokens for an admission wave: one call, one host sync."""
         t_arr, tk_arr, tp_arr = stack_sampling(samplings, device=self.device)

@@ -690,7 +690,7 @@ class Scheduler:
                 self._last_tok_t[slot] = now
 
     # ------------------------------------------------------------------
-    # stop-the-world admission (``chunk_tokens=0``)
+    # stop-the-world admission (MoE families / ``chunk_tokens=0``)
     # ------------------------------------------------------------------
     def _admit_wave(self, admitted: list[tuple[Seq, int]]) -> None:
         """Stop-the-world admission: SkyMemory hits restore blocks
@@ -715,6 +715,13 @@ class Scheduler:
             self._lookup_and_prefetch(s)
             if s.pages_future is not None:
                 last_logits.append(self._prefill_suffix_paged(s, slot))
+                sampled.append((s, slot))
+            elif self.ex.cfg.num_experts > 0:
+                # MoE: capacity-based expert routing is group-composition
+                # dependent, so bucket padding would alter real tokens'
+                # routing -- prefill exactly, one sequence at a time
+                s.cached = 0
+                last_logits.append(self._prefill_exact(s, slot))
                 sampled.append((s, slot))
             else:
                 s.cached = 0
@@ -775,6 +782,16 @@ class Scheduler:
             else:
                 self._active[slot] = s
                 self._last_tok_t[slot] = now
+
+    def _prefill_exact(self, s: Seq, slot: int):
+        lg, state = self.ex.prefill_exact(s.tokens)
+        n = len(s.tokens)
+        self.kv.pool.write_token_span(
+            slot, 0,
+            state["kv"]["k"][:, 0, :n],
+            state["kv"]["v"][:, 0, :n],
+        )
+        return lg
 
     def _prefill_suffix_paged(self, s: Seq, slot: int):
         """SkyMemory hit under stop-the-world admission (the sequence's

@@ -71,7 +71,11 @@ def test_importing_every_module_loads_no_jax_or_repro():
     assert "repro_torch.kernels._build" in mods
     assert "repro_torch.core.protocol" in mods
     for m in ("core.faults", "serving.cluster", "serving.router",
-              "serving.slo", "serving.traffic", "serving.worker"):
+              "serving.slo", "serving.traffic", "serving.worker",
+              "models.moe", "configs.granite_moe_3b_a800m",
+              "configs.stablelm_12b", "configs.nemotron_4_340b",
+              "configs.llava_next_34b", "configs.internlm2_1_8b",
+              "configs.yi_9b"):
         assert f"repro_torch.{m}" in mods
 
 
@@ -180,9 +184,13 @@ def test_other_families_raise_not_implemented():
     from repro_torch.models.model import Model
 
     cfg = smoke_config(get_config("skymemory-tinyllama"))
-    for kw in ({"arch_type": "moe", "num_experts": 4},
-               {"use_mla": True},
+    for kw in ({"use_mla": True},
                {"arch_type": "hybrid", "attn_layer_period": 1},
+               {"is_encoder_decoder": True, "num_encoder_layers": 2},
                {"sliding_window": 64}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Model(cfg.replace(**kw), device="cpu")
+    # the MoE and VLM families are served now
+    for name in ("granite-moe-3b-a800m", "llava-next-34b"):
+        Model(smoke_config(get_config(name)).replace(dtype="float32"),
+              device="cpu")

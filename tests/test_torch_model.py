@@ -19,6 +19,7 @@ import torch
 
 from repro.configs import get_config, smoke_config
 from repro.models.model import Model as JaxModel
+from repro_torch.configs import list_configs
 from repro_torch.convert import params_from_numpy
 
 torch.set_num_threads(2)
@@ -53,13 +54,15 @@ def _close(t, j, **tol):
     np.testing.assert_allclose(t.numpy(), np.asarray(j), **(tol or TOL))
 
 
-def test_port_config_matches_reference():
+@pytest.mark.parametrize("name", list_configs())
+def test_port_config_matches_reference(name):
+    """Every config the port registers, and its smoke variant, equals the
+    reference's field for field."""
     from repro_torch.configs import get_config as tget
     from repro_torch.configs import smoke_config as tsmoke
-    ref = get_config("skymemory-tinyllama")
-    assert asdict(tget("skymemory-tinyllama")) == asdict(ref)
-    assert asdict(tsmoke(tget("skymemory-tinyllama"))) == \
-        asdict(smoke_config(ref))
+    ref = get_config(name)
+    assert asdict(tget(name)) == asdict(ref)
+    assert asdict(tsmoke(tget(name))) == asdict(smoke_config(ref))
 
 
 def test_forward_logits_and_state(models):
