@@ -9,19 +9,28 @@ Phases (each raises on failure; nothing is caught):
    and CUDA versions, compute capability (9, 0);
 2. build: every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc`` for
    ``sm_90a``, one process per source, all started together;
-3. kernels: each kernel against its plain PyTorch version on the card,
+3. kernels: each kernel against its plain PyTorch version on the card
+   (for a bf16 case, the plain version evaluated in f32 on the same
+   inputs; the bf16 plain version's own distance from it prints beside),
    at the main paths' shapes (TinyLlama's attention, mamba2-1.3b's SSD
-   scan; bf16 and f32) and at edge cases, with its time, the plain
+   scan; bf16 and f32) and at edge cases, each on inputs drawn from a
+   generator seeded by its name and label, with its time, the plain
    version's time, its bound and, for the dense prefill and the
    contiguous decode pool, ``scaled_dot_product_attention``'s time as a
    yardstick only.  Each case's line names the body it ran: the
    prefills run bf16 with head dim 64, 128, 160 or 192 on tensor cores
    (``tensor-core``), the SSD scan runs bf16 on tensor cores, and
-   everything else runs on f32 FMAs (``fma``).  Four bf16 cases hold
+   everything else runs on f32 FMAs (``fma``).  Five bf16 cases hold
    the other paged families' head shapes: the dense and paged prefills
-   at stablelm-12b's H32 / Hkv8 / D 160 and the dense prefill at
-   nemotron-4-340b's H96 / Hkv8 / D 192 (each must run ``tensor-core``),
-   and the decode kernel at D 160;
+   at stablelm-12b's H32 / Hkv8 / D 160 and nemotron-4-340b's H96 /
+   Hkv8 / D 192 (each must run ``tensor-core``), and the decode kernel
+   at D 160; nemotron's dense prefill on three more draws.
+   zamba2-1.2b's shapes, at rep 1 (H = Hkv = 32), bf16 and f32: the
+   decode over a 1024-token dense cache (8 pages), over a full 384-slot
+   ring (3 pages), and over one page of 200 (a ring) and of 1000 tokens
+   (caches whose length 128 does not divide), the cold prefill (S 369)
+   and a warm suffix (Sq 113 over Skv 369 at q_offset 256; the bf16
+   prefills must run ``tensor-core``), and the SSD scan at state 64;
 4. model: TinyLlama's widths at 2 layers, f32, seeded: ``forward``,
    ``prefill_chunk_paged`` and ``decode_step_paged`` logits on the card
    against the same on the CPU.  Then mamba2-1.3b's widths at 2 layers,
@@ -34,7 +43,13 @@ Phases (each raises on failure; nothing is caught):
    routes are compared token by token first (``RouteCheck``: a route
    may differ only where the CPU's k-th and (k+1)-th probabilities are
    within 1e-5, and the logits are held on the rows whose routes agreed
-   in every layer);
+   in every layer).  Last zamba2-1.2b's widths at 7 layers (one
+   attention period of 6 SSD layers, the shared block, a 1-layer tail),
+   f32: mamba2's three checks, with the shared block's K/V held beside
+   the state and the decode steps over the dense K/V cache.  Then that
+   zamba2 and a 2-layer TinyLlama with ``sliding_window=200``: a
+   180-token prompt and 40 decode steps past the 200-slot ring's wrap,
+   card against CPU;
 5. serve: full TinyLlama (22 layers, bf16, seeded random weights) behind
    the paged ``Engine``: 8 requests with a shared 256-token prefix in
    three modes (chunked contiguous pool, stop-the-world admission, a
@@ -96,10 +111,24 @@ Phases (each raises on failure; nothing is caught):
    equal to the cold engine's; then one decode step's breakdown.  Full
    stablelm-12b (40 layers, head_dim 160): chunked and stop-the-world
    admission, each prefill on the tensor-core body at D 160, then one
-   decode step's breakdown.
+   decode step's breakdown;
+9. hybrid (``[hybrid]`` lines): full zamba2-1.2b (38 SSD layers, the
+   shared attention block after every 6th, bf16, seeded random weights)
+   behind ``Engine``, which serves it through the dense runtime, on the
+   same 8 requests: cold; twice through ``Engine(kvc=...)`` on the
+   paper's 19x5 fabric (the second pass must restore 256 tokens of
+   every request, every stored block must equal a fresh ``kvc_fn``, the
+   warm streams must equal the cold ones, and a resumed prefill must be
+   bitwise the full one); a ring pass with ``sliding_window=384`` and 40
+   new tokens, so that every sequence decodes past the ring's wrap
+   (each stream must equal the cold one up to the first token from a
+   position at or past 384); then one decode step's breakdown (the
+   paged-decode kernel's share) and one 384-token prefill replayed from
+   a CUDA graph (the SSD scan's and the dense prefill's shares).  The
+   SSD scan, the dense prefill and the paged decode must launch.
 
 The ``kernels`` line counts each kernel's launches over the main-path
-runs of phases 5-8, each counted from 0 just before it.
+runs of phases 5-9, each counted from 0 just before it.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -113,6 +142,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -126,13 +156,17 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
               torch.float32: 67e12}             # f32 outside tensor cores
 # kernel vs plain on the card.  f32: the repo's kernel tolerance
 # (tests/test_kernels.py), tight enough to catch a key off by one; these
-# cases are what hold each kernel's arithmetic.  bf16: both round the
-# output to bf16 once and sum in f32 in different orders, and the plain
-# path also rounds its softmax weights to bf16 before the PV product, so
-# near few keys its error is a few bf16 steps of |v| -- the size of a key
-# off by one.  The limits are per kernel: at rtol 1e-2, about 1.4x the
-# largest atol the cases below have needed on an H100 (5.3e-3 for decode,
-# 8.9e-3 for the prefills).  Each case prints its share of the limit
+# cases are what hold each kernel's arithmetic.  bf16: the kernel is held
+# against the plain version evaluated in f32 on the same bf16 inputs, its
+# output rounded to bf16 once.  The plain version run in bf16, like the
+# reference's oracle, rounds q.k to bf16 before the softmax (a step of
+# 2^-8 |q.k|, which grows with sqrt(D)) and the softmax weights before
+# the PV product: an error of its own that alone reaches the limit at
+# D 192 on some draws.  Each bf16 case prints that error beside the
+# kernel's.  The limits are per kernel: at rtol 1e-2, about 1.4x the
+# largest atol the cases below needed on an H100 against the bf16 plain
+# version (5.3e-3 for decode, 8.9e-3 for the prefills).  Each case prints
+# its share of the limit
 F32_TOL = dict(atol=2e-5, rtol=2e-4)
 BF16_TOL = {"paged_decode": dict(atol=8e-3, rtol=1e-2),
             "chunked_prefill_paged": dict(atol=1.2e-2, rtol=1e-2),
@@ -270,20 +304,30 @@ def phase_build() -> None:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _check(name: str, kernel: str, got: torch.Tensor, want: torch.Tensor,
-           tol: dict | None = None) -> tuple[float, float]:
-    """(max abs err, largest err / limit) of ``got`` against ``want``."""
+def _ratio(kernel: str, got: torch.Tensor, want: torch.Tensor,
+           tol: dict | None = None) -> tuple[float, float, float]:
+    """(max abs err, largest err / limit, |want| where that ratio peaks)
+    of ``got`` against ``want``."""
     torch.cuda.synchronize()
     if tol is None:
         tol = F32_TOL if got.dtype == torch.float32 else BF16_TOL[kernel]
     err = (got.float() - want.float()).abs()
     lim = tol["atol"] + tol["rtol"] * want.float().abs()
-    worst = (err / lim).max().item()
+    ratio = (err / lim).flatten()
+    at = int(ratio.argmax())
+    return (err.max().item(), ratio[at].item(),
+            want.float().abs().flatten()[at].item())
+
+
+def _check(name: str, kernel: str, got: torch.Tensor, want: torch.Tensor,
+           tol: dict | None = None) -> tuple[float, float, float]:
+    """``_ratio`` of ``got`` against ``want``; raises past the limit."""
+    err, worst, at = _ratio(kernel, got, want, tol)
     if not torch.isfinite(got.float()).all() or worst > 1.0:
         raise AssertionError(
             f"{name}: kernel disagrees with its plain version, max abs err "
-            f"{err.max().item():.3e}, {worst:.2f} x the limit")
-    return err.max().item(), worst
+            f"{err:.3e}, {worst:.2f} x the limit (at |want| {at:.3e})")
+    return err, worst, at
 
 
 def decode_case(gen, dtype, device, *, b, pages_per_seq, lengths, tables,
@@ -387,14 +431,23 @@ def run_flash(args):
 
 def sdpa_flash(args):
     """``scaled_dot_product_attention`` on a dense prefill's inputs, where
-    it computes the same function (no offset, no window, Dq == Dv); else
-    None.  A yardstick only: the port never calls it."""
+    it computes the same function (Dq == Dv); else None.  An offset or a
+    window takes a boolean mask built outside the timed call.  A
+    yardstick only: the port never calls it."""
     q, k, v, kw = args
-    if kw["q_offset"] or kw["sliding_window"] or q.shape[-1] != v.shape[-1]:
+    if q.shape[-1] != v.shape[-1]:
         return None
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return lambda: sdpa(qt, kt, vt, is_causal=kw["causal"],
+    if not (kw["q_offset"] or kw["sliding_window"]):
+        return lambda: sdpa(qt, kt, vt, is_causal=kw["causal"],
+                            enable_gqa=True).transpose(1, 2)
+    qp = torch.arange(q.shape[1], device=q.device)[:, None] + kw["q_offset"]
+    kp = torch.arange(k.shape[1], device=q.device)[None]
+    mask = kp <= qp if kw["causal"] else torch.ones_like(kp <= qp)
+    if kw["sliding_window"]:
+        mask &= kp > qp - kw["sliding_window"]
+    return lambda: sdpa(qt, kt, vt, attn_mask=mask,
                         enable_gqa=True).transpose(1, 2)
 
 
@@ -454,8 +507,10 @@ def run_ssd(args):
 
 def kernel_cases(device) -> list:
     """Every kernel case: (kernel, label, dtype, main path?, make, runner);
-    ``make(generator, dtype)`` draws the case's inputs when called, so
-    cases made in list order from one seed get the same inputs."""
+    ``make(generator, dtype)`` draws the case's inputs when called, from
+    a generator seeded by the case's name and label alone
+    (``case_seed``), so a case draws the same inputs wherever it stands
+    in the list."""
     rng = np.random.default_rng(0)
     main_lens = [int(x) for x in rng.integers(256, 448, 4)]
     cases = []
@@ -628,34 +683,132 @@ def kernel_cases(device) -> list:
                                    d=160),
          run_decode),
     ]
+    # nemotron's dense prefill on three more draws: the bf16 plain
+    # version's own error reaches the limit at D 192 on some of them
+    cases += [
+        ("flash_prefill", f"bf16 nemotron H96 Hkv8 D192 causal B1 S512, "
+         f"draw {i}", torch.bfloat16, False,
+         lambda g, dt: flash_case(g, dt, device, b=1, sq=512, skv=512, off=0,
+                                  h=96, hkv=8, d=192, dv=192),
+         run_flash)
+        for i in (1, 2, 3)]
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        cases += [
+            # zamba2-1.2b's served shapes, all at rep 1 (H = Hkv = 32): the
+            # shared block's decode over the dense 1024-token cache (8
+            # pages) and over a full 384-slot ring (3 pages); its cold
+            # prefill and its warm suffix over a restored 256-token prefix;
+            # the scan at state 64
+            ("paged_decode", f"{tag} zamba2 rep 1 dense cache B4 S1024 (8 "
+             f"pages), lengths 347-401", dtype, False,
+             lambda g, dt: decode_case(g, dt, device, b=4, pages_per_seq=8,
+                                       lengths=[347, 362, 380, 401],
+                                       tables=False, hkv=32),
+             run_decode),
+            ("paged_decode", f"{tag} zamba2 rep 1 full ring B4 S384 (3 pages)",
+             dtype, False,
+             lambda g, dt: decode_case(g, dt, device, b=4, pages_per_seq=3,
+                                       lengths=[384] * 4, tables=False,
+                                       hkv=32),
+             run_decode),
+            # caches whose length 128 does not divide: one page of S
+            # (``attention._paged``), a ring of 200 and a 1000-token cache
+            ("paged_decode", f"{tag} zamba2 rep 1 ring B4 S200 (one page of "
+             f"200), lengths 200/200/173/64", dtype, False,
+             lambda g, dt: decode_case(g, dt, device, b=4, pages_per_seq=1,
+                                       lengths=[200, 200, 173, 64],
+                                       tables=False, hkv=32, page=200),
+             run_decode),
+            ("paged_decode", f"{tag} zamba2 rep 1 dense cache B4 S1000 (one "
+             f"page of 1000), lengths 347-1000", dtype, False,
+             lambda g, dt: decode_case(g, dt, device, b=4, pages_per_seq=1,
+                                       lengths=[347, 362, 380, 1000],
+                                       tables=False, hkv=32, page=1000),
+             run_decode),
+            ("flash_prefill", f"{tag} zamba2 rep 1 B1 Sq113 over Skv369 "
+             f"q_offset 256", dtype, False,
+             lambda g, dt: flash_case(g, dt, device, b=1, sq=113, skv=369,
+                                      off=256, hkv=32),
+             run_flash),
+            ("flash_prefill", f"{tag} zamba2 rep 1 causal B1 S369", dtype,
+             False,
+             lambda g, dt: flash_case(g, dt, device, b=1, sq=369, skv=369,
+                                      off=0, hkv=32),
+             run_flash),
+            ("ssd_chunk_scan", f"{tag} zamba2 B1 L384 H64 P64 G1 N64 Q128",
+             dtype, False,
+             lambda g, dt: ssd_case(g, dt, device, b=1, l=384, chunk=128,
+                                    n=64),
+             run_ssd),
+        ]
+    cases.append(
+        ("chunked_prefill_paged", "bf16 nemotron H96 Hkv8 D192 R4 C256 over "
+         "384", torch.bfloat16, False,
+         lambda g, dt: prefill_paged_case(
+             g, dt, device, offs=[128] * 4, valid=[256] * 4, c=256,
+             pages_per_seq=3, h=96, hkv=8, d=192),
+         run_prefill_paged))
     return cases
 
 
-# the new head shapes must run the tensor-core body of the prefills
-TENSOR_CORE_CASES = ("D160", "D192")
+# these bf16 cases must run the tensor-core body of the prefills: the
+# other paged families' head shapes, and zamba2's rep-1 prefills
+TENSOR_CORE_CASES = ("D160", "D192", "zamba2")
 YARDSTICKS = {"paged_decode": sdpa_decode, "flash_prefill": sdpa_flash}
+
+
+def case_seed(name: str, label: str) -> int:
+    return zlib.crc32(f"{name} [{label}]".encode())
+
+
+def _as_f32(args):
+    """``args`` with every bf16 tensor (top level) copied to f32."""
+    return tuple(a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16
+                 else a for a in args)
+
+
+def _exact(runner, args, dtype):
+    """The plain version evaluated in f32 on the same inputs, rounded to
+    the kernel's output dtype (an SSD scan's final state stays f32)."""
+    out = runner(_as_f32(args))[1]()
+    if isinstance(out, tuple):
+        return (out[0].to(dtype), out[1])
+    return out.to(dtype)
 
 
 def phase_kernels(device, timer: Timer) -> dict:
     """Every kernel against its plain version; returns the main-path
     (bf16) record of each kernel."""
-    gen = torch.Generator(device=device).manual_seed(0)
     records = {}
     for name, label, dtype, main, make, runner in kernel_cases(device):
+        gen = torch.Generator(device=device).manual_seed(
+            case_seed(name, label))
         args, n_bytes, flops = make(gen, dtype)
         kern, plain = runner(args)
-        want = plain()
+        want = plain() if dtype == torch.float32 else _exact(runner, args,
+                                                             dtype)
         got = kern()
+        if dtype != torch.float32:
+            # how far the bf16 plain version itself lies from ``want``
+            p_out = plain()
+            p_err, p_worst, p_at = _ratio(
+                name, p_out[0] if isinstance(p_out, tuple) else p_out,
+                want[0] if isinstance(want, tuple) else want)
+            log(f"[kernel] {name} [{label}]: bf16 plain version vs f32 "
+                f"max_abs_err {p_err:.3e} ({p_worst:.2f} x limit at |want| "
+                f"{p_at:.3e})")
         if isinstance(want, tuple):
             # the SSD scan: y, then its f32 final state at its own limit
-            err, worst = _check(f"{name} [{label}] y", name, got[0], want[0])
-            s_err, s_worst = _check(f"{name} [{label}] final state", name,
-                                    got[1], want[1], tol=SSD_STATE_TOL)
+            err, worst, at = _check(f"{name} [{label}] y", name, got[0],
+                                    want[0])
+            s_err, s_worst, _ = _check(f"{name} [{label}] final state", name,
+                                       got[1], want[1], tol=SSD_STATE_TOL)
             log(f"[kernel] {name} [{label}]: final state max_abs_err "
                 f"{s_err:.3e} ({s_worst:.2f} x limit)")
             err, worst = max(err, s_err), max(worst, s_worst)
         else:
-            err, worst = _check(f"{name} [{label}]", name, got, want)
+            err, worst, at = _check(f"{name} [{label}]", name, got, want)
         ms = timer.ms(kern)
         plain_ms = timer.ms(plain)
         bms, by = bound_ms(n_bytes, flops, dtype)
@@ -669,11 +822,13 @@ def phase_kernels(device, timer: Timer) -> dict:
                    tol=BF16_TOL[name])
             lib_ms = timer.ms(lib)
         body = body_of(name, args)
-        if (name != "paged_decode" and body != "tensor-core"
+        if (name != "paged_decode" and dtype == torch.bfloat16
+                and body != "tensor-core"
                 and any(t in label for t in TENSOR_CORE_CASES)):
             raise AssertionError(f"{name} [{label}] ran body {body}")
         log(f"[kernel] {name} [{label}] body {body}: max_abs_err {err:.3e} "
-            f"({worst:.2f} x limit)  ms {ms:.4f}  plain_ms {plain_ms:.4f}  "
+            f"({worst:.2f} x limit at |want| {at:.3e})  ms {ms:.4f}  "
+            f"plain_ms {plain_ms:.4f}  "
             f"bound_ms {bms:.5f} ({by})  "
             f"library_ms {'null' if lib_ms is None else f'{lib_ms:.4f}'}")
         if main and dtype == torch.bfloat16:
@@ -832,12 +987,18 @@ def phase_model(cfg, device, *, seed=0, prompt_len=200, page=128,
 
 def phase_ssm_model(cfg, device, *, seed=0, length=384, split=256,
                     steps=8) -> None:
-    """mamba2 on the card against the CPU, a resume from a snapshot
-    against the uninterrupted forward, and the decode recurrence against
-    the chunked scan (the reference's
-    ``test_ssd_scan_equals_sequential_recurrence``, through the model)."""
+    """An SSM or hybrid model on the card against the CPU (logits, the
+    final SSM state and, for the hybrid, the shared block's K/V), a
+    resume from a snapshot against the uninterrupted forward, and the
+    decode recurrence from that snapshot against the chunked scan (the
+    reference's ``test_ssd_scan_equals_sequential_recurrence``, through
+    the model; the hybrid's shared block decodes over the dense cache)."""
     from repro_torch.models.model import Model
 
+    name = cfg.name
+    log(f"[model] {name}: {cfg.num_layers} layers, d {cfg.d_model}, state "
+        f"{cfg.ssm_state}, attention period {cfg.attn_layer_period}, "
+        f"{cfg.dtype}")
     gpu = Model(cfg, device=device).init(
         torch.Generator(device=device).manual_seed(seed))
     cpu = Model(cfg, device="cpu")
@@ -846,27 +1007,96 @@ def phase_ssm_model(cfg, device, *, seed=0, length=384, split=256,
     toks = torch.from_numpy(rng.integers(3, cfg.vocab_size, (2, length)))
     lg_g, st_g = gpu.forward(toks.to(device), collect_state=True)
     lg_c, st_c = cpu.forward(toks, collect_state=True)
-    _close("mamba2 forward", lg_g, lg_c)
-    _close("mamba2 forward final state", st_g["ssm"]["state"],
+    _close(f"{name} forward", lg_g, lg_c)
+    _close(f"{name} forward final state", st_g["ssm"]["state"],
            st_c["ssm"]["state"])
+    if "kv" in st_c:
+        for k in ("k", "v"):
+            _close(f"{name} forward shared-attention {k}", st_g["kv"][k],
+                   st_c["kv"][k])
 
     _, snap = gpu.forward(toks[:, :split].to(device), collect_state=True)
     lg_r, st_r = gpu.forward(toks[:, split:].to(device), q_offset=split,
                              prefix_state=snap, collect_state=True)
     same = "on the card"
-    _close(f"mamba2 resume from the snapshot at {split} vs uninterrupted",
+    _close(f"{name} resume from the snapshot at {split} vs uninterrupted",
            lg_r, lg_g[:, split:], same)
-    _close("mamba2 resumed final state vs uninterrupted",
+    _close(f"{name} resumed final state vs uninterrupted",
            st_r["ssm"]["state"], st_g["ssm"]["state"], same)
 
-    cache = gpu.init_cache(2)
+    cache = gpu.init_cache(2, length)
     cache["ssm"]["conv"].copy_(snap["ssm"]["conv"])
     cache["ssm"]["state"].copy_(snap["ssm"]["state"])
+    if "kv" in snap:
+        for k in ("k", "v"):
+            cache["kv"][k][:, :, :split] = snap["kv"][k]
+    pos = torch.full((2,), split, dtype=torch.int32, device=device)
     for i in range(steps):
         lg = gpu.decode_step(cache, toks[:, split + i: split + i + 1]
-                             .to(device))
-        _close(f"mamba2 decode_step {i} vs prefill logits", lg[:, 0],
+                             .to(device), pos + i)
+        _close(f"{name} decode_step {i} vs prefill logits", lg[:, 0],
                lg_g[:, split + i], same)
+
+
+def phase_ring_model(cfg, device, *, seed=0, prompt_len=180, window=200,
+                     steps=40) -> None:
+    """A copy of ``cfg`` with ``sliding_window=window`` decoding past its
+    ring's wrap, card against CPU: the prompt's ``forward`` state laid
+    into a ``window``-slot ring (``init_cache``), then ``steps``
+    ``decode_step``s, both devices fed the CPU's greedy tokens.  200
+    slots are one page of 200 tokens to the paged-decode kernel
+    (``attention._paged``), which must launch for every attention layer
+    of every step on the card."""
+    from repro_torch.kernels.paged_attention import paged_decode
+    from repro_torch.models.cache import cache_len, n_attn_layers
+    from repro_torch.models.model import Model
+
+    cfg = cfg.replace(sliding_window=window)
+    name = f"{cfg.name} ring {window}"
+    seq_len = prompt_len + steps
+    if cache_len(cfg, seq_len) != window or seq_len <= window:
+        raise AssertionError(f"{name}: the steps never wrap a {window}-slot "
+                             "ring")
+    gpu = Model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(seed))
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(3, cfg.vocab_size, (2, prompt_len)))
+    runs = []
+    for m, dev in ((gpu, device), (cpu, torch.device("cpu"))):
+        lg, st = m.forward(toks.to(dev), collect_state=True)
+        cache = m.init_cache(2, seq_len)
+        for part, arrays in st.items():
+            for k, t in arrays.items():
+                dst = cache[part][k]
+                (dst[:, :, :prompt_len] if part == "kv" else dst).copy_(t)
+        runs.append((m, dev, cache, lg))
+    _close(f"{name} forward", runs[0][3], runs[1][3])
+    nxt = torch.argmax(runs[1][3][:, -1], dim=-1).to(torch.int32)
+    pos = torch.full((2,), prompt_len, dtype=torch.int32)
+    worst = 0.0
+    before = paged_decode.launches
+    for i in range(steps):
+        out = [m.decode_step(cache, nxt[:, None].to(dev), pos.to(dev))[:, 0]
+               .float().cpu() for m, dev, cache, _ in runs]
+        err = (out[0] - out[1]).abs()
+        lim = MODEL_TOL["atol"] + MODEL_TOL["rtol"] * out[1].abs()
+        if not torch.isfinite(out[0]).all() or bool((err > lim).any()):
+            raise AssertionError(f"{name}: decode_step at position "
+                                 f"{prompt_len + i}, card vs CPU max abs err "
+                                 f"{err.max().item():.3e}")
+        worst = max(worst, err.max().item())
+        nxt = torch.argmax(out[1], dim=-1).to(torch.int32)
+        pos = pos + 1
+    launched = paged_decode.launches - before
+    if launched != steps * n_attn_layers(cfg):
+        raise AssertionError(f"{name}: paged_decode launched {launched} "
+                             f"times in {steps} steps")
+    log(f"[model] {name}: {steps} decode_steps over positions {prompt_len}-"
+        f"{prompt_len + steps - 1} (the ring wraps at {window}), card vs "
+        f"CPU max abs err {worst:.3e}; paged_decode launched {launched} "
+        f"times over one page of {window}")
 
 
 # ---------------------------------------------------------------------------
@@ -1189,25 +1419,44 @@ def wave_breakdown(model, device, *, rows=4, **kw) -> dict:
     return row
 
 
-def ssm_step_breakdown(model, device, *, batch=4) -> dict:
-    """mamba2's dense decode step at the serving batch (``time_step``)
-    over a cache of random states.  The step runs no hand-written kernel:
-    the single-token recurrence is plain PyTorch, as in the reference.
-    Runs after the main path's launch counts were read."""
+def ssm_step_breakdown(model, device, *, batch=4, length=384,
+                       max_seq_len=1024) -> dict:
+    """An SSM or hybrid model's dense decode step at the serving batch
+    (``time_step``) over a cache of random states, every row at position
+    ``length``.  mamba2's step runs no hand-written kernel: the
+    single-token recurrence is plain PyTorch, as in the reference.  The
+    hybrid's shared block decodes over its dense K/V cache through the
+    paged-decode kernel, whose share of the graph-replayed step is
+    printed (one launch per shared-block call, timed alone with a cold
+    L2).  Runs after the main path's launch counts were read."""
+    from repro_torch.models.attention import _paged
+    from repro_torch.models.cache import n_attn_layers
+
+    cfg = model.cfg
     gen = torch.Generator(device=device).manual_seed(1)
-    cache = model.init_cache(batch)
-    cache["ssm"]["conv"].normal_(generator=gen)
-    cache["ssm"]["state"].normal_(generator=gen)
-    toks = torch.randint(3, model.cfg.vocab_size, (batch, 1), device=device,
+    cache = model.init_cache(batch, max_seq_len)
+    for part in cache.values():
+        for t in part.values():
+            t.normal_(generator=gen)
+    toks = torch.randint(3, cfg.vocab_size, (batch, 1), device=device,
                          generator=gen, dtype=torch.int32)
-    row = dict(model=model.cfg.name, batch=batch,
-               **time_step(lambda: model.decode_step(cache, toks), device))
+    pos = torch.full((batch,), length, dtype=torch.int32, device=device)
+    row = dict(model=cfg.name, batch=batch, length=length, **time_step(
+        lambda: model.decode_step(cache, toks, pos), device))
+    if "kv" in cache:
+        k, v = cache["kv"]["k"][0], cache["kv"]["v"][0]
+        q = torch.randn(batch, cfg.num_heads, cfg.head_dim, device=device,
+                        generator=gen).to(k.dtype)
+        attn_ms = Timer(device).ms(lambda: _paged(q, k, v, pos + 1))
+        row.update(paged_decode_ms=attn_ms,
+                   attention_share_of_graph_step=n_attn_layers(cfg) * attn_ms
+                   / row["graph_step_ms"])
     log(f"[step] {json.dumps(row)}")
     return row
 
 
 def ssm_prefill(model, device, *, length=384):
-    """One mamba2 request's prefill: ``Model.forward`` over ``length``
+    """One SSM or hybrid request's prefill: ``Model.forward`` over ``length``
     tokens with the state collected, as ``DenseRuntime._prefill_one``
     calls it, and the SSD scan's call at the prefill's shape (the kernel
     case's inputs).  Returns both, ready to time, and the scan's chunk."""
@@ -1233,8 +1482,10 @@ def ssm_prefill(model, device, *, length=384):
 def ssm_prefill_breakdown(model, device, *, length=384) -> dict:
     """``ssm_prefill``: its eager host wall time, the forward replayed
     from a CUDA graph, and the SSD scan's share of the replay (one launch
-    per layer, timed alone at the prefill's shape with a cold L2).  Runs
-    after the main path's launch counts were read."""
+    per layer, timed alone at the prefill's shape with a cold L2); for
+    the hybrid also the dense prefill's share (one launch per
+    shared-block call).  Runs after the main path's launch counts were
+    read."""
     from repro_torch.kernels.ssd_scan import ssd_body
     from repro_torch.models.layers import torch_dtype
 
@@ -1247,8 +1498,9 @@ def ssm_prefill_breakdown(model, device, *, length=384) -> dict:
         prefill()
         torch.cuda.synchronize()
         eager.append((time.perf_counter() - t0) * 1e3)
-    graph_ms = graph_replay_ms(prefill, "mamba2 prefill", iters=5)
-    scan_ms = Timer(device).ms(scan)
+    graph_ms = graph_replay_ms(prefill, f"{cfg.name} prefill", iters=5)
+    timer = Timer(device)
+    scan_ms = timer.ms(scan)
     row = dict(model=cfg.name, tokens=length, chunk=chunk,
                body=ssd_body(torch_dtype(cfg.dtype)),
                eager_prefill_ms=statistics.median(eager),
@@ -1256,6 +1508,19 @@ def ssm_prefill_breakdown(model, device, *, length=384) -> dict:
                ssd_chunk_scan_ms=scan_ms,
                ssd_chunk_scan_share_of_graph_prefill=(
                    cfg.num_layers * scan_ms / graph_ms))
+    if cfg.arch_type == "hybrid":
+        # the shared block's dense prefill, one launch per call
+        from repro_torch.models.cache import n_attn_layers
+
+        gen = torch.Generator(device=device).manual_seed(4)
+        args, _, _ = flash_case(gen, torch_dtype(cfg.dtype), device, b=1,
+                                sq=length, skv=length, off=0,
+                                h=cfg.num_heads, hkv=cfg.num_kv_heads,
+                                d=cfg.head_dim, dv=cfg.head_dim)
+        k4_ms = timer.ms(run_flash(args)[0])
+        row.update(flash_prefill_ms=k4_ms,
+                   flash_prefill_share_of_graph_prefill=(
+                       n_attn_layers(cfg) * k4_ms / graph_ms))
     log(f"[prefill] {json.dumps(row)}")
     return row
 
@@ -1547,6 +1812,13 @@ def resume_drift(model, eng, kvc, *, n_requests, max_new) -> dict:
     return row
 
 
+def _first_diff(got: list, want: list) -> list:
+    """Per stream pair, the index of the first token that differs (None
+    where one stream is a prefix of the other)."""
+    return [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+            for a, b in zip(got, want)]
+
+
 def warm_vs_cold(name: str, warm: dict, cold: dict, **extra) -> dict:
     out = dict(model=name, **extra)
     for k in ("ttft_p50_s", "ttft_wave1_p50_s", "itl_p50_s",
@@ -1601,9 +1873,8 @@ def phase_fabric(tiny, mamba, device, *, n_requests=8, max_new=32,
         same = sum(a.token_ids == b.token_ids for a, b in zip(res, cold_res))
         cold_same = sum(a.token_ids == b.token_ids
                         for a, b in zip(again, cold_res))
-        first_diff = [next((i for i, (x, y) in enumerate(
-            zip(a.token_ids, b.token_ids)) if x != y), None)
-            for a, b in zip(res, cold_res)]
+        first_diff = _first_diff([r.token_ids for r in res],
+                                 [r.token_ids for r in cold_res])
         log(f"[fabric] {name}: {same}/{len(res)} warm greedy streams equal "
             f"the kvc=None streams (first differing token {first_diff}); "
             f"{cold_same}/{len(res)} of a second kvc=None pass do")
@@ -2238,6 +2509,128 @@ def phase_families(device, *, n_requests=8, max_new=32, max_seq_len=1024,
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the hybrid, zamba2-1.2b, through the dense runtime
+# ---------------------------------------------------------------------------
+
+def ring_pass(model, device, cold_res, *, window, n_requests, max_new,
+              **kw) -> dict:
+    """The same weights with ``sliding_window=window``: every sequence
+    decodes over a ``window``-slot ring and runs past its wrap.  Each
+    stream must equal the cold one up to the token that first comes from
+    a position at or past ``window`` (a token ``t`` of an ``n``-token
+    prompt comes from position ``n - 1 + t``).  Returns the launch
+    counts of the pass."""
+    from repro_torch.models.cache import cache_len
+    from repro_torch.models.model import Model
+    from repro_torch.serving import Engine
+
+    cfg = model.cfg.replace(sliding_window=window)
+    ring = Model(cfg, device=device)
+    ring.load_state_dict(model.state_dict())
+    if cache_len(cfg, kw["max_seq_len"]) != window:
+        raise AssertionError(f"{cfg.name}: no {window}-slot ring")
+    eng = Engine(ring, device=device, **kw)
+    (row, res), counts = counted(lambda: run_pass(
+        eng, f"{cfg.name} ring {window}", tag="hybrid",
+        n_requests=n_requests, max_new=max_new))
+    _require_launched(counts, ("paged_decode",))
+    checked = []
+    for r, c in zip(res, cold_res):
+        n = r.prompt_tokens
+        if n + len(r.token_ids) - 2 < window:
+            raise AssertionError(f"{cfg.name} ring: a {n}-token request "
+                                 "never decoded past the ring's wrap")
+        k = min(len(c.token_ids), window + 1 - n)
+        if r.token_ids[:k] != c.token_ids[:k]:
+            raise AssertionError(
+                f"{cfg.name} ring: a {n}-token stream parts from the cold "
+                f"one before position {window} (first differing token "
+                f"{_first_diff([r.token_ids[:k]], [c.token_ids[:k]])})")
+        checked.append(k)
+    after = _first_diff([r.token_ids[k:] for r, k in zip(res, checked)],
+                        [c.token_ids[k:] for c, k in zip(cold_res, checked)])
+    log(f"[hybrid] ring {window}: {len(res)}/{len(res)} streams wrap and "
+        f"equal the cold streams over their first {checked} tokens (from "
+        f"positions < {window}); past the wrap the first differing token "
+        f"is {after} tokens later; launches {counts}")
+    del eng, ring
+    return counts
+
+
+def phase_hybrid(device, *, n_requests=8, max_new=32, max_seq_len=1024,
+                 max_batch=4, block_size=128, prefix=256,
+                 window=384) -> dict:
+    """Full zamba2-1.2b (38 SSD layers, the shared attention block after
+    every 6th, bf16, seeded random weights) behind ``Engine``, which
+    serves it through the dense runtime: cold; twice through
+    ``Engine(kvc=...)`` on the paper's 19x5 fabric (the warm pass must
+    restore the 256-token prefix of every request, every stored block
+    must equal a fresh ``kvc_fn``, and the warm streams must equal the
+    cold ones); a ring pass (``ring_pass``); then one decode step's and
+    one 384-token prefill's breakdown.  Returns the launch counts of the
+    cold, warm and ring passes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.cache import n_attn_layers
+    from repro_torch.serving import Engine
+
+    cfg = get_config("zamba2-1.2b")
+    model = _build_model(cfg, device, 0)
+    name = cfg.name
+    path = ("ssd_chunk_scan", "flash_prefill", "paged_decode")
+    common = dict(n_requests=n_requests, max_new=max_new)
+    kw = dict(block_size=block_size, max_seq_len=max_seq_len,
+              max_batch=max_batch, device=device)
+    log(f"[hybrid] {name}: state {cfg.ssm_state}, {n_attn_layers(cfg)} "
+        f"shared-attention calls (period {cfg.attn_layer_period}), "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}")
+    serve_mode(model, f"{name} warm-up", **{**common, "n_requests": 2},
+               **kw)
+    total = dict.fromkeys(KERNELS, 0)
+
+    cold_eng = Engine(model, **kw)
+    if cold_eng.paged:
+        raise AssertionError(f"{name}: a hybrid engine took the paged path")
+    (cold, cold_res), counts = counted(lambda: run_pass(
+        cold_eng, f"{name} kvc=None", tag="hybrid", **common))
+    log(f"[hybrid] {name} kvc=None launches: {counts}")
+    _require_launched(counts, path)
+    add_counts(total, counts)
+    del cold_eng
+
+    kvc = paper_kvc()
+    row, res, eng, counts = fill_and_hit(model, name, kvc, **common, **kw)
+    log(f"[hybrid] {name} warm-pass launches: {counts}")
+    fabric_report(name, kvc)
+    _require_warm(name, row, res, cold, counts, path, prefix)
+    add_counts(total, counts)
+    want = [r.token_ids for r in cold_res]
+    got = [r.token_ids for r in res]
+    if got != want:
+        raise AssertionError(
+            f"{name}: {sum(a == b for a, b in zip(got, want))}/{len(want)} "
+            f"warm greedy streams equal the cold ones (first differing "
+            f"token {_first_diff(got, want)})")
+    log(f"[hybrid] {name}: {len(got)}/{len(want)} warm greedy streams equal "
+        "the kvc=None streams")
+    log(f"[hybrid] {json.dumps(warm_vs_cold(name, row, cold))}")
+    check_fabric_bytes(name, eng, kvc, **common)
+    resume_drift(model, eng, kvc, **common)
+    del eng
+
+    add_counts(total, ring_pass(model, device, cold_res, window=window,
+                                n_requests=n_requests,
+                                max_new=max_new + 8,
+                                **{k: v for k, v in kw.items()
+                                   if k != "device"}))
+    _require_launched(total, path)
+    ssm_step_breakdown(model, device, batch=max_batch, max_seq_len=max_seq_len)
+    ssm_prefill_breakdown(model, device)
+    del model
+    log(f"[hybrid] main-path launches: {total}")
+    return total
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2265,6 +2658,17 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_model(tiny.replace(num_layers=2, dtype="float32"), device)
     phase_ssm_model(mamba.replace(num_layers=2, dtype="float32"), device)
+    # zamba2's widths at one attention period: 6 SSD layers, the shared
+    # block, a 1-layer tail
+    phase_ssm_model(get_config("zamba2-1.2b").replace(num_layers=7,
+                                                      dtype="float32"),
+                    device)
+    # the windowed decode past the ring's wrap: the hybrid's shared block
+    # and a GQA model, each over a 200-slot ring
+    phase_ring_model(get_config("zamba2-1.2b").replace(num_layers=7,
+                                                       dtype="float32"),
+                     device)
+    phase_ring_model(tiny.replace(num_layers=2, dtype="float32"), device)
     # the other paged families at full width: head_dim 160 with LayerNorm
     # and partial rotary, and 40 experts top-8 (routes checked per layer)
     for fam in ("stablelm-12b", "granite-moe-3b-a800m"):
@@ -2290,8 +2694,13 @@ def main() -> int:
     t0 = time.perf_counter()
     family_counts = phase_families(device)
     log(f"[phase] families {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hybrid_counts = phase_hybrid(device)
+    log(f"[phase] hybrid {time.perf_counter() - t0:.1f} s")
     # launches over every phase's main-path runs, each counted from 0
-    for phase in (*fabric_counts.values(), cluster_counts, family_counts):
+    for phase in (*fabric_counts.values(), cluster_counts, family_counts,
+                  hybrid_counts):
         for k in KERNELS:
             counts[k] += phase[k]
 

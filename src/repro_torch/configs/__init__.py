@@ -3,9 +3,10 @@
 The port's own copy of ``repro/configs/__init__.py``'s ``get_config`` and
 ``smoke_config``.  The registry holds the paper's own model,
 ``skymemory-tinyllama``, the dense GQA, MoE and VLM families the paged
-engine serves, and the attention-free ``mamba2-1.3b``; the reference's
-MLA, hybrid and encoder-decoder architectures arrive with the families
-that serve them (see ROADMAP.md).
+engine serves, and the attention-free ``mamba2-1.3b`` and the hybrid
+``zamba2-1.2b`` the dense runtime serves; the reference's MLA and
+encoder-decoder architectures arrive with the families that serve them
+(see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from repro_torch.models.config import ModelConfig
 
 ARCH_IDS = [
     "llava-next-34b",        # VLM: patch embeddings before the tokens
+    "zamba2-1.2b",           # hybrid: SSD + a shared attention block
     "nemotron-4-340b",       # head_dim 192, squared ReLU, LayerNorm
     "yi-9b",
     "internlm2-1.8b",

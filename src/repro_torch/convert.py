@@ -1,12 +1,13 @@
 """Load the reference's parameter tree into the port's ``Model``.
 
 ``params_from_numpy`` takes the pytree ``repro.models.model.Model.init``
-returns (dense, MoE, VLM or SSM), already mapped to numpy arrays by the
+returns (dense, MoE, VLM, SSM or hybrid), already mapped to numpy arrays by the
 caller (for instance ``jax.tree.map(np.asarray, params)``), so this
 module needs no JAX.  The reference stacks the layers of
 ``params["blocks"]`` along a leading axis (``repro/models/model.py:514``);
-they are unstacked into ``Model.blocks``.  Weight layouts are the same
-(``[in, out]``).
+they are unstacked into ``Model.blocks``.  The hybrid's unstacked
+``params["shared_attn"]`` fills ``Model.shared_attn``.  Weight layouts
+are the same (``[in, out]``).
 """
 from __future__ import annotations
 
@@ -35,19 +36,23 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> Model:
             raise ValueError(f"shape {tuple(t.shape)} != {tuple(param.shape)}")
         param.copy_(t)
 
+    def node(subtree: dict, name: str):
+        for key in name.split("."):
+            subtree = subtree[key]
+        return subtree
+
     put(model.embed.tok, tree["embed"]["tok"])
     if not cfg.tie_embeddings:
         put(model.embed.unembed, tree["embed"]["unembed"])
-    blocks = tree["blocks"]
     for l, blk in enumerate(model.blocks):
         # a block's parameters are named as the reference's subtrees:
         # norm1/attn/norm2/mlp (dense, VLM), norm1/attn/norm2/moe with
-        # its nested ``shared`` (MoE), or norm1/ssd (SSM)
+        # its nested ``shared`` (MoE), or norm1/ssd (SSM, hybrid)
         for name, param in blk.named_parameters():
-            node = blocks
-            for key in name.split("."):
-                node = node[key]
-            put(param, node[l])
+            put(param, node(tree["blocks"], name)[l])
+    if model.shared_attn is not None:
+        for name, param in model.shared_attn.named_parameters():
+            put(param, node(tree["shared_attn"], name))
     for name, param in model.final_norm.named_parameters():
         put(param, tree["final_norm"][name])
     return model

@@ -1,10 +1,12 @@
-"""GQA attention: dense prefill, paged chunked prefill and paged decode,
-ported from ``repro/models/attention.py``.
+"""GQA attention: dense prefill, paged chunked prefill, paged decode and
+decode over a dense per-sequence cache, ported from
+``repro/models/attention.py``.
 
 The paged functions update the per-layer pool views ``k_pool`` /
-``v_pool`` **in place** (the reference returned new pools and relied on
-XLA donation).  A per-layer view ``pool[l]`` is contiguous, and reaches
-the kernels without a copy.
+``v_pool``, and ``attention_decode`` the per-layer cache views
+``k_cache`` / ``v_cache``, **in place** (the reference returned new
+arrays and relied on XLA donation).  A per-layer view ``pool[l]`` is
+contiguous, and reaches the kernels without a copy.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ from repro_torch.models.cache import dequant_kvc, quant_kvc
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init_, torch_dtype, weight
 from repro_torch.models.rope import apply_rope
+
+PAGE_SIZE = 128  # KV-cache page (= the paper's 128-token block)
 
 
 class Attention(nn.Module):
@@ -184,3 +188,61 @@ def attention_decode_paged(p: Attention, x, cfg: ModelConfig, *, k_pool,
         out = ops.paged_attention(qd, k_read, v_read, pos + 1,
                                   block_tables=block_tables)
     return out.reshape(b, 1, h * hd) @ p.wo
+
+
+def attention_decode(p: Attention, x, cfg: ModelConfig, *, k_cache, v_cache,
+                     pos, sliding_window: int | None = None):
+    """One-token decode over a dense per-sequence cache; ``x`` [B, 1,
+    d_model], ``k_cache``/``v_cache`` [B, S, Hkv, hd] (one layer, updated
+    in place), ``pos`` [B] int32 tokens already cached per sequence.
+    Returns the attention output [B, 1, d_model].
+
+    RoPE is applied at the absolute position ``pos`` before the write.
+    With ``sliding_window`` the cache is a ring of ``S`` slots: the new
+    K/V lands in slot ``pos % S`` and attention reads
+    ``min(pos + 1, S)`` slots, so relative phases stay right after the
+    ring wraps.  Without one, a row at ``pos >= S`` writes nothing (the
+    reference's one-hot matches no slot) and reads all ``S``.
+
+    The new row is written by index (one row per sequence) where the
+    reference selects it with a one-hot ``where`` over the whole cache:
+    the same values without a pass over all ``S`` slots per layer and
+    step."""
+    b = x.shape[0]
+    h, hd = cfg.num_heads, cfg.head_dim
+    s_cache = k_cache.shape[1]
+    q, k_new, v_new = _project_qkv(p, x, cfg)
+    positions = pos[:, None]
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
+    k_new = apply_rope(k_new, positions, cfg.rope_theta, cfg.rotary_pct)
+
+    slot = pos % s_cache if sliding_window else pos
+    keep = (slot < s_cache)[:, None, None]
+    rows = torch.arange(b, device=x.device)
+    slot = torch.clamp(slot, max=s_cache - 1).long()
+    int8_kvc = k_cache.dtype == torch.int8
+    if int8_kvc:
+        k_new, v_new = quant_kvc(k_new), quant_kvc(v_new)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        cache[rows, slot] = torch.where(keep, new[:, 0].to(cache.dtype),
+                                        cache[rows, slot])
+    n_valid = torch.clamp(pos + 1, max=s_cache) if sliding_window else pos + 1
+    if int8_kvc:
+        k_read, v_read = (dequant_kvc(k_cache, x.dtype),
+                          dequant_kvc(v_cache, x.dtype))
+    else:
+        k_read, v_read = k_cache, v_cache
+    out = _paged(q[:, 0].contiguous(), k_read, v_read,
+                 n_valid.to(torch.int32))
+    return out.reshape(b, 1, h * hd) @ p.wo
+
+
+def _paged(q, k_cache, v_cache, lengths):
+    """View the contiguous cache ``[B, S, Hkv, hd]`` as pages of
+    ``PAGE_SIZE`` tokens (one page of ``S`` when that does not divide
+    ``S``) and run the paged-decode kernel."""
+    b, s, hkv, hd = k_cache.shape
+    page = PAGE_SIZE if s % PAGE_SIZE == 0 else s
+    kp = k_cache.reshape(b, s // page, page, hkv, hd)
+    vp = v_cache.reshape(b, s // page, page, hkv, v_cache.shape[-1])
+    return ops.paged_attention(q, kp, vp, lengths)

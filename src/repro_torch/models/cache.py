@@ -1,6 +1,8 @@
 """Decode caches, ported from ``repro/models/cache.py``: the serving
 engine's device-resident K/V page pool (dense-attention families) and the
-fixed-size state of the SSM family (``init_cache``).
+dense per-sequence caches of the families ``DenseRuntime`` serves
+(``init_cache``: the SSM state, the hybrid's state and shared-attention
+K/V, and the K/V ring of a sliding-window GQA model).
 
 ``PagedKVCache`` holds ``k_pool`` / ``v_pool`` of shape
 ``[layers, num_pages, page_size, kv_heads, head_dim]`` on the engine's
@@ -47,24 +49,57 @@ def supports_paged_decode(cfg: ModelConfig) -> bool:
     )
 
 
-def init_cache(cfg: ModelConfig, batch: int, *, device) -> dict:
-    """The dense decode cache of the SSM family: ``{"ssm": {"conv":
-    [L, B, K-1, d_inner + 2 G N] in the model dtype, "state":
-    [L, B, H, P, N] f32}}``, zeros.  Its size does not grow with the
-    sequence.  The other non-paged families are not ported yet."""
-    if cfg.arch_type != "ssm":
+def n_attn_layers(cfg: ModelConfig) -> int:
+    return sum(1 for i in range(cfg.num_layers) if cfg.is_attn_layer(i))
+
+
+def cache_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Ring-buffer length: the sliding window if configured, else seq_len."""
+    if cfg.sliding_window and cfg.sliding_window < seq_len:
+        return cfg.sliding_window
+    return seq_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int | None = None, *,
+               device) -> dict:
+    """The dense decode cache of ``batch`` sequences, zeros:
+
+    * SSM: ``{"ssm": {"conv": [L, B, K-1, d_inner + 2 G N]`` in the
+      model dtype, ``"state": [L, B, H, P, N]`` f32``}}``, whose size
+      does not grow with the sequence (``seq_len`` is not needed);
+    * hybrid: the same, and ``"kv": {"k", "v"}`` of the shared attention
+      block's ``n_attn_layers`` invocations;
+    * the GQA families: ``"kv"`` for every layer.
+
+    ``kv`` arrays are ``[n, B, cache_len(cfg, seq_len), Hkv, hd]`` in
+    ``kvc_dtype`` or the model dtype: a ring of ``sliding_window`` slots
+    when the window is shorter than ``seq_len``.  MLA latents and
+    encoder-decoder cross K/V are not ported yet."""
+    if cfg.use_mla or cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: only the SSM family has a dense decode cache in "
-            "the port (ROADMAP.md queue 1)")
-    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
-    la = cfg.num_layers
-    return {"ssm": {
-        "conv": torch.zeros((la, batch, cfg.ssm_conv - 1, conv_dim),
-                            dtype=torch_dtype(cfg.dtype), device=device),
-        "state": torch.zeros((la, batch, cfg.ssm_heads, cfg.ssm_head_dim,
-                              cfg.ssm_state), dtype=torch.float32,
-                             device=device),
-    }}
+            f"{cfg.name}: the MLA and encoder-decoder decode caches are not "
+            "ported yet (ROADMAP.md queue 1)")
+    cache: dict = {}
+    if cfg.arch_type in ("ssm", "hybrid"):
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        la = cfg.num_layers
+        cache["ssm"] = {
+            "conv": torch.zeros((la, batch, cfg.ssm_conv - 1, conv_dim),
+                                dtype=torch_dtype(cfg.dtype), device=device),
+            "state": torch.zeros((la, batch, cfg.ssm_heads,
+                                  cfg.ssm_head_dim, cfg.ssm_state),
+                                 dtype=torch.float32, device=device),
+        }
+    if cfg.arch_type != "ssm":
+        if seq_len is None:
+            raise ValueError(f"{cfg.name}: a K/V cache needs seq_len")
+        n = n_attn_layers(cfg)
+        shape = (n, batch, cache_len(cfg, seq_len), cfg.num_kv_heads,
+                 cfg.head_dim)
+        dt = torch_dtype(cfg.kvc_dtype or cfg.dtype)
+        cache["kv"] = {"k": torch.zeros(shape, dtype=dt, device=device),
+                       "v": torch.zeros(shape, dtype=dt, device=device)}
+    return cache
 
 
 class PagedKVCache:

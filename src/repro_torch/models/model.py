@@ -1,17 +1,21 @@
 """The model, ported from ``repro/models/model.py``: the GQA decoder
-(dense, MoE, and the VLM backbone) and the attention-free SSM (Mamba-2)
-stack.
+(dense, MoE, and the VLM backbone, with or without a sliding window),
+the attention-free SSM (Mamba-2) stack, and the hybrid (zamba2: SSM
+layers with one shared attention block).
 
 ``Model`` is an ``nn.Module`` holding its weights (``embed``, an
-``nn.ModuleList`` of ``blocks``, ``final_norm``) on one device.  The
-reference's ``lax.scan`` over stacked layers is a Python loop over
-``self.blocks``.  A block's feed-forward is its ``mlp`` or, when
+``nn.ModuleList`` of ``blocks``, ``final_norm``, and the hybrid's
+``shared_attn``) on one device.  The reference's ``lax.scan`` over
+stacked layers, and its segmented scans of the hybrid, are a Python loop
+over ``self.blocks``: the hybrid runs its shared block after every layer
+``l`` with ``cfg.is_attn_layer(l)``, which is the reference's period
+segmentation.  A block's feed-forward is its ``mlp`` or, when
 ``cfg.num_experts``, its ``moe`` (every layer: ``first_k_dense`` applies
-only with MLA in the reference).  The GQA families serve through the
-paged steps, which write each layer's K/V into ``k_pool[l]`` /
-``v_pool[l]`` in place; the SSM family through ``decode_step`` over the
-fixed-size dense cache of ``init_cache``.  Any other family raises
-``NotImplementedError``.
+only with MLA in the reference).  The GQA families without a window
+serve through the paged steps, which write each layer's K/V into
+``k_pool[l]`` / ``v_pool[l]`` in place; the SSM and hybrid families and
+a windowed GQA model through ``decode_step`` over the dense cache of
+``init_cache``.  MLA and encoder-decoder raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (
     Attention,
+    attention_decode,
     attention_decode_paged,
     attention_prefill,
     attention_prefill_paged,
@@ -37,12 +42,12 @@ from repro_torch.models.ssd import SSD, ssd_decode, ssd_prefill
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if (cfg.arch_type not in ("dense", "moe", "vlm", "ssm")
-            or cfg.use_mla or cfg.is_encoder_decoder or cfg.sliding_window):
+    if (cfg.arch_type not in ("dense", "moe", "vlm", "ssm", "hybrid")
+            or cfg.use_mla or cfg.is_encoder_decoder):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA, MoE, VLM and SSM families "
-            "are ported; the MLA, hybrid, encoder-decoder and "
-            "sliding-window families wait for ROADMAP.md queue 1")
+            f"{cfg.name}: only the dense GQA, MoE, VLM, SSM and hybrid "
+            "families are ported; the MLA and encoder-decoder families "
+            "wait for ROADMAP.md queue 1")
 
 
 class Block(nn.Module):
@@ -73,10 +78,21 @@ class SSMBlock(nn.Module):
         self.ssd = SSD(cfg, device)
 
 
+class SharedAttn(nn.Module):
+    """The hybrid's shared attention block (``params["shared_attn"]``):
+    a norm and attention, no feed-forward, one set of weights reused at
+    every attention layer of the stack."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.norm = Norm(cfg, device)
+        self.attn = Attention(cfg, device)
+
+
 class Model(nn.Module):
-    """Dense GQA decoder or SSM stack on ``device`` (default ``"cuda"``,
-    which raises when no CUDA device is present).  Weights are
-    uninitialised until ``init`` or
+    """Dense GQA decoder, SSM stack or hybrid on ``device`` (default
+    ``"cuda"``, which raises when no CUDA device is present).  Weights
+    are uninitialised until ``init`` or
     ``repro_torch.convert.params_from_numpy`` fills them."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda"):
@@ -84,11 +100,14 @@ class Model(nn.Module):
         _check_family(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.is_ssm = cfg.arch_type == "ssm"
+        # the SSM and hybrid stacks are SSD layers
+        self.is_ssm = cfg.arch_type in ("ssm", "hybrid")
         self.embed = Embed(cfg, self.device)
         block = SSMBlock if self.is_ssm else Block
         self.blocks = nn.ModuleList(
             block(cfg, self.device) for _ in range(cfg.num_layers))
+        self.shared_attn = (SharedAttn(cfg, self.device)
+                            if cfg.arch_type == "hybrid" else None)
         self.final_norm = Norm(cfg, self.device)
 
     @torch.no_grad()
@@ -104,6 +123,8 @@ class Model(nn.Module):
             else:
                 blk.attn.init(generator)
                 (blk.moe if blk.is_moe else blk.mlp).init(generator)
+        if self.shared_attn is not None:
+            self.shared_attn.attn.init(generator)
         return self
 
     # ------------------------------------------------------------------
@@ -126,13 +147,16 @@ class Model(nn.Module):
         For the SSM family ``state`` is ``{"ssm": {"conv": [L, B, K-1,
         C], "state": [L, B, H, P, N]}}`` and ``prefix_state`` a snapshot
         of that layout, which the scan resumes from (``q_offset`` is then
-        only the snapshot's position)."""
+        only the snapshot's position).  The hybrid's ``state`` holds both:
+        ``ssm`` for every layer and ``kv`` [n_attn, B, S', Hkv, hd] for
+        the shared block's invocations."""
         cfg = self.cfg
         x = self.embed.embed(tokens)
         if cfg.arch_type == "vlm" and image_embeds is not None:
             x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
         if self.is_ssm:
-            return self._ssm_forward(x, collect_state, prefix_state)
+            return self._ssm_forward(x, q_offset, collect_state,
+                                     prefix_state)
         ks, vs = [], []
         for l, blk in enumerate(self.blocks):
             pref = None
@@ -151,48 +175,82 @@ class Model(nn.Module):
             state = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
         return logits, state
 
-    def _ssm_forward(self, x, collect_state, prefix_state):
-        convs, states = [], []
+    def _ssm_forward(self, x, q_offset, collect_state, prefix_state):
+        cfg = self.cfg
+        convs, states, ks, vs = [], [], [], []
+        pre_kv = prefix_state.get("kv") if prefix_state is not None else None
+        j = 0                                   # shared-attention call
         for l, blk in enumerate(self.blocks):
             pref = None
             if prefix_state is not None:
                 pref = {"conv": prefix_state["ssm"]["conv"][l],
                         "state": prefix_state["ssm"]["state"][l]}
-            y, st = ssd_prefill(blk.ssd, blk.norm1(x), self.cfg, state=pref)
+            y, st = ssd_prefill(blk.ssd, blk.norm1(x), cfg, state=pref)
             x = x + y
             if collect_state:
                 convs.append(st["conv"])
                 states.append(st["state"])
+            if self.shared_attn is not None and cfg.is_attn_layer(l):
+                sa = self.shared_attn
+                pref_kv = (None if pre_kv is None
+                           else (pre_kv["k"][j], pre_kv["v"][j]))
+                a, (k, v) = attention_prefill(
+                    sa.attn, sa.norm(x), cfg, q_offset=q_offset,
+                    kv_cache=pref_kv)
+                x = x + a
+                if collect_state:
+                    ks.append(k)
+                    vs.append(v)
+                j += 1
         logits = self.embed.logits(self.final_norm(x))
         state = None
         if collect_state:
             state = {"ssm": {"conv": torch.stack(convs),
                              "state": torch.stack(states)}}
+            if ks:
+                state["kv"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
         return logits, state
 
     # ------------------------------------------------------------------
-    def init_cache(self, batch: int) -> dict:
-        """The SSM family's dense decode cache for ``batch`` sequences
-        (its size does not depend on the sequence length)."""
-        return init_cache(self.cfg, batch, device=self.device)
+    def init_cache(self, batch: int, seq_len: int | None = None) -> dict:
+        """The dense decode cache (``models/cache.py::init_cache``) for
+        ``batch`` sequences of up to ``seq_len`` tokens; the SSM family's
+        does not depend on the sequence length."""
+        return init_cache(self.cfg, batch, seq_len, device=self.device)
 
     @torch.no_grad()
-    def decode_step(self, cache: dict, tokens: torch.Tensor):
-        """One serve step of the SSM family: ``tokens`` [B, 1] after the
-        states in ``cache``, which is updated in place (the reference
-        returns a new cache).  Returns logits [B, 1, V]."""
-        if not self.is_ssm:
-            raise NotImplementedError(
-                f"{self.cfg.name}: dense families decode through "
-                "decode_step_paged")
-        conv, state = cache["ssm"]["conv"], cache["ssm"]["state"]
+    def decode_step(self, cache: dict, tokens: torch.Tensor, pos=None):
+        """One serve step over the dense ``cache``, which is updated in
+        place (the reference returns a new cache): ``tokens`` [B, 1] at
+        per-sequence positions ``pos`` [B] int32, the tokens each
+        sequence has cached.  The SSM family needs no ``pos``.  Returns
+        logits [B, 1, V]."""
+        cfg = self.cfg
+        swin = cfg.sliding_window or None
+        if pos is None and cfg.arch_type != "ssm":
+            raise ValueError(f"{cfg.name}: decode_step needs pos")
         x = self.embed.embed(tokens)
+        kv = cache.get("kv")
+        j = 0                                   # shared-attention call
         for l, blk in enumerate(self.blocks):
-            y, cv, st = ssd_decode(blk.ssd, blk.norm1(x), self.cfg,
-                                   conv_state=conv[l], ssm_state=state[l])
-            conv[l].copy_(cv)
-            state[l].copy_(st)
-            x = x + y
+            if self.is_ssm:
+                conv, state = cache["ssm"]["conv"][l], cache["ssm"]["state"][l]
+                y, cv, st = ssd_decode(blk.ssd, blk.norm1(x), cfg,
+                                       conv_state=conv, ssm_state=state)
+                conv.copy_(cv)
+                state.copy_(st)
+                x = x + y
+                if self.shared_attn is not None and cfg.is_attn_layer(l):
+                    sa = self.shared_attn
+                    x = x + attention_decode(
+                        sa.attn, sa.norm(x), cfg, k_cache=kv["k"][j],
+                        v_cache=kv["v"][j], pos=pos, sliding_window=swin)
+                    j += 1
+            else:
+                x = x + attention_decode(
+                    blk.attn, blk.norm1(x), cfg, k_cache=kv["k"][l],
+                    v_cache=kv["v"][l], pos=pos, sliding_window=swin)
+                x = x + blk.ffn(blk.norm2(x))
         return self.embed.logits(self.final_norm(x))
 
     # ------------------------------------------------------------------

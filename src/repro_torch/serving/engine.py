@@ -11,10 +11,10 @@ Per request: tokenize -> SkyMemory longest-prefix lookup (with ``kvc``
 or a ``manager``) -> fetched 128-token blocks drop straight into KV pages ->
 the uncached suffix prefills in page-aligned chunks that ride the decode
 step -> continuous-batching decode, with preemption-by-offload absorbing
-pool pressure.  A model without paged decode (the SSM family) is served
-by the executor's ``DenseRuntime`` instead: per-request prefill (resuming
-from a SkyMemory snapshot on a hit) and batched decode over a dense
-cache.
+pool pressure.  A model without paged decode (the SSM and hybrid
+families, and a GQA model with a sliding window) is served by the
+executor's ``DenseRuntime`` instead: per-request prefill (resuming from
+a SkyMemory snapshot on a hit) and batched decode over a dense cache.
 
 ``payload_codec`` (``"f32"``, ``"int8"``, ``"int4"``, optionally
 ``+delta``) chooses the bytes of every block payload the engine writes;
@@ -22,7 +22,7 @@ any payload decodes.  Besides the closed batch (``generate``) the engine
 streams: ``submit`` returns a ``Future`` that ``pump`` (inline) or the
 worker loop (``start`` / ``stop``, ``serving/worker.py``) resolves.  The
 MoE family always admits stop-the-world (``chunk_tokens`` is forced to 0).
-The non-paged families other than SSM are not ported (ROADMAP.md queue 1).
+The MLA and encoder-decoder families are not ported (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ from repro_torch.serving.worker import StreamWorker
 class Engine:
     """Continuous-batching engine over ``model`` on ``device``: paged for
     the GQA families (dense, MoE, VLM), the dense runtime for the SSM
-    family.
+    and hybrid families and for a GQA model with a sliding window.
 
     With ``kvc`` (a ``ConstellationKVC``, or a view of one) the engine
     builds its own ``KVCManager`` over the constellation and this

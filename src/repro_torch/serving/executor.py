@@ -18,6 +18,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.models.cache import quant_kvc
 from repro_torch.serving.request import (
     Seq,
     SeqState,
@@ -144,11 +145,12 @@ class PagedExecutor:
 
 class DenseRuntime:
     """Non-paged serving loop, ported from ``repro/serving/executor.py``
-    (the SSM family in this slice): each request prefills alone through
-    ``Model.forward`` (resuming from a SkyMemory snapshot on a hit), the
-    batch's states are stacked into one dense cache, and every decode
-    step samples all rows with the vectorized sampler and one host sync.
-    Shares the SkyMemory manager with the paged path, not the page pool."""
+    (the SSM and hybrid families, and GQA models with a sliding window):
+    each request prefills alone through ``Model.forward`` (resuming from
+    a SkyMemory snapshot on a hit), the batch's states are stacked into
+    one dense cache, and every decode step samples all rows with the
+    vectorized sampler and one host sync.  Shares the SkyMemory manager
+    with the paged path, not the page pool."""
 
     def __init__(self, model, tokenizer, adapter, manager, *,
                  max_seq_len: int, max_batch: int, write_back: bool,
@@ -209,13 +211,29 @@ class DenseRuntime:
         return s
 
     def _stack_dense_caches(self, seqs: list[Seq]) -> dict:
-        """Prefill -> decode handoff: the per-sequence SSM states are
-        copied into one batched cache."""
-        cache = self.model.init_cache(len(seqs))
+        """Prefill -> decode handoff: the per-sequence SSM states and the
+        K/V of each sequence's ``n`` prompt tokens (into slots ``[0, n)``)
+        are copied into one batched cache of ``max_seq_len`` tokens, or
+        of the sliding window's ring.  A prompt longer than the ring
+        cannot be stacked (nor can it in the reference)."""
+        cache = self.model.init_cache(len(seqs), self.max_seq_len)
         for i, s in enumerate(seqs):
-            st = s.dense_state["ssm"]
-            cache["ssm"]["conv"][:, i] = st["conv"][:, 0]
-            cache["ssm"]["state"][:, i] = st["state"][:, 0]
+            st = s.dense_state
+            if "ssm" in st:
+                cache["ssm"]["conv"][:, i] = st["ssm"]["conv"][:, 0]
+                cache["ssm"]["state"][:, i] = st["ssm"]["state"][:, 0]
+            if "kv" in st:
+                n = len(s.tokens)
+                ring = cache["kv"]["k"].shape[2]
+                if n > ring:
+                    raise ValueError(
+                        f"a {n}-token prompt does not fit the {ring}-slot "
+                        "K/V cache (the sliding window's ring)")
+                for key in ("k", "v"):
+                    dst, src = cache["kv"][key], st["kv"][key][:, 0, :n]
+                    if dst.dtype == torch.int8:
+                        src = quant_kvc(src)
+                    dst[:, i, :n] = src
             s.dense_state = None   # the per-request copy is no longer read
         return cache
 
@@ -228,6 +246,8 @@ class DenseRuntime:
         t_start = time.perf_counter()
         seqs = [self._prefill_one(r) for r in requests]
         cache = self._stack_dense_caches(seqs)
+        pos = torch.as_tensor([len(s.tokens) for s in seqs],
+                              dtype=torch.int32, device=self.device)
         # first token of each sequence from its prefill logits
         logits = torch.stack([s.last_logits for s in seqs])
         samplings = [s.request.sampling for s in seqs]
@@ -259,8 +279,9 @@ class DenseRuntime:
             self.stats.decoded_tokens += sum(0 if s.done else 1 for s in seqs)
             if all(s.done for s in seqs):
                 break
-            logits = self.model.decode_step(cache, nxt[:, None])[:, 0]
+            logits = self.model.decode_step(cache, nxt[:, None], pos)[:, 0]
             self.stats.decode_steps += 1
+            pos = pos + 1
         self.stats.decode_time_s += time.perf_counter() - t_dec
 
         out = []

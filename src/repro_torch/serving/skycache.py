@@ -1,12 +1,16 @@
 """Adapter between the model's decode state and SkyMemory KVC payloads,
-ported from ``repro/serving/skycache.py`` (dense and SSM families).
+ported from ``repro/serving/skycache.py`` (dense, SSM and hybrid
+families).
 
 * dense: the per-layer K/V covering the cached prefix, ``[k [L, T, Hkv,
   hd], v [L, T, Hkv, hd]]``, cumulative: one block's payload
   reconstructs the whole prefix;
 * SSM: the fixed-size snapshot at the block boundary, ``[conv [L, K-1,
   C], state [L, H, P, N]]``.  It is not token-sliceable: it is the state
-  after the block's last token.
+  after the block's last token;
+* hybrid: the SSM snapshot followed by the shared attention block's K/V
+  of the prefix, ``[conv, state, k [n_attn, T, Hkv, hd], v]``, always
+  cumulative (the snapshot half is not token-sliceable).
 
 ``kvc_fn`` plugs into a ``KVCManager``: it computes one block's payload
 by resuming from the previous block's payload through ``Model.forward``
@@ -46,9 +50,9 @@ class SkyKVCAdapter:
         self.device = model.device
         self.codec = PayloadCodec.parse(codec)
         # delta chains concatenate along the token axis, which only the
-        # dense cumulative K/V payload has; an SSM snapshot is not
-        # token-sliceable
-        self._delta_ok = self.cfg.arch_type != "ssm"
+        # dense cumulative K/V payload has; an SSM snapshot and the
+        # hybrid's snapshot half are not token-sliceable
+        self._delta_ok = self.cfg.arch_type not in ("ssm", "hybrid")
         self._executor = None    # lazy fetch-ahead worker (run_async)
 
     # -- codec-derived size model (the router's fallback price) -----------
@@ -56,9 +60,9 @@ class SkyKVCAdapter:
         """Encoded payload bytes one cached token costs under this
         adapter's codec -- the size model the router falls back to when a
         block has no registered ``payload_bytes``.  None for families
-        whose payload is not token-linear (SSM snapshots)."""
+        whose payload is not token-linear (SSM and hybrid snapshots)."""
         cfg = self.cfg
-        if cfg.arch_type == "ssm":
+        if cfg.arch_type in ("ssm", "hybrid"):
             return None
         values = 2 * cfg.num_kv_heads * cfg.head_dim * cfg.num_layers
         itemsize = torch_dtype(cfg.dtype).itemsize
@@ -73,39 +77,45 @@ class SkyKVCAdapter:
     def state_to_payload(self, state: dict, n_tokens: int, *,
                          past_len: int = 0,
                          prev_hash: bytes | None = None) -> bytes:
-        """Serialize the decode state (batch dim of 1, dropped): the K/V
-        of the first ``n_tokens`` positions, or the SSM snapshot (which
-        is the state after the last token ``forward`` saw).
+        """Serialize the decode state (batch dim of 1, dropped), in the
+        reference's order: the SSM snapshot (the state after the last
+        token ``forward`` saw), then the K/V of the first ``n_tokens``
+        positions.
 
         Under a ``+delta`` codec, a dense block that extends a chain
         (``past_len > 0`` with ``prev_hash``) serializes only its own
         ``[past_len:n_tokens]`` token slice behind a back-pointer -- the
         O(1)-byte Set; everything else stays cumulative."""
-        if "ssm" in state:
-            return self.codec.encode([state["ssm"]["conv"][:, 0],
-                                      state["ssm"]["state"][:, 0]])
         delta = (self.codec.delta and self._delta_ok
                  and past_len > 0 and prev_hash is not None)
         lo = past_len if delta else 0
-        inner = self.codec.encode([state["kv"]["k"][:, 0, lo:n_tokens],
-                                   state["kv"]["v"][:, 0, lo:n_tokens]])
+        arrs = []
+        if "ssm" in state:
+            arrs += [state["ssm"]["conv"][:, 0], state["ssm"]["state"][:, 0]]
+        if "kv" in state:
+            arrs += [state["kv"]["k"][:, 0, lo:n_tokens],
+                     state["kv"]["v"][:, 0, lo:n_tokens]]
+        inner = self.codec.encode(arrs)
         if delta:
             return make_delta_payload(inner, prev_hash, past_len)
         return inner
 
     def payload_to_state(self, payload: bytes) -> dict:
-        a, b = decode_payload_arrays(payload)
-        key, names = (("ssm", ("conv", "state")) if self.cfg.arch_type == "ssm"
-                      else ("kv", ("k", "v")))
-        return {key: {names[0]: self._tensor(a)[:, None],
-                      names[1]: self._tensor(b)[:, None]}}
+        arrs = [self._tensor(a)[:, None] for a in decode_payload_arrays(payload)]
+        state: dict = {}
+        if self.cfg.arch_type in ("ssm", "hybrid"):
+            state["ssm"] = {"conv": arrs[0], "state": arrs[1]}
+            arrs = arrs[2:]
+        if arrs:
+            state["kv"] = {"k": arrs[0], "v": arrs[1]}
+        return state
 
     def payload_to_pages(self, payload: bytes, n_tokens: int,
                          page_size: int):
         """Payload -> page-shaped K/V ``[layers, n_tokens/page, page, Hkv,
         hd]`` on the model's device, ready for ``PagedKVCache.write_pages``.
         ``n_tokens`` must be page-aligned."""
-        if self.cfg.arch_type == "ssm":
+        if self.cfg.arch_type in ("ssm", "hybrid"):
             raise ValueError(f"{self.cfg.name}: payload is not plain paged K/V")
         if n_tokens % page_size:
             raise ValueError("cached prefix must be page-aligned")

@@ -83,7 +83,8 @@ def granite():
 
 def test_registry_holds_the_new_configs():
     assert set(NEW) <= set(list_configs())
-    assert len(list_configs()) == 8
+    # the paper's TinyLlama, mamba2-1.3b and the hybrid zamba2-1.2b
+    assert len(list_configs()) == len(NEW) + 3
 
 
 @pytest.mark.parametrize("name", NEW[4:])

@@ -185,12 +185,16 @@ def test_other_families_raise_not_implemented():
 
     cfg = smoke_config(get_config("skymemory-tinyllama"))
     for kw in ({"use_mla": True},
-               {"arch_type": "hybrid", "attn_layer_period": 1},
-               {"is_encoder_decoder": True, "num_encoder_layers": 2},
-               {"sliding_window": 64}):
+               {"is_encoder_decoder": True, "num_encoder_layers": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Model(cfg.replace(**kw), device="cpu")
-    # the MoE and VLM families are served now
-    for name in ("granite-moe-3b-a800m", "llava-next-34b"):
+    # the MoE, VLM and hybrid families, and a sliding window, are served now
+    for name in ("granite-moe-3b-a800m", "llava-next-34b", "zamba2-1.2b"):
         Model(smoke_config(get_config(name)).replace(dtype="float32"),
               device="cpu")
+    windowed = Model(cfg.replace(sliding_window=64), device="cpu")
+    assert not windowed.supports_paged_decode
+    hybrid = Model(smoke_config(get_config("zamba2-1.2b")), device="cpu")
+    assert hybrid.shared_attn is not None and not hybrid.supports_paged_decode
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(smoke_config(get_config("zamba2-1.2b")))
