@@ -30,7 +30,13 @@ Phases (each raises on failure; nothing is caught):
    ring (3 pages), and over one page of 200 (a ring) and of 1000 tokens
    (caches whose length 128 does not divide), the cold prefill (S 369)
    and a warm suffix (Sq 113 over Skv 369 at q_offset 256; the bf16
-   prefills must run ``tensor-core``), and the SSD scan at state 64;
+   prefills must run ``tensor-core``), and the SSD scan at state 64.
+   deepseek-v3's MLA prefill (H = Hkv = 128, Dq 192, Dv 128): bf16 at
+   the longest cold prompt (S 369) and its warm suffix (Sq 113 over Skv
+   369 at q_offset 256), each on ``prefill_tc<192, 128>`` (must run
+   ``tensor-core``), the cold one also timed on the FMA body it ran
+   before that instance existed; f32 on a short S.  The library call
+   of an MLA case names the device kernels it ran;
 4. model: TinyLlama's widths at 2 layers, f32, seeded: ``forward``,
    ``prefill_chunk_paged`` and ``decode_step_paged`` logits on the card
    against the same on the CPU.  Then mamba2-1.3b's widths at 2 layers,
@@ -49,7 +55,13 @@ Phases (each raises on failure; nothing is caught):
    the state and the decode steps over the dense K/V cache.  Then that
    zamba2 and a 2-layer TinyLlama with ``sliding_window=200``: a
    180-token prompt and 40 decode steps past the 200-slot ring's wrap,
-   card against CPU;
+   card against CPU.  Last deepseek-v3's MLA at full width, 2 layers
+   (one dense, one MoE with its routed experts cut to 16, top-8 kept,
+   at a capacity factor of 2 so that no expert drops a token), f32:
+   ``forward`` logits (routes checked first, ``RouteCheck``) and the
+   collected latents against the CPU, a resume from the latent prefix
+   at token 256 against the uninterrupted forward, and 8 ``decode_step``s
+   against the CPU;
 5. serve: full TinyLlama (22 layers, bf16, seeded random weights) behind
    the paged ``Engine``: 8 requests with a shared 256-token prefix in
    three modes (chunked contiguous pool, stop-the-world admission, a
@@ -125,10 +137,25 @@ Phases (each raises on failure; nothing is caught):
    position at or past 384); then one decode step's breakdown (the
    paged-decode kernel's share) and one 384-token prefill replayed from
    a CUDA graph (the SSD scan's and the dense prefill's shares).  The
-   SSD scan, the dense prefill and the paged decode must launch.
+   SSD scan, the dense prefill and the paged decode must launch;
+10. mla (``[mla]`` lines): deepseek-v3-671b at its published widths,
+    cut to 4 layers (its 3 dense layers and one MoE layer of 256 experts
+    top-8 and one shared; bf16, seeded random weights; the
+    multi-token-prediction head is training-only and not built) behind
+    ``Engine``, which serves MLA through the dense runtime, on the same 8
+    requests: cold; twice through ``Engine(kvc=...)`` on the paper's 19x5
+    fabric (the warm pass must restore 256 tokens of every request, every
+    stored block must equal a fresh ``kvc_fn``, the warm prefill's last
+    logits must lie within the bf16 limit of a prefill over latents
+    computed on the card, and of the cold prefill's where the last token
+    keeps the same experts; the warm streams equal to the cold ones are
+    counted); then one decode step's breakdown against the bytes of the
+    weights it reads, and one 384-token prefill replayed from a CUDA
+    graph with the dense prefill's share.  The dense prefill must launch
+    on the tensor-core body in both passes.
 
 The ``kernels`` line counts each kernel's launches over the main-path
-runs of phases 5-9, each counted from 0 just before it.
+runs of phases 5-10, each counted from 0 just before it.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -430,13 +457,11 @@ def run_flash(args):
 
 
 def sdpa_flash(args):
-    """``scaled_dot_product_attention`` on a dense prefill's inputs, where
-    it computes the same function (Dq == Dv); else None.  An offset or a
-    window takes a boolean mask built outside the timed call.  A
-    yardstick only: the port never calls it."""
+    """``scaled_dot_product_attention`` on a dense prefill's inputs (it
+    takes a value head dim other than the query's, as MLA's prefill
+    needs).  An offset or a window takes a boolean mask built outside the
+    timed call.  A yardstick only: the port never calls it."""
     q, k, v, kw = args
-    if q.shape[-1] != v.shape[-1]:
-        return None
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if not (kw["q_offset"] or kw["sliding_window"]):
@@ -449,6 +474,45 @@ def sdpa_flash(args):
         mask &= kp > qp - kw["sliding_window"]
     return lambda: sdpa(qt, kt, vt, attn_mask=mask,
                         enable_gqa=True).transpose(1, 2)
+
+
+def device_kernels(fn) -> str:
+    """The device kernels one call of ``fn`` launches, by time, from a
+    ``torch.profiler`` trace: which backend a library call took."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return "; ".join(n for n, _, _ in _top_kernels(prof, 1, k=2)) or \
+        "not traced"
+
+
+def flash_fma(args):
+    """The dense prefill's FMA body on a bf16 case, through the C entry
+    point with ``tensor_cores`` 0 (the body bf16 MLA shapes ran before
+    the ``prefill_tc<192, 128>`` instance): the "before" of a
+    tensor-core case, timed beside it, never on a served path and not
+    counted as a launch."""
+    from repro_torch.kernels import _build
+
+    q, k, v, kw = args
+    b, sq, h, d = q.shape
+    _, skv, hkv, _ = k.shape
+    dv = v.shape[-1]
+    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
+    fn = _build.load("chunked_prefill").flash_prefill_bf16
+
+    def run():
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  b, sq, skv, h, hkv, d, dv, d ** -0.5, kw["q_offset"],
+                  int(kw["causal"]), int(kw["sliding_window"] or 0), 0,
+                  torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(code, "flash_prefill (fma body)")
+        return out
+    return run
 
 
 def sdpa_decode(args):
@@ -749,12 +813,38 @@ def kernel_cases(device) -> list:
              g, dt, device, offs=[128] * 4, valid=[256] * 4, c=256,
              pages_per_seq=3, h=96, hkv=8, d=192),
          run_prefill_paged))
+    # deepseek-v3's MLA prefill (H = Hkv = 128, Dq 128 + 64, Dv 128): the
+    # longest cold prompt of ``make_requests`` and its warm suffix over a
+    # restored 256-token prefix, on ``prefill_tc<192, 128>``; f32 on a
+    # short S (the FMA body)
+    mla = dict(h=128, hkv=128, d=192, dv=128)
+    cases += [
+        ("flash_prefill", MLA_COLD_CASE, torch.bfloat16, False,
+         lambda g, dt: flash_case(g, dt, device, b=1, sq=369, skv=369, off=0,
+                                  **mla),
+         run_flash),
+        ("flash_prefill", "bf16 deepseek MLA H128 Hkv128 Dq192 Dv128 B1 "
+         "Sq113 over Skv369 q_offset 256", torch.bfloat16, False,
+         lambda g, dt: flash_case(g, dt, device, b=1, sq=113, skv=369,
+                                  off=256, **mla),
+         run_flash),
+        ("flash_prefill", "f32 deepseek MLA H128 Hkv128 Dq192 Dv128 causal "
+         "B1 S96", torch.float32, False,
+         lambda g, dt: flash_case(g, dt, device, b=1, sq=96, skv=96, off=0,
+                                  **mla),
+         run_flash),
+    ]
     return cases
 
 
+MLA_COLD_CASE = "bf16 deepseek MLA H128 Hkv128 Dq192 Dv128 causal B1 S369"
 # these bf16 cases must run the tensor-core body of the prefills: the
-# other paged families' head shapes, and zamba2's rep-1 prefills
-TENSOR_CORE_CASES = ("D160", "D192", "zamba2")
+# other paged families' head shapes, zamba2's rep-1 prefills and
+# deepseek-v3's MLA prefills
+TENSOR_CORE_CASES = ("D160", "D192", "zamba2", "deepseek MLA")
+# these bf16 cases also time the FMA body on the same inputs (the
+# tensor-core instance's "before")
+FMA_BEFORE_CASES = (MLA_COLD_CASE,)
 YARDSTICKS = {"paged_decode": sdpa_decode, "flash_prefill": sdpa_flash}
 
 
@@ -821,6 +911,16 @@ def phase_kernels(device, timer: Timer) -> dict:
             _check(f"{name} [{label}] yardstick", name, lib(), want,
                    tol=BF16_TOL[name])
             lib_ms = timer.ms(lib)
+            if "MLA" in label:
+                log(f"[kernel] {name} [{label}]: library call ran "
+                    f"{device_kernels(lib)}")
+        if label in FMA_BEFORE_CASES:
+            fma = flash_fma(args)
+            f_err, f_worst, _ = _check(f"{name} [{label}] fma body", name,
+                                       fma(), want)
+            log(f"[kernel] {name} [{label}] body fma (forced, the tensor-core "
+                f"instance's before): max_abs_err {f_err:.3e} ({f_worst:.2f} "
+                f"x limit)  ms {timer.ms(fma):.4f}")
         body = body_of(name, args)
         if (name != "paged_decode" and dtype == torch.bfloat16
                 and body != "tensor-core"
@@ -890,7 +990,8 @@ class RouteCheck:
 
         for tag, m in (("card", card), ("cpu", cpu)):
             for blk in m.blocks:
-                blk.moe.register_forward_hook(hook(tag))
+                if blk.is_moe:
+                    blk.moe.register_forward_hook(hook(tag))
 
     def rows(self, name: str, batch: int) -> list:
         flips = 0
@@ -1036,6 +1137,68 @@ def phase_ssm_model(cfg, device, *, seed=0, length=384, split=256,
                              .to(device), pos + i)
         _close(f"{name} decode_step {i} vs prefill logits", lg[:, 0],
                lg_g[:, split + i], same)
+
+
+def phase_mla_model(cfg, device, *, seed=0, length=300, split=256,
+                    steps=8) -> None:
+    """An MLA model on the card against the CPU: ``forward`` logits and
+    the collected latents, a resume from the latent prefix at ``split``
+    against the uninterrupted forward on the card, and ``steps``
+    ``decode_step``s over the latent cache from that prefix, both devices
+    fed the CPU's greedy tokens.  Every MoE layer's routes are compared
+    first (``RouteCheck``); the latents of every layer depend on the
+    layers before its MoE alone, and are held in any case."""
+    from repro_torch.models.model import Model
+
+    name = cfg.name
+    log(f"[model] {name}: {cfg.num_layers} layers ({cfg.first_k_dense} "
+        f"dense), d {cfg.d_model}, {cfg.num_heads} heads, MLA ranks "
+        f"{cfg.q_lora_rank}/{cfg.kv_lora_rank}, head dims "
+        f"{cfg.qk_nope_head_dim}+{cfg.qk_rope_head_dim}/{cfg.v_head_dim}, "
+        f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok} (cut from "
+        f"256 so that the CPU's f32 copy stays near 13 GB), capacity factor "
+        f"{cfg.capacity_factor}, {cfg.dtype}")
+    gpu = Model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(seed))
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    routes = RouteCheck(gpu, cpu)
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(3, cfg.vocab_size, (2, length)))
+    lg_g, st_g = gpu.forward(toks.to(device), collect_state=True)
+    lg_c, st_c = cpu.forward(toks, collect_state=True)
+    _close_rows(f"{name} forward", lg_g, lg_c, routes)
+    for k in ("ckv", "kr"):
+        _close(f"{name} forward latents {k}", st_g["mla"][k], st_c["mla"][k])
+
+    same = "on the card"
+    _, pre = gpu.forward(toks[:, :split].to(device), collect_state=True)
+    lg_r, st_r = gpu.forward(toks[:, split:].to(device), q_offset=split,
+                             prefix_state=pre, collect_state=True)
+    routes.calls = {"card": [], "cpu": []}
+    _close(f"{name} resume from the latents at {split} vs uninterrupted",
+           lg_r, lg_g[:, split:], same)
+    for k in ("ckv", "kr"):
+        _close(f"{name} resumed latents {k} vs uninterrupted", st_r["mla"][k],
+               st_g["mla"][k], same)
+
+    runs = []
+    for m, dev, st in ((gpu, device, st_g),
+                       (cpu, torch.device("cpu"), st_c)):
+        cache = m.init_cache(2, split + steps)
+        for k in ("ckv", "kr"):
+            cache["mla"][k][:, :, :split] = st["mla"][k][:, :, :split]
+        runs.append((m, dev, cache))
+    nxt = toks[:, split].to(torch.int32)
+    pos = torch.full((2,), split, dtype=torch.int32)
+    for i in range(steps):
+        out = [m.decode_step(cache, nxt[:, None].to(dev), pos.to(dev))[:, 0]
+               for m, dev, cache in runs]
+        _close_rows(f"{name} decode_step {i} at position {split + i}",
+                    out[0], out[1], routes)
+        nxt = torch.argmax(out[1], dim=-1).to(torch.int32)
+        pos = pos + 1
+    del gpu, cpu
 
 
 def phase_ring_model(cfg, device, *, seed=0, prompt_len=180, window=200,
@@ -1421,10 +1584,11 @@ def wave_breakdown(model, device, *, rows=4, **kw) -> dict:
 
 def ssm_step_breakdown(model, device, *, batch=4, length=384,
                        max_seq_len=1024) -> dict:
-    """An SSM or hybrid model's dense decode step at the serving batch
-    (``time_step``) over a cache of random states, every row at position
-    ``length``.  mamba2's step runs no hand-written kernel: the
-    single-token recurrence is plain PyTorch, as in the reference.  The
+    """A dense-cache model's decode step (SSM, hybrid or MLA) at the
+    serving batch (``time_step``) over a cache of random states, every
+    row at position ``length``.  mamba2's step runs no hand-written
+    kernel: the single-token recurrence is plain PyTorch, as in the
+    reference, and so is deepseek-v3's absorbed MLA decode.  The
     hybrid's shared block decodes over its dense K/V cache through the
     paged-decode kernel, whose share of the graph-replayed step is
     printed (one launch per shared-block call, timed alone with a cold
@@ -1479,6 +1643,21 @@ def ssm_prefill(model, device, *, length=384):
     return prefill, run_ssd(args)[0], chunk
 
 
+def _time_prefill(prefill, what: str) -> dict:
+    """A prefill's eager host wall time (5 runs) and its device time
+    replayed from a CUDA graph; ``prefill`` has run outside capture."""
+    eager = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        eager.append((time.perf_counter() - t0) * 1e3)
+    return dict(eager_prefill_ms=statistics.median(eager),
+                eager_prefill_ms_runs=eager,
+                graph_prefill_ms=graph_replay_ms(prefill, what, iters=5))
+
+
 def ssm_prefill_breakdown(model, device, *, length=384) -> dict:
     """``ssm_prefill``: its eager host wall time, the forward replayed
     from a CUDA graph, and the SSD scan's share of the replay (one launch
@@ -1491,20 +1670,12 @@ def ssm_prefill_breakdown(model, device, *, length=384) -> dict:
 
     cfg = model.cfg
     prefill, scan, chunk = ssm_prefill(model, device, length=length)
-    eager = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        prefill()
-        torch.cuda.synchronize()
-        eager.append((time.perf_counter() - t0) * 1e3)
-    graph_ms = graph_replay_ms(prefill, f"{cfg.name} prefill", iters=5)
+    times = _time_prefill(prefill, f"{cfg.name} prefill")
+    graph_ms = times["graph_prefill_ms"]
     timer = Timer(device)
     scan_ms = timer.ms(scan)
     row = dict(model=cfg.name, tokens=length, chunk=chunk,
-               body=ssd_body(torch_dtype(cfg.dtype)),
-               eager_prefill_ms=statistics.median(eager),
-               eager_prefill_ms_runs=eager, graph_prefill_ms=graph_ms,
+               body=ssd_body(torch_dtype(cfg.dtype)), **times,
                ssd_chunk_scan_ms=scan_ms,
                ssd_chunk_scan_share_of_graph_prefill=(
                    cfg.num_layers * scan_ms / graph_ms))
@@ -1655,8 +1826,9 @@ def fill_and_hit(model, label: str, kvc, *, n_requests, max_new, **kw):
         eng.kv.drain_write_back()        # every block registered
     counts = {k: f.launches for k, f in fns.items()}
     log(f"[fabric] {label} pass-1 launches (write-back included): {counts}")
-    _require_launched(counts, ("flash_prefill",) if eng.paged
-                      else ("ssd_chunk_scan",))
+    _require_launched(counts, ("ssd_chunk_scan",)
+                      if model.cfg.arch_type in ("ssm", "hybrid")
+                      else ("flash_prefill",))
     eng.write_back = False
     kvc.stats, kvc.transport.stats = CacheStats(), TransportStats()
     fns = zero_launches()
@@ -2631,6 +2803,253 @@ def phase_hybrid(device, *, n_requests=8, max_new=32, max_seq_len=1024,
 
 
 # ---------------------------------------------------------------------------
+# phase 10: MLA, deepseek-v3-671b, through the dense runtime
+# ---------------------------------------------------------------------------
+
+# bf16 last-position logits of two prefills of the same prompt that
+# differ only in how the prefix's latents were computed (in blocks of 128
+# by the write-back, or in one forward) or in the GEMM shapes of the
+# suffix (113 rows against 369): each op rounds its output to bf16 (a
+# step of 2^-8 of its size), four layers deep, on logits of size ~1-5
+BF16_LOGIT_TOL = dict(atol=5e-2, rtol=2e-2)
+
+
+class LastTokenRoutes:
+    """Forward hooks on every MoE layer of ``model`` that record, per
+    call, the experts the call's last token keeps (its top-k choices
+    that found a slot under the group's capacity)."""
+
+    def __init__(self, model):
+        from repro_torch.models.moe import moe_keep
+
+        self.kept = []
+
+        def record(mod, inputs, _):
+            x = inputs[0]
+            keep = moe_keep(mod, x, mod.cfg)                 # [G, g, E]
+            last = x.shape[0] * x.shape[1] - 1
+            g = keep.shape[1]
+            self.kept.append(
+                keep[last // g, last % g].nonzero().flatten().tolist())
+
+        self.handles = [blk.moe.register_forward_hook(record)
+                        for blk in model.blocks if blk.is_moe]
+
+    def take(self) -> list:
+        out, self.kept = self.kept, []
+        return out
+
+    def remove(self) -> None:
+        for h in self.handles:
+            h.remove()
+
+
+def _logit_ratio(got, want) -> tuple[float, float]:
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    lim = BF16_LOGIT_TOL["atol"] + BF16_LOGIT_TOL["rtol"] * want.abs()
+    return err.max().item(), (err / lim).max().item()
+
+
+def mla_warm_logits(model, eng, kvc, *, n_requests, max_new) -> dict:
+    """For every request, the last-position logits of three bf16
+    prefills on the card: cold (``forward`` over the whole prompt), warm
+    (the suffix over the latents the fabric restores, at ``q_offset``
+    256, as the engine ran it) and split (the suffix over latents that a
+    cold ``forward`` of the same 256 tokens computed on the card).  Warm
+    and split run the suffix's MoE layer in the same group, so warm must
+    lie within ``BF16_LOGIT_TOL`` of split for every request.  Warm runs
+    it in another group than cold (capacity routing depends on the
+    group, as in the reference), so warm is held to cold where the last
+    token keeps the same experts in both and only measured where it does
+    not."""
+    from repro_torch.core import chain_hashes
+
+    bs = eng.block_size
+    routes = LastTokenRoutes(model)
+    rows = []
+    for r in make_requests(n_requests, max_new):
+        toks = eng.tokenizer.encode(r.prompt)
+        n = (len(toks) - 1) // bs * bs        # the engine's lookup
+        h = chain_hashes(toks, bs)[n // bs - 1]
+        prefix = eng.adapter.payload_to_state(kvc.get_block(h))
+        t = torch.as_tensor(toks, dtype=torch.int32, device=model.device)[None]
+        with torch.no_grad():
+            cold = model.forward(t)[0][0, -1]
+            cold_kept = routes.take()
+            warm = model.forward(t[:, n:], q_offset=n,
+                                 prefix_state=prefix)[0][0, -1]
+            warm_kept = routes.take()
+            _, pre = model.forward(t[:, :n], collect_state=True)
+            routes.take()
+            split = model.forward(t[:, n:], q_offset=n,
+                                  prefix_state=pre)[0][0, -1]
+            routes.take()
+        s_err, s_ratio = _logit_ratio(warm, split)
+        c_err, c_ratio = _logit_ratio(warm, cold)
+        same_routes = warm_kept == cold_kept
+        rows.append(dict(
+            tokens=len(toks), restored=n,
+            warm_vs_split_max_abs=s_err, warm_vs_split_x_limit=s_ratio,
+            warm_equals_split=bool(torch.equal(warm, split)),
+            warm_vs_cold_max_abs=c_err, warm_vs_cold_x_limit=c_ratio,
+            last_token_kept_experts_cold=[len(k) for k in cold_kept],
+            last_token_kept_experts_warm=[len(k) for k in warm_kept],
+            same_routes=same_routes,
+            argmax_equal=int(warm.argmax()) == int(cold.argmax())))
+    routes.remove()
+    log(f"[mla] warm prefill logits (bf16, limit {BF16_LOGIT_TOL}): "
+        f"{json.dumps(rows)}")
+    bad = [i for i, row in enumerate(rows)
+           if row["warm_vs_split_x_limit"] > 1.0
+           or (row["same_routes"] and row["warm_vs_cold_x_limit"] > 1.0)]
+    if bad:
+        raise AssertionError(f"{model.cfg.name}: the warm prefill's last "
+                             f"logits leave the bf16 limit for requests "
+                             f"{bad}")
+    held = sum(row["same_routes"] for row in rows)
+    log(f"[mla] warm last-position logits within the bf16 limit of the "
+        f"split prefill's for {len(rows)}/{len(rows)} requests, and of the "
+        f"cold prefill's for the {held} whose last token keeps the same "
+        f"experts cold and warm; the other {len(rows) - held} differ from "
+        f"it by at most "
+        f"""{max([r['warm_vs_cold_max_abs'] for r in rows
+                  if not r['same_routes']] + [0.0]):.3e}""")
+    return dict(rows=rows, held_to_cold=held)
+
+
+def mla_prefill_breakdown(model, device, *, length=384) -> dict:
+    """One request's prefill (``Model.forward`` over ``length`` tokens
+    with the latents collected, as ``DenseRuntime._prefill_one`` calls
+    it): its eager host wall time, the forward replayed from a CUDA graph,
+    and the dense prefill kernel's share of the replay (one launch per
+    layer, timed alone at the prefill's shape with a cold L2).  Runs after
+    the main path's launch counts were read."""
+    from repro_torch.kernels.chunked_prefill import prefill_body
+    from repro_torch.models.layers import torch_dtype
+
+    cfg = model.cfg
+    dt = torch_dtype(cfg.dtype)
+    dq = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    gen = torch.Generator(device=device).manual_seed(3)
+    toks = torch.randint(3, cfg.vocab_size, (1, length), device=device,
+                         generator=gen, dtype=torch.int32)
+
+    def prefill():
+        return model.forward(toks, collect_state=True)[0]
+
+    prefill()
+    times = _time_prefill(prefill, f"{cfg.name} prefill")
+    args, _, _ = flash_case(gen, dt, device, b=1, sq=length, skv=length,
+                            off=0, h=cfg.num_heads, hkv=cfg.num_heads, d=dq,
+                            dv=cfg.v_head_dim)
+    k4_ms = Timer(device).ms(run_flash(args)[0])
+    row = dict(model=cfg.name, tokens=length,
+               body=prefill_body(dt, dq, cfg.v_head_dim), **times,
+               flash_prefill_ms=k4_ms,
+               flash_prefill_share_of_graph_prefill=(
+                   cfg.num_layers * k4_ms / times["graph_prefill_ms"]))
+    log(f"[prefill] {json.dumps(row)}")
+    return row
+
+
+def phase_mla(device, *, n_requests=8, max_new=32, max_seq_len=1024,
+              max_batch=4, block_size=128, prefix=256,
+              num_layers=4) -> dict:
+    """deepseek-v3-671b at its published widths, cut to ``num_layers``
+    layers (its 3 dense layers and one MoE layer; bf16, seeded random
+    weights) behind ``Engine``, which serves MLA through the dense
+    runtime: cold; twice through ``Engine(kvc=...)`` on the paper's 19x5
+    fabric (the warm pass must restore the 256-token prefix of every
+    request, every stored block must equal a fresh ``kvc_fn``, and the
+    warm prefill's logits are held to the cold ones, ``mla_warm_logits``);
+    then one decode step's breakdown, against the bytes of the weights a
+    step reads, and one 384-token prefill's.  The dense prefill (on the
+    tensor-core body at Dq 192 / Dv 128) must launch in both passes; the
+    absorbed decode launches no kernel.  Returns the launch counts of the
+    cold and warm passes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.chunked_prefill import prefill_body
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.serving import Engine
+
+    full = get_config("deepseek-v3-671b")
+    cfg = full.replace(num_layers=num_layers)
+    name = cfg.name
+    log(f"[mla] {name}: reduced: num_layers {full.num_layers} -> "
+        f"{num_layers} ({cfg.first_k_dense} dense layers and "
+        f"{num_layers - cfg.first_k_dense} MoE layer of {cfg.num_experts} "
+        f"experts top-{cfg.num_experts_per_tok} and "
+        f"{cfg.num_shared_experts} shared), the multi-token-prediction "
+        f"head not built (training only); every width as published")
+    body = prefill_body(torch_dtype(cfg.dtype),
+                        cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+                        cfg.v_head_dim)
+    if body != "tensor-core":
+        raise AssertionError(f"{name}: the MLA prefill runs the {body} body")
+    model = _build_model(cfg, device, 0)
+    path = ("flash_prefill",)
+    common = dict(n_requests=n_requests, max_new=max_new)
+    kw = dict(block_size=block_size, max_seq_len=max_seq_len,
+              max_batch=max_batch, device=device)
+    serve_mode(model, f"{name} warm-up", **{**common, "n_requests": 2},
+               **kw)
+    total = dict.fromkeys(KERNELS, 0)
+
+    cold_eng = Engine(model, **kw)
+    if cold_eng.paged:
+        raise AssertionError(f"{name}: an MLA engine took the paged path")
+    (cold, cold_res), counts = counted(lambda: run_pass(
+        cold_eng, f"{name} kvc=None", tag="mla", **common))
+    log(f"[mla] {name} kvc=None launches: {counts}; flash_prefill ran the "
+        f"{body} body (Dq 192, Dv 128, {cfg.dtype})")
+    _require_launched(counts, path)
+    add_counts(total, counts)
+    del cold_eng
+
+    kvc = paper_kvc()
+    row, res, eng, counts = fill_and_hit(model, name, kvc, **common, **kw)
+    log(f"[mla] {name} warm-pass launches: {counts}; flash_prefill ran the "
+        f"{body} body")
+    fabric_report(name, kvc)
+    _require_warm(name, row, res, cold, counts, path, prefix)
+    add_counts(total, counts)
+    want = [r.token_ids for r in cold_res]
+    got = [r.token_ids for r in res]
+    log(f"[mla] {name}: {sum(a == b for a, b in zip(got, want))}/"
+        f"{len(want)} warm greedy streams equal the kvc=None streams (first "
+        f"differing token {_first_diff(got, want)})")
+    log(f"[mla] {json.dumps(warm_vs_cold(name, row, cold))}")
+    log(f"[mla] {name}: payload {eng.adapter.payload_bytes_per_token()} B "
+        f"per token ((kv_lora_rank {cfg.kv_lora_rank} + qk_rope_head_dim "
+        f"{cfg.qk_rope_head_dim}) x {num_layers} layers x 2 B)")
+    check_fabric_bytes(name, eng, kvc, **common)
+    mla_warm_logits(model, eng, kvc, **common)
+    del eng
+
+    step = ssm_step_breakdown(model, device, batch=max_batch,
+                              max_seq_len=max_seq_len)
+    # a decode step reads every weight but the embedding table (B rows of
+    # it) and the batch's latent cache
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    tok = model.embed.tok
+    read = (weights - tok.numel() * tok.element_size()
+            + max_batch * cfg.d_model * tok.element_size()
+            + max_batch * max_seq_len * num_layers
+            * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * 2)
+    bound = read / HBM_BYTES_PER_S * 1e3
+    log(f"[mla] decode step bound: {read / 1e9:.2f} GB read (every weight, "
+        f"all {cfg.num_experts} experts: the eager MoE step multiplies "
+        f"every expert's capacity buffer) -> {bound:.3f} ms at 3.35 TB/s; "
+        f"graph-replayed step {step['graph_step_ms']:.3f} ms = "
+        f"{step['graph_step_ms'] / bound:.2f} x the bound")
+    mla_prefill_breakdown(model, device)
+    del model
+    log(f"[mla] main-path launches: {total}")
+    return total
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2674,6 +3093,14 @@ def main() -> int:
     for fam in ("stablelm-12b", "granite-moe-3b-a800m"):
         phase_model(get_config(fam).replace(num_layers=2, dtype="float32"),
                     device, prompt_len=120)
+    # deepseek-v3's MLA at full width, one dense and one MoE layer, its
+    # routed experts cut to 16 (top-8 kept) for the CPU's f32 copy, at a
+    # capacity factor of 2 (= experts / top-k: no expert drops a token,
+    # so the resume routes each token as the uninterrupted forward does)
+    phase_mla_model(get_config("deepseek-v3-671b").replace(
+        num_layers=2, first_k_dense=1, num_experts=16, capacity_factor=2.0,
+        dtype="float32"), device)
+    torch.cuda.empty_cache()
     log(f"[phase] model {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2698,9 +3125,13 @@ def main() -> int:
     t0 = time.perf_counter()
     hybrid_counts = phase_hybrid(device)
     log(f"[phase] hybrid {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mla_counts = phase_mla(device)
+    log(f"[phase] mla {time.perf_counter() - t0:.1f} s")
     # launches over every phase's main-path runs, each counted from 0
     for phase in (*fabric_counts.values(), cluster_counts, family_counts,
-                  hybrid_counts):
+                  hybrid_counts, mla_counts):
         for k in KERNELS:
             counts[k] += phase[k]
 

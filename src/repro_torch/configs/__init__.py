@@ -3,10 +3,10 @@
 The port's own copy of ``repro/configs/__init__.py``'s ``get_config`` and
 ``smoke_config``.  The registry holds the paper's own model,
 ``skymemory-tinyllama``, the dense GQA, MoE and VLM families the paged
-engine serves, and the attention-free ``mamba2-1.3b`` and the hybrid
-``zamba2-1.2b`` the dense runtime serves; the reference's MLA and
-encoder-decoder architectures arrive with the families that serve them
-(see ROADMAP.md).
+engine serves, and the attention-free ``mamba2-1.3b``, the hybrid
+``zamba2-1.2b`` and the MLA ``deepseek-v3-671b`` the dense runtime
+serves; the reference's encoder-decoder architecture arrives with the
+family that serves it (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ ARCH_IDS = [
     "mamba2-1.3b",           # attention-free SSD, the dense runtime
     "granite-moe-3b-a800m",  # MoE, stop-the-world admission
     "stablelm-12b",          # head_dim 160, partial rotary, LayerNorm
+    "deepseek-v3-671b",      # MLA + MoE, the dense runtime
     "skymemory-tinyllama",   # the paper's own testbed model (§5)
 ]
 

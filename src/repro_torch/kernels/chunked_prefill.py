@@ -6,12 +6,13 @@
   offsets attends over a shared page pool through block tables.
 * ``flash_prefill`` replaces its ``_kernel``: dense flash attention with
   a ``q_offset``, causal or not, an optional sliding window, GQA and
-  Dq != Dv.
+  Dq != Dv (MLA's prefill).
 
 Both take CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the
 plain versions in ``kernels/ref.py``.  Each launch runs one of the two
-bodies of the kernel, chosen by ``prefill_body`` from the dtype and the
-head dims alone: bf16 with Dq == Dv in {64, 128, 160, 192} runs on
+bodies of the kernel, chosen by ``prefill_body`` from the dtype, the
+head dims and the layout alone: bf16 with a (Dq, Dv) pair that has an
+instance of the tensor-core body (``TENSOR_CORE_SHAPES``) runs on
 tensor cores (``mma.sync``), everything else on f32 FMAs.
 """
 from __future__ import annotations
@@ -21,23 +22,31 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-TENSOR_CORE_HEAD_DIMS = (64, 128, 160, 192)   # instances of prefill_tc
+# the (Dq, Dv) pairs with an instance of prefill_tc, per layout: Dq == Dv
+# at the GQA head dims, and MLA's Dq 192 / Dv 128 (deepseek-v3), which
+# only the dense prefill runs
+_SQUARE = ((64, 64), (128, 128), (160, 160), (192, 192))
+TENSOR_CORE_SHAPES = {"dense": _SQUARE + ((192, 128),), "paged": _SQUARE}
 
 
-def prefill_body(dtype: torch.dtype, dq: int, dv: int) -> str:
-    """Which body of ``csrc/chunked_prefill.cu`` a launch runs:
-    ``"tensor-core"`` for bf16 with Dq == Dv in ``TENSOR_CORE_HEAD_DIMS``,
-    else ``"fma"`` (f32, whose limit tensor cores would miss by rounding
-    through TF32, and bf16 with other head dims)."""
-    if dtype == torch.bfloat16 and dq == dv and dq in TENSOR_CORE_HEAD_DIMS:
+def prefill_body(dtype: torch.dtype, dq: int, dv: int,
+                 layout: str = "dense") -> str:
+    """Which body of ``csrc/chunked_prefill.cu`` a launch in ``layout``
+    (``"dense"``: ``flash_prefill``, ``"paged"``:
+    ``chunked_prefill_paged``) runs: ``"tensor-core"`` for bf16 with
+    ``(dq, dv)`` in ``TENSOR_CORE_SHAPES[layout]``, else ``"fma"`` (f32,
+    whose limit tensor cores would miss by rounding through TF32, and
+    bf16 with other head dims)."""
+    if dtype == torch.bfloat16 and (dq, dv) in TENSOR_CORE_SHAPES[layout]:
         return "tensor-core"
     return "fma"
 
 
-def _body_flag(name: str, q, tensors) -> int:
+def _body_flag(name: str, layout: str, q, tensors) -> int:
     """1 for the tensor-core body, whose 16-byte copies need 16-byte
     aligned bases; else 0."""
-    if prefill_body(q.dtype, q.shape[-1], tensors[-1].shape[-1]) == "fma":
+    if prefill_body(q.dtype, q.shape[-1], tensors[-1].shape[-1],
+                    layout) == "fma":
         return 0
     if any(t.data_ptr() % 16 for t in (q, *tensors)):
         raise ValueError(f"{name}: the tensor-core body needs q/k/v "
@@ -86,7 +95,7 @@ def chunked_prefill_paged(q: torch.Tensor, k_pool: torch.Tensor,
             f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)} block_tables "
             f"{tuple(block_tables.shape)} (head_dim <= 256, H % Hkv == 0)")
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    tc = _body_flag("chunked_prefill_paged", q, (k_pool, v_pool))
+    tc = _body_flag("chunked_prefill_paged", "paged", q, (k_pool, v_pool))
     out = torch.empty((r, c, h, dv), dtype=q.dtype, device=q.device)
     fn = getattr(_build.load("chunked_prefill"),
                  f"chunked_prefill_paged_{_DTYPES[q.dtype]}")
@@ -125,7 +134,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"{tuple(k.shape)} v {tuple(v.shape)} "
             "(head_dim <= 256, H % Hkv == 0)")
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    tc = _body_flag("flash_prefill", q, (k, v))
+    tc = _body_flag("flash_prefill", "dense", q, (k, v))
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     fn = getattr(_build.load("chunked_prefill"),
                  f"flash_prefill_{_DTYPES[q.dtype]}")

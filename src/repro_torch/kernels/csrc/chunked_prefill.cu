@@ -26,18 +26,23 @@
 // 0.064 ms on the 67 TFLOP/s f32 FMA pipe alone.  So bf16 runs on tensor
 // cores, in two bodies chosen by the wrapper from (dtype, Dq, Dv) alone:
 //
-//   * prefill_tc, bf16 with Dq == Dv in {64, 128, 160, 192} (template on
-//     D): the FlashAttention-2 arrangement on mma.sync.m16n8k16.  4 warps
-//     take 64 query rows, 16 each; the Q tile is staged once in shared
-//     memory.  At D <= 128 its A fragments stay in registers (ldmatrix)
-//     for the whole key loop; at D 160 and 192 the f32 O accumulator
-//     alone takes 80 and 96 registers a thread, so the Q fragments are
-//     read again from shared memory at each k-step of every tile (one
-//     ldmatrix per 8 mma) instead of holding 40-48 more.  S = Q.K^T
-//     accumulates in f32 registers; the online softmax runs there too,
-//     the row max and sum reduced over the 4 lanes of a quad.  P is
-//     rounded to bf16 in the registers that hold it (as the plain version
-//     rounds its probabilities to v's dtype before the PV product) and is
+//   * prefill_tc, bf16 with (Dq, Dv) in {(64, 64), (128, 128), (160, 160),
+//     (192, 192)} in both layouts, and the MLA shape (192, 128) dense only
+//     (templated on DQ and DV: Q and K tiles are DQ wide, V tiles and the
+//     O accumulator DV wide): the FlashAttention-2 arrangement on
+//     mma.sync.m16n8k16.  4 warps take 64 query rows, 16 each; the Q tile
+//     is staged once in shared memory.  At Dq <= 128 its A fragments stay
+//     in registers (ldmatrix) for the whole key loop; at Dq 160 and 192
+//     the f32 O accumulator alone takes 80 and 96 registers a thread at
+//     Dv = Dq, so the Q fragments are read again from shared memory at
+//     each k-step of every tile (one ldmatrix per 8 mma) instead of
+//     holding 40-48 more; the MLA shape (Dq 192, Dv 128) does the same,
+//     and with its V tiles 128 wide its tiles take 111,616 B of shared
+//     memory against 128,000 B at (192, 192).  S = Q.K^T accumulates in
+//     f32 registers; the online softmax runs there too, the row max and
+//     sum reduced over the 4 lanes of a quad.  P is rounded to bf16 in
+//     the registers that hold it (as the plain version rounds its
+//     probabilities to v's dtype before the PV product) and is
 //     the A operand of P.V, with V read by ldmatrix.trans; O accumulates
 //     in f32 registers.  K and V tiles are double-buffered in shared
 //     memory by 16-byte cp.async, so tile j+1 loads while tile j computes;
@@ -54,7 +59,7 @@
 //     ex2.approx each.
 //   * prefill_fma, everything else (f32, whose limit against the plain
 //     version is atol 2e-5 where tensor cores would round through TF32;
-//     bf16 with other head dims such as an MLA-shaped Dq 96 / Dv 64):
+//     bf16 with other head dims such as Dq 96 / Dv 64):
 //     f32 FMAs from shared memory, each K/V tile loaded once and reused
 //     by the block's 64 query rows.
 //
@@ -139,14 +144,15 @@ constexpr int BQ = 16 * WARPS;  // query rows per block, 16 per warp
 constexpr int BK = 64;          // keys per tile
 constexpr int PAD = 8;          // bf16 elements (16 bytes) after each row
 
-constexpr size_t smem_bytes(int d) {
-  // Q tile, then two K tiles and two V tiles
-  return sizeof(__nv_bfloat16) * (size_t)(BQ + 4 * BK) * (d + PAD);
+constexpr size_t smem_bytes(int dq, int dv) {
+  // Q tile and two K tiles of Dq, then two V tiles of Dv
+  return sizeof(__nv_bfloat16) *
+         ((size_t)(BQ + 2 * BK) * (dq + PAD) + (size_t)2 * BK * (dv + PAD));
 }
 
 }  // namespace tc_body
 
-template <int D, bool PAGED>
+template <int DQ, int DV, bool PAGED>
 __global__ void __launch_bounds__(tc_body::THREADS)
 prefill_tc(const __nv_bfloat16* __restrict__ q,
            const __nv_bfloat16* __restrict__ k,
@@ -154,20 +160,21 @@ prefill_tc(const __nv_bfloat16* __restrict__ q,
            __nv_bfloat16* __restrict__ out, PagedArgs pa, DenseArgs da,
            int sq, int h, int hkv, float scale) {
   using namespace tc_body;
-  constexpr int LD = D + PAD;         // shared row stride, elements
-  constexpr int CPR = D / 8;          // 16-byte chunks per row
-  constexpr int KSTEPS = D / 16;      // k-steps of Q.K^T
+  constexpr int LD = DQ + PAD;        // shared row stride of Q and K
+  constexpr int LDV = DV + PAD;       // shared row stride of V
+  constexpr int CPR = DQ / 8;         // 16-byte chunks per Q or K row
+  constexpr int KSTEPS = DQ / 16;     // k-steps of Q.K^T
   constexpr int NT = BK / 8;          // 8-key n-tiles of S
-  constexpr int OT = D / 8;           // 8-column n-tiles of O
-  constexpr bool Q_IN_REGS = D <= 128;
-  static_assert(D % 16 == 0 && (BQ * CPR) % THREADS == 0 &&
-                    (BK * CPR) % THREADS == 0,
+  constexpr int OT = DV / 8;          // 8-column n-tiles of O
+  constexpr bool Q_IN_REGS = DQ <= 128;
+  static_assert(DQ % 16 == 0 && DV % 16 == 0 && DV <= DQ &&
+                    (BQ * CPR) % THREADS == 0 && (BK * CPR) % THREADS == 0,
                 "tile");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][LD]
   __nv_bfloat16* ks = qs + BQ * LD;      // [2][BK][LD]
-  __nv_bfloat16* vs = ks + 2 * BK * LD;  // [2][BK][LD]
+  __nv_bfloat16* vs = ks + 2 * BK * LD;  // [2][BK][LDV]
 
   const int hq = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest tiles first
@@ -192,19 +199,21 @@ prefill_tc(const __nv_bfloat16* __restrict__ q,
     const int r = i / CPR, cc = (i % CPR) * 8;
     const bool ok = r < n_rows;
     cp_async16(qs + r * LD + cc,
-               q + (((size_t)b * sq + q0 + (ok ? r : 0)) * h + hq) * D + cc,
+               q + (((size_t)b * sq + q0 + (ok ? r : 0)) * h + hq) * DQ + cc,
                ok);
   }
+  // a chunk of a K row and, where Dv reaches its column, of the V row of
+  // the same key (one key_row for both)
   auto load_kv = [&](int k0, int buf) {
 #pragma unroll
     for (int i = tid; i < BK * CPR; i += THREADS) {
       const int r = i / CPR, cc = (i % CPR) * 8;
       const int kpos = k0 + r;
       const bool ok = kpos < kr.kv_end;
-      const size_t row =
-          ok ? key_row<PAGED>(pa, da, b, g, hkv, kpos) * D + cc : 0;
-      cp_async16(ks + (buf * BK + r) * LD + cc, k + row, ok);
-      cp_async16(vs + (buf * BK + r) * LD + cc, v + row, ok);
+      const size_t row = ok ? key_row<PAGED>(pa, da, b, g, hkv, kpos) : 0;
+      cp_async16(ks + (buf * BK + r) * LD + cc, k + row * DQ + cc, ok);
+      if (DV == DQ || cc < DV)
+        cp_async16(vs + (buf * BK + r) * LDV + cc, v + row * DV + cc, ok);
     }
   };
   if (n_tiles > 0) load_kv(kr.kv_begin, 0);
@@ -306,7 +315,7 @@ prefill_tc(const __nv_bfloat16* __restrict__ q,
     }
 
     // O += P . V, P rounded to bf16 where it lies
-    const __nv_bfloat16* vb = vs + buf * BK * LD;
+    const __nv_bfloat16* vb = vs + buf * BK * LDV;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
@@ -317,7 +326,7 @@ prefill_tc(const __nv_bfloat16* __restrict__ q,
       for (int dp = 0; dp < OT / 2; ++dp) {
         uint32_t bf[4];
         ldmatrix_x4_trans(
-            bf, vb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+            bf, vb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV +
                     dp * 16 + (lane >> 4) * 8);
         mma_bf16_16816(o[2 * dp], a, bf[0], bf[1]);
         mma_bf16_16816(o[2 * dp + 1], a, bf[2], bf[3]);
@@ -335,7 +344,7 @@ prefill_tc(const __nv_bfloat16* __restrict__ q,
     const float inv = 1.f / fmaxf(sum, 1e-30f);
     const int r = warp * 16 + qr + hr * 8;
     if (r < n_rows) {
-      __nv_bfloat16* dst = out + (((size_t)b * sq + q0 + r) * h + hq) * D;
+      __nv_bfloat16* dst = out + (((size_t)b * sq + q0 + r) * h + hq) * DV;
 #pragma unroll
       for (int n = 0; n < OT; ++n)
         *reinterpret_cast<uint32_t*>(dst + n * 8 + qc * 2) =
@@ -486,15 +495,15 @@ prefill_fma(const T* __restrict__ q, const T* __restrict__ k,
 // launch
 // ---------------------------------------------------------------------------
 
-template <int D, bool PAGED>
+template <int DQ, int DV, bool PAGED>
 int launch_tc(const void* q, const void* k, const void* v, void* out,
               PagedArgs pa, DenseArgs da, int nb, int sq, int h, int hkv,
               float scale, cudaStream_t st) {
-  const size_t smem = tc_body::smem_bytes(D);
-  cudaError_t err = allow_smem(prefill_tc<D, PAGED>, smem);
+  const size_t smem = tc_body::smem_bytes(DQ, DV);
+  cudaError_t err = allow_smem(prefill_tc<DQ, DV, PAGED>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(h, (sq + tc_body::BQ - 1) / tc_body::BQ, nb);
-  prefill_tc<D, PAGED><<<grid, tc_body::THREADS, smem, st>>>(
+  prefill_tc<DQ, DV, PAGED><<<grid, tc_body::THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
@@ -503,28 +512,36 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
 }
 
 // ``tensor_cores`` is the wrapper's choice of body; the tensor-core body
-// exists for bf16 with Dq == Dv in {64, 128, 160, 192} only, and asking
-// for it elsewhere is an error, never a silent switch to the other body.
+// exists for bf16 with (Dq, Dv) in {(64, 64), (128, 128), (160, 160),
+// (192, 192)}, and (192, 128) in the dense layout, only; asking for it
+// elsewhere is an error, never a silent switch to the other body.
 template <typename T, bool PAGED>
 int launch(const void* q, const void* k, const void* v, void* out,
            PagedArgs pa, DenseArgs da, int nb, int sq, int h, int hkv, int d,
            int dv, float scale, int tensor_cores, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tensor_cores) {
-    if (!std::is_same<T, __nv_bfloat16>::value || d != dv)
+    if (!std::is_same<T, __nv_bfloat16>::value)
       return (int)cudaErrorInvalidValue;
-    if (d == 64)
-      return launch_tc<64, PAGED>(q, k, v, out, pa, da, nb, sq, h, hkv, scale,
-                                  st);
-    if (d == 128)
-      return launch_tc<128, PAGED>(q, k, v, out, pa, da, nb, sq, h, hkv,
-                                   scale, st);
-    if (d == 160)
-      return launch_tc<160, PAGED>(q, k, v, out, pa, da, nb, sq, h, hkv,
-                                   scale, st);
-    if (d == 192)
-      return launch_tc<192, PAGED>(q, k, v, out, pa, da, nb, sq, h, hkv,
-                                   scale, st);
+    if (d == 64 && dv == 64)
+      return launch_tc<64, 64, PAGED>(q, k, v, out, pa, da, nb, sq, h, hkv,
+                                      scale, st);
+    if (d == 128 && dv == 128)
+      return launch_tc<128, 128, PAGED>(q, k, v, out, pa, da, nb, sq, h, hkv,
+                                        scale, st);
+    if (d == 160 && dv == 160)
+      return launch_tc<160, 160, PAGED>(q, k, v, out, pa, da, nb, sq, h, hkv,
+                                        scale, st);
+    if (d == 192 && dv == 192)
+      return launch_tc<192, 192, PAGED>(q, k, v, out, pa, da, nb, sq, h, hkv,
+                                        scale, st);
+    // MLA's prefill (deepseek-v3: Dq = 128 + 64, Dv = 128); no paged
+    // caller has Dq != Dv
+    if constexpr (!PAGED) {
+      if (d == 192 && dv == 128)
+        return launch_tc<192, 128, false>(q, k, v, out, pa, da, nb, sq, h,
+                                          hkv, scale, st);
+    }
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = fma_body::smem_bytes(d, dv);

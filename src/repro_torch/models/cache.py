@@ -2,7 +2,7 @@
 engine's device-resident K/V page pool (dense-attention families) and the
 dense per-sequence caches of the families ``DenseRuntime`` serves
 (``init_cache``: the SSM state, the hybrid's state and shared-attention
-K/V, and the K/V ring of a sliding-window GQA model).
+K/V, the K/V ring of a sliding-window GQA model, and the MLA latents).
 
 ``PagedKVCache`` holds ``k_pool`` / ``v_pool`` of shape
 ``[layers, num_pages, page_size, kv_heads, head_dim]`` on the engine's
@@ -69,16 +69,34 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int | None = None, *,
       does not grow with the sequence (``seq_len`` is not needed);
     * hybrid: the same, and ``"kv": {"k", "v"}`` of the shared attention
       block's ``n_attn_layers`` invocations;
-    * the GQA families: ``"kv"`` for every layer.
+    * the GQA families: ``"kv"`` for every layer;
+    * MLA: ``{"mla": {"ckv": [L, B, S, kv_lora_rank], "kr": [L, B, S,
+      qk_rope_head_dim]}}``, the latents alone.
 
-    ``kv`` arrays are ``[n, B, cache_len(cfg, seq_len), Hkv, hd]`` in
-    ``kvc_dtype`` or the model dtype: a ring of ``sliding_window`` slots
-    when the window is shorter than ``seq_len``.  MLA latents and
-    encoder-decoder cross K/V are not ported yet."""
-    if cfg.use_mla or cfg.is_encoder_decoder:
+    ``kv`` and ``mla`` arrays hold ``S = cache_len(cfg, seq_len)`` tokens
+    in ``kvc_dtype`` or the model dtype: a ring of ``sliding_window``
+    slots when the window is shorter than ``seq_len``.  An int8 latent
+    cache and the encoder-decoder cross K/V are not ported."""
+    if cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: the MLA and encoder-decoder decode caches are not "
-            "ported yet (ROADMAP.md queue 1)")
+            f"{cfg.name}: the encoder-decoder decode cache is not ported "
+            "yet (ROADMAP.md queue 1)")
+    if cfg.use_mla:
+        if cfg.kvc_dtype == "int8":
+            # the reference casts each new latent into an int8 cache by
+            # truncation instead of quantizing it
+            raise NotImplementedError(
+                f"{cfg.name}: an int8 MLA latent cache is not ported "
+                "(ROADMAP.md section 3)")
+        if seq_len is None:
+            raise ValueError(f"{cfg.name}: a latent cache needs seq_len")
+        shape = (cfg.num_layers, batch, cache_len(cfg, seq_len))
+        dt = torch_dtype(cfg.kvc_dtype or cfg.dtype)
+        return {"mla": {
+            "ckv": torch.zeros((*shape, cfg.kv_lora_rank), dtype=dt,
+                               device=device),
+            "kr": torch.zeros((*shape, cfg.qk_rope_head_dim), dtype=dt,
+                              device=device)}}
     cache: dict = {}
     if cfg.arch_type in ("ssm", "hybrid"):
         conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state

@@ -1,7 +1,7 @@
 """The model, ported from ``repro/models/model.py``: the GQA decoder
 (dense, MoE, and the VLM backbone, with or without a sliding window),
-the attention-free SSM (Mamba-2) stack, and the hybrid (zamba2: SSM
-layers with one shared attention block).
+the MLA decoder (deepseek-v3), the attention-free SSM (Mamba-2) stack,
+and the hybrid (zamba2: SSM layers with one shared attention block).
 
 ``Model`` is an ``nn.Module`` holding its weights (``embed``, an
 ``nn.ModuleList`` of ``blocks``, ``final_norm``, and the hybrid's
@@ -9,13 +9,18 @@ layers with one shared attention block).
 stacked layers, and its segmented scans of the hybrid, are a Python loop
 over ``self.blocks``: the hybrid runs its shared block after every layer
 ``l`` with ``cfg.is_attn_layer(l)``, which is the reference's period
-segmentation.  A block's feed-forward is its ``mlp`` or, when
-``cfg.num_experts``, its ``moe`` (every layer: ``first_k_dense`` applies
-only with MLA in the reference).  The GQA families without a window
-serve through the paged steps, which write each layer's K/V into
-``k_pool[l]`` / ``v_pool[l]`` in place; the SSM and hybrid families and
-a windowed GQA model through ``decode_step`` over the dense cache of
-``init_cache``.  MLA and encoder-decoder raise ``NotImplementedError``.
+segmentation.  A block's attention is ``Attention`` or, with
+``cfg.use_mla``, ``MLA``; its feed-forward is its ``mlp`` or, when
+``cfg.num_experts``, its ``moe``, except in the first
+``cfg.first_k_dense`` layers of an MLA model (the reference applies
+``first_k_dense`` only with MLA, as two stacks, ``blocks_dense`` and
+``blocks``; here they are one ``nn.ModuleList``).  The GQA families
+without a window serve through the paged steps, which write each
+layer's K/V into ``k_pool[l]`` / ``v_pool[l]`` in place; the SSM,
+hybrid and MLA families and a windowed GQA model through
+``decode_step`` over the dense cache of ``init_cache``.  The
+encoder-decoder family raises ``NotImplementedError``; the MLA model's
+multi-token-prediction head is training-only and not built.
 """
 from __future__ import annotations
 
@@ -37,29 +42,38 @@ from repro_torch.models.cache import (
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, Embed, Norm
+from repro_torch.models.mla import MLA, mla_decode, mla_prefill
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssd import SSD, ssd_decode, ssd_prefill
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if (cfg.arch_type not in ("dense", "moe", "vlm", "ssm", "hybrid")
-            or cfg.use_mla or cfg.is_encoder_decoder):
+            or cfg.is_encoder_decoder):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA, MoE, VLM, SSM and hybrid "
-            "families are ported; the MLA and encoder-decoder families "
-            "wait for ROADMAP.md queue 1")
+            f"{cfg.name}: only the dense GQA, MoE, MLA, VLM, SSM and hybrid "
+            "families are ported; the encoder-decoder family waits for "
+            "ROADMAP.md queue 1")
+
+
+def _moe_layer(cfg: ModelConfig, layer: int) -> bool:
+    """Whether layer ``layer`` of an attention stack is a MoE layer: the
+    MoE family's, except the first ``first_k_dense`` layers of an MLA
+    model."""
+    return cfg.num_experts > 0 and not (cfg.use_mla
+                                        and layer < cfg.first_k_dense)
 
 
 class Block(nn.Module):
-    """Attention and a feed-forward: ``mlp``, or ``moe`` for the MoE
-    family (the reference's ``_init_block``)."""
+    """Attention (``Attention``, or ``MLA``) and a feed-forward: ``mlp``,
+    or ``moe`` in a MoE layer (the reference's ``_init_block``)."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, *, moe: bool):
         super().__init__()
         self.norm1 = Norm(cfg, device)
-        self.attn = Attention(cfg, device)
+        self.attn = (MLA if cfg.use_mla else Attention)(cfg, device)
         self.norm2 = Norm(cfg, device)
-        self.is_moe = cfg.num_experts > 0
+        self.is_moe = moe
         if self.is_moe:
             self.moe = MoE(cfg, device)
         else:
@@ -90,7 +104,7 @@ class SharedAttn(nn.Module):
 
 
 class Model(nn.Module):
-    """Dense GQA decoder, SSM stack or hybrid on ``device`` (default
+    """GQA or MLA decoder, SSM stack or hybrid on ``device`` (default
     ``"cuda"``, which raises when no CUDA device is present).  Weights
     are uninitialised until ``init`` or
     ``repro_torch.convert.params_from_numpy`` fills them."""
@@ -103,9 +117,10 @@ class Model(nn.Module):
         # the SSM and hybrid stacks are SSD layers
         self.is_ssm = cfg.arch_type in ("ssm", "hybrid")
         self.embed = Embed(cfg, self.device)
-        block = SSMBlock if self.is_ssm else Block
         self.blocks = nn.ModuleList(
-            block(cfg, self.device) for _ in range(cfg.num_layers))
+            SSMBlock(cfg, self.device) if self.is_ssm
+            else Block(cfg, self.device, moe=_moe_layer(cfg, l))
+            for l in range(cfg.num_layers))
         self.shared_attn = (SharedAttn(cfg, self.device)
                             if cfg.arch_type == "hybrid" else None)
         self.final_norm = Norm(cfg, self.device)
@@ -142,7 +157,9 @@ class Model(nn.Module):
         ``collect_state`` (else None), with ``S'`` covering the prefix.
         ``prefix_state`` (same layout) is a restored prefix whose last
         position is ``q_offset - 1``: the tokens attend over it through
-        the dense flash kernel with a non-zero offset.
+        the dense flash kernel with a non-zero offset.  For MLA the state
+        is the latents, ``{"mla": {"ckv": [L, B, S', r], "kr": [L, B, S',
+        dr]}}``, and so is the prefix.
 
         For the SSM family ``state`` is ``{"ssm": {"conv": [L, B, K-1,
         C], "state": [L, B, H, P, N]}}`` and ``prefix_state`` a snapshot
@@ -157,22 +174,28 @@ class Model(nn.Module):
         if self.is_ssm:
             return self._ssm_forward(x, q_offset, collect_state,
                                      prefix_state)
-        ks, vs = [], []
+        part, names = (("mla", ("ckv", "kr")) if cfg.use_mla
+                       else ("kv", ("k", "v")))
+        layers = []                         # each layer's (k, v) or latents
         for l, blk in enumerate(self.blocks):
             pref = None
             if prefix_state is not None:
-                pref = (prefix_state["kv"]["k"][l], prefix_state["kv"]["v"][l])
-            a, (k, v) = attention_prefill(blk.attn, blk.norm1(x), cfg,
+                pref = tuple(prefix_state[part][n][l] for n in names)
+            if cfg.use_mla:
+                a, st = mla_prefill(blk.attn, blk.norm1(x), cfg,
+                                    q_offset=q_offset, latent_prefix=pref)
+            else:
+                a, st = attention_prefill(blk.attn, blk.norm1(x), cfg,
                                           q_offset=q_offset, kv_cache=pref)
             x = x + a
             x = x + blk.ffn(blk.norm2(x))
             if collect_state:
-                ks.append(k)
-                vs.append(v)
+                layers.append(st)
         logits = self.embed.logits(self.final_norm(x))
         state = None
         if collect_state:
-            state = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+            state = {part: {n: torch.stack([st[i] for st in layers])
+                            for i, n in enumerate(names)}}
         return logits, state
 
     def _ssm_forward(self, x, q_offset, collect_state, prefix_state):
@@ -214,8 +237,9 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, seq_len: int | None = None) -> dict:
         """The dense decode cache (``models/cache.py::init_cache``) for
-        ``batch`` sequences of up to ``seq_len`` tokens; the SSM family's
-        does not depend on the sequence length."""
+        ``batch`` sequences of up to ``seq_len`` tokens (K/V, or MLA
+        latents); the SSM family's does not depend on the sequence
+        length."""
         return init_cache(self.cfg, batch, seq_len, device=self.device)
 
     @torch.no_grad()
@@ -246,6 +270,13 @@ class Model(nn.Module):
                         sa.attn, sa.norm(x), cfg, k_cache=kv["k"][j],
                         v_cache=kv["v"][j], pos=pos, sliding_window=swin)
                     j += 1
+            elif cfg.use_mla:
+                x = x + mla_decode(
+                    blk.attn, blk.norm1(x), cfg,
+                    ckv_cache=cache["mla"]["ckv"][l],
+                    krope_cache=cache["mla"]["kr"][l], pos=pos,
+                    sliding_window=swin)
+                x = x + blk.ffn(blk.norm2(x))
             else:
                 x = x + attention_decode(
                     blk.attn, blk.norm1(x), cfg, k_cache=kv["k"][l],

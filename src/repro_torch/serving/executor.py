@@ -145,7 +145,8 @@ class PagedExecutor:
 
 class DenseRuntime:
     """Non-paged serving loop, ported from ``repro/serving/executor.py``
-    (the SSM and hybrid families, and GQA models with a sliding window):
+    (the SSM, hybrid and MLA families, and GQA models with a sliding
+    window):
     each request prefills alone through ``Model.forward`` (resuming from
     a SkyMemory snapshot on a hit), the batch's states are stacked into
     one dense cache, and every decode step samples all rows with the
@@ -212,25 +213,29 @@ class DenseRuntime:
 
     def _stack_dense_caches(self, seqs: list[Seq]) -> dict:
         """Prefill -> decode handoff: the per-sequence SSM states and the
-        K/V of each sequence's ``n`` prompt tokens (into slots ``[0, n)``)
-        are copied into one batched cache of ``max_seq_len`` tokens, or
-        of the sliding window's ring.  A prompt longer than the ring
-        cannot be stacked (nor can it in the reference)."""
+        K/V or MLA latents of each sequence's ``n`` prompt tokens (into
+        slots ``[0, n)``) are copied into one batched cache of
+        ``max_seq_len`` tokens, or of the sliding window's ring.  A
+        prompt longer than the ring cannot be stacked (nor can it in the
+        reference)."""
         cache = self.model.init_cache(len(seqs), self.max_seq_len)
         for i, s in enumerate(seqs):
             st = s.dense_state
             if "ssm" in st:
                 cache["ssm"]["conv"][:, i] = st["ssm"]["conv"][:, 0]
                 cache["ssm"]["state"][:, i] = st["ssm"]["state"][:, 0]
-            if "kv" in st:
+            for part in ("kv", "mla"):
+                if part not in st:
+                    continue
                 n = len(s.tokens)
-                ring = cache["kv"]["k"].shape[2]
+                dsts = cache[part]
+                ring = next(iter(dsts.values())).shape[2]
                 if n > ring:
                     raise ValueError(
                         f"a {n}-token prompt does not fit the {ring}-slot "
-                        "K/V cache (the sliding window's ring)")
-                for key in ("k", "v"):
-                    dst, src = cache["kv"][key], st["kv"][key][:, 0, :n]
+                        "decode cache (the sliding window's ring)")
+                for key, dst in dsts.items():
+                    src = st[part][key][:, 0, :n]
                     if dst.dtype == torch.int8:
                         src = quant_kvc(src)
                     dst[:, i, :n] = src

@@ -1,10 +1,13 @@
 """Adapter between the model's decode state and SkyMemory KVC payloads,
-ported from ``repro/serving/skycache.py`` (dense, SSM and hybrid
+ported from ``repro/serving/skycache.py`` (dense, MLA, SSM and hybrid
 families).
 
 * dense: the per-layer K/V covering the cached prefix, ``[k [L, T, Hkv,
   hd], v [L, T, Hkv, hd]]``, cumulative: one block's payload
   reconstructs the whole prefix;
+* MLA: the per-layer latents covering the prefix, ``[ckv [L, T, r], kr
+  [L, T, dr]]`` (``r + dr`` = 576 values per token and layer at
+  deepseek-v3's widths), always cumulative, as in the reference;
 * SSM: the fixed-size snapshot at the block boundary, ``[conv [L, K-1,
   C], state [L, H, P, N]]``.  It is not token-sliceable: it is the state
   after the block's last token;
@@ -50,9 +53,11 @@ class SkyKVCAdapter:
         self.device = model.device
         self.codec = PayloadCodec.parse(codec)
         # delta chains concatenate along the token axis, which only the
-        # dense cumulative K/V payload has; an SSM snapshot and the
-        # hybrid's snapshot half are not token-sliceable
-        self._delta_ok = self.cfg.arch_type not in ("ssm", "hybrid")
+        # dense cumulative K/V payload has end to end; an SSM snapshot
+        # and the hybrid's snapshot half are not token-sliceable, and the
+        # reference writes MLA latents cumulative too
+        self._delta_ok = (not self.cfg.use_mla
+                          and self.cfg.arch_type not in ("ssm", "hybrid"))
         self._executor = None    # lazy fetch-ahead worker (run_async)
 
     # -- codec-derived size model (the router's fallback price) -----------
@@ -64,7 +69,11 @@ class SkyKVCAdapter:
         cfg = self.cfg
         if cfg.arch_type in ("ssm", "hybrid"):
             return None
-        values = 2 * cfg.num_kv_heads * cfg.head_dim * cfg.num_layers
+        if cfg.use_mla:
+            values = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+        else:
+            values = 2 * cfg.num_kv_heads * cfg.head_dim
+        values *= cfg.num_layers
         itemsize = torch_dtype(cfg.dtype).itemsize
         return values * self.codec.bytes_per_value(itemsize)
 
@@ -79,8 +88,8 @@ class SkyKVCAdapter:
                          prev_hash: bytes | None = None) -> bytes:
         """Serialize the decode state (batch dim of 1, dropped), in the
         reference's order: the SSM snapshot (the state after the last
-        token ``forward`` saw), then the K/V of the first ``n_tokens``
-        positions.
+        token ``forward`` saw), then the MLA latents or the K/V of the
+        first ``n_tokens`` positions.
 
         Under a ``+delta`` codec, a dense block that extends a chain
         (``past_len > 0`` with ``prev_hash``) serializes only its own
@@ -92,6 +101,9 @@ class SkyKVCAdapter:
         arrs = []
         if "ssm" in state:
             arrs += [state["ssm"]["conv"][:, 0], state["ssm"]["state"][:, 0]]
+        if "mla" in state:
+            arrs += [state["mla"]["ckv"][:, 0, :n_tokens],
+                     state["mla"]["kr"][:, 0, :n_tokens]]
         if "kv" in state:
             arrs += [state["kv"]["k"][:, 0, lo:n_tokens],
                      state["kv"]["v"][:, 0, lo:n_tokens]]
@@ -106,6 +118,9 @@ class SkyKVCAdapter:
         if self.cfg.arch_type in ("ssm", "hybrid"):
             state["ssm"] = {"conv": arrs[0], "state": arrs[1]}
             arrs = arrs[2:]
+        if self.cfg.use_mla:
+            state["mla"] = {"ckv": arrs[0], "kr": arrs[1]}
+            arrs = arrs[2:]
         if arrs:
             state["kv"] = {"k": arrs[0], "v": arrs[1]}
         return state
@@ -115,7 +130,7 @@ class SkyKVCAdapter:
         """Payload -> page-shaped K/V ``[layers, n_tokens/page, page, Hkv,
         hd]`` on the model's device, ready for ``PagedKVCache.write_pages``.
         ``n_tokens`` must be page-aligned."""
-        if self.cfg.arch_type in ("ssm", "hybrid"):
+        if self.cfg.use_mla or self.cfg.arch_type in ("ssm", "hybrid"):
             raise ValueError(f"{self.cfg.name}: payload is not plain paged K/V")
         if n_tokens % page_size:
             raise ValueError("cached prefix must be page-aligned")
@@ -185,9 +200,9 @@ class SkyKVCAdapter:
         if past is None or past_len == 0:
             _, state = self.model.forward(toks, collect_state=True)
         else:
-            # the returned K/V already include the prefix (attention
-            # concatenates it in front of the fresh keys); an SSM state
-            # is cumulative by construction
+            # the returned K/V and MLA latents already include the
+            # prefix (attention concatenates it in front of the fresh
+            # keys); an SSM state is cumulative by construction
             _, state = self.model.forward(
                 toks[:, past_len:], q_offset=past_len,
                 prefix_state=self.payload_to_state(past), collect_state=True)

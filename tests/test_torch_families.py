@@ -83,8 +83,9 @@ def granite():
 
 def test_registry_holds_the_new_configs():
     assert set(NEW) <= set(list_configs())
-    # the paper's TinyLlama, mamba2-1.3b and the hybrid zamba2-1.2b
-    assert len(list_configs()) == len(NEW) + 3
+    # the paper's TinyLlama, mamba2-1.3b, the hybrid zamba2-1.2b and the
+    # MLA deepseek-v3-671b
+    assert len(list_configs()) == len(NEW) + 4
 
 
 @pytest.mark.parametrize("name", NEW[4:])

@@ -72,7 +72,8 @@ def test_importing_every_module_loads_no_jax_or_repro():
     assert "repro_torch.core.protocol" in mods
     for m in ("core.faults", "serving.cluster", "serving.router",
               "serving.slo", "serving.traffic", "serving.worker",
-              "models.moe", "configs.granite_moe_3b_a800m",
+              "models.moe", "models.mla", "configs.deepseek_v3_671b",
+              "configs.granite_moe_3b_a800m",
               "configs.stablelm_12b", "configs.nemotron_4_340b",
               "configs.llava_next_34b", "configs.internlm2_1_8b",
               "configs.yi_9b"):
@@ -184,10 +185,15 @@ def test_other_families_raise_not_implemented():
     from repro_torch.models.model import Model
 
     cfg = smoke_config(get_config("skymemory-tinyllama"))
-    for kw in ({"use_mla": True},
-               {"is_encoder_decoder": True, "num_encoder_layers": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(cfg.replace(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(cfg.replace(is_encoder_decoder=True, num_encoder_layers=2),
+              device="cpu")
+    # MLA is served now: it builds on the CPU, and its default device
+    # raises without a card
+    mla = smoke_config(get_config("deepseek-v3-671b"))
+    assert not Model(mla, device="cpu").supports_paged_decode
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(mla)
     # the MoE, VLM and hybrid families, and a sliding window, are served now
     for name in ("granite-moe-3b-a800m", "llava-next-34b", "zamba2-1.2b"):
         Model(smoke_config(get_config(name)).replace(dtype="float32"),

@@ -253,7 +253,7 @@ def test_build_names_every_source_and_entry_point():
         (torch.bfloat16, 160, 160, "tensor-core"),  # stablelm-12b
         (torch.bfloat16, 192, 192, "tensor-core"),  # nemotron-4-340b
         (torch.float32, 160, 160, "fma"),
-        (torch.bfloat16, 192, 128, "fma"),     # MLA's Dq 192 / Dv 128
+        (torch.bfloat16, 192, 128, "tensor-core"),  # MLA (deepseek-v3)
         (torch.float32, 64, 64, "fma"),        # TF32 would miss f32 limits
         (torch.float32, 128, 128, "fma"),
         (torch.bfloat16, 96, 64, "fma"),       # MLA-shaped Dq != Dv
