@@ -36,7 +36,12 @@ Phases (each raises on failure; nothing is caught):
    369 at q_offset 256), each on ``prefill_tc<192, 128>`` (must run
    ``tensor-core``), the cold one also timed on the FMA body it ran
    before that instance existed; f32 on a short S.  The library call
-   of an MLA case names the device kernels it ran;
+   of an MLA case names the device kernels it ran.  seamless-m4t's
+   shapes (H = Hkv = 16, D 64), bf16 and f32: the encoder's non-causal
+   prefill at B4 x S512 and B4 x S500, cross-attention (non-causal,
+   offset 0) of Sq 32 over Skv 500 and Sq 37 over Skv 512 (the bf16
+   prefills must run ``tensor-core``), and the cross decode with every
+   length the source length, over 4 pages of 128 and one page of 500;
 4. model: TinyLlama's widths at 2 layers, f32, seeded: ``forward``,
    ``prefill_chunk_paged`` and ``decode_step_paged`` logits on the card
    against the same on the CPU.  Then mamba2-1.3b's widths at 2 layers,
@@ -61,7 +66,10 @@ Phases (each raises on failure; nothing is caught):
    ``forward`` logits (routes checked first, ``RouteCheck``) and the
    collected latents against the CPU, a resume from the latent prefix
    at token 256 against the uninterrupted forward, and 8 ``decode_step``s
-   against the CPU;
+   against the CPU.  Last seamless-m4t-large-v2 at full width, 2
+   encoder and 2 decoder layers, f32, 256 frames and a 40-token target:
+   the encoder output, ``forward`` logits with the self and cross K/V,
+   and 8 ``decode_step``s against the CPU;
 5. serve: full TinyLlama (22 layers, bf16, seeded random weights) behind
    the paged ``Engine``: 8 requests with a shared 256-token prefix in
    three modes (chunked contiguous pool, stop-the-world admission, a
@@ -152,10 +160,23 @@ Phases (each raises on failure; nothing is caught):
     counted); then one decode step's breakdown against the bytes of the
     weights it reads, and one 384-token prefill replayed from a CUDA
     graph with the dense prefill's share.  The dense prefill must launch
-    on the tensor-core body in both passes.
+    on the tensor-core body in both passes;
+11. seamless (``[seamless]`` lines): full seamless-m4t-large-v2 (24
+    encoder and 24 decoder layers, bf16, seeded random weights, 1.63 B
+    parameters; no engine serves the family, as in the reference): 4
+    utterances of 500 seeded frames and 32-token prompts through
+    ``forward(frames=, collect_state=True)``, then 32 greedy
+    ``decode_step``s over ``init_cache(4, 64, src_len=500)``.  The dense
+    prefill must launch 72 times in the forward (24 encoder, 24 self, 24
+    cross), the paged decode 48 times per step, nothing else; every
+    step's logits are held to a teacher-forced ``forward`` at the bf16
+    limit, the greedy tokens to its argmax except at near-ties (counted).
+    Then the encoder alone replayed from a CUDA graph with the dense
+    prefill's share, a decode step's breakdown against the bytes it
+    reads with the paged decode's share, and the peak memory.
 
 The ``kernels`` line counts each kernel's launches over the main-path
-runs of phases 5-10, each counted from 0 just before it.
+runs of phases 5-11, each counted from 0 just before it.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -164,6 +185,7 @@ and nothing of the ``repro`` package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -806,6 +828,49 @@ def kernel_cases(device) -> list:
                                     n=64),
              run_ssd),
         ]
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        sm = dict(h=16, hkv=16)
+        cases += [
+            # seamless-m4t-large-v2 (H = Hkv = 16, D 64): the encoder's
+            # non-causal self-attention over 512 and 500 frames; the
+            # decoder's cross-attention, non-causal at offset 0, of a
+            # 32- or 37-token target over 500 or 512 frames; the cross
+            # decode over a frozen cross K/V whose every length is the
+            # source length (4 pages of 128, or one page of 500)
+            ("flash_prefill", f"{tag} seamless encoder H16 Hkv16 D64 "
+             f"non-causal B4 S512", dtype, False,
+             lambda g, dt: flash_case(g, dt, device, b=4, sq=512, skv=512,
+                                      off=0, causal=False, **sm),
+             run_flash),
+            ("flash_prefill", f"{tag} seamless encoder H16 Hkv16 D64 "
+             f"non-causal B4 S500", dtype, False,
+             lambda g, dt: flash_case(g, dt, device, b=4, sq=500, skv=500,
+                                      off=0, causal=False, **sm),
+             run_flash),
+            ("flash_prefill", f"{tag} seamless cross H16 Hkv16 D64 "
+             f"non-causal B4 Sq32 over Skv500", dtype, False,
+             lambda g, dt: flash_case(g, dt, device, b=4, sq=32, skv=500,
+                                      off=0, causal=False, **sm),
+             run_flash),
+            ("flash_prefill", f"{tag} seamless cross H16 Hkv16 D64 "
+             f"non-causal B4 Sq37 over Skv512", dtype, False,
+             lambda g, dt: flash_case(g, dt, device, b=4, sq=37, skv=512,
+                                      off=0, causal=False, **sm),
+             run_flash),
+            ("paged_decode", f"{tag} seamless cross decode H16 Hkv16 D64 B4 "
+             f"S512 (4 pages), lengths 512", dtype, False,
+             lambda g, dt: decode_case(g, dt, device, b=4, pages_per_seq=4,
+                                       lengths=[512] * 4, tables=False,
+                                       **sm),
+             run_decode),
+            ("paged_decode", f"{tag} seamless cross decode H16 Hkv16 D64 B4 "
+             f"S500 (one page of 500), lengths 500", dtype, False,
+             lambda g, dt: decode_case(g, dt, device, b=4, pages_per_seq=1,
+                                       lengths=[500] * 4, tables=False,
+                                       page=500, **sm),
+             run_decode),
+        ]
     cases.append(
         ("chunked_prefill_paged", "bf16 nemotron H96 Hkv8 D192 R4 C256 over "
          "384", torch.bfloat16, False,
@@ -839,9 +904,10 @@ def kernel_cases(device) -> list:
 
 MLA_COLD_CASE = "bf16 deepseek MLA H128 Hkv128 Dq192 Dv128 causal B1 S369"
 # these bf16 cases must run the tensor-core body of the prefills: the
-# other paged families' head shapes, zamba2's rep-1 prefills and
-# deepseek-v3's MLA prefills
-TENSOR_CORE_CASES = ("D160", "D192", "zamba2", "deepseek MLA")
+# other paged families' head shapes, zamba2's rep-1 prefills,
+# deepseek-v3's MLA prefills and seamless-m4t's non-causal encoder and
+# cross-attention
+TENSOR_CORE_CASES = ("D160", "D192", "zamba2", "deepseek MLA", "seamless")
 # these bf16 cases also time the FMA body on the same inputs (the
 # tensor-core instance's "before")
 FMA_BEFORE_CASES = (MLA_COLD_CASE,)
@@ -1260,6 +1326,79 @@ def phase_ring_model(cfg, device, *, seed=0, prompt_len=180, window=200,
         f"{prompt_len + steps - 1} (the ring wraps at {window}), card vs "
         f"CPU max abs err {worst:.3e}; paged_decode launched {launched} "
         f"times over one page of {window}")
+
+
+def _load_prefill(cache, state, prompt_len: int) -> None:
+    """An encoder-decoder's decode cache filled from its prefill
+    ``state``: the prompt's self K/V in the first ``prompt_len`` slots
+    and the whole cross K/V."""
+    for k in ("k", "v"):
+        cache["kv"][k][:, :, :prompt_len] = state["kv"][k]
+        cache["cross"][k].copy_(state["cross"][k])
+
+
+def phase_encdec_model(cfg, device, *, seed=0, s_src=256, prompt_len=40,
+                       steps=8) -> None:
+    """An encoder-decoder on the card against the CPU: the encoder output
+    of ``s_src`` seeded frames (two 128-token pages to the cross decode),
+    ``forward`` logits with the collected self and cross K/V over a
+    ``prompt_len``-token target, and ``steps`` ``decode_step``s from
+    that prefill, both devices fed the CPU's greedy tokens.  On the card
+    every step launches the paged-decode kernel twice per layer (self
+    and cross) and the forward the dense prefill three times per decoder
+    layer's worth (encoder, self, cross)."""
+    from repro_torch.kernels.chunked_prefill import flash_prefill
+    from repro_torch.kernels.paged_attention import paged_decode
+    from repro_torch.models.model import Model
+
+    name = cfg.name
+    log(f"[model] {name}: {cfg.num_encoder_layers} encoder + "
+        f"{cfg.num_layers} decoder layers, d {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, vocab "
+        f"{cfg.vocab_size}, {s_src} frames, {cfg.dtype}")
+    gpu = Model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(seed))
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(3, cfg.vocab_size, (2, prompt_len)))
+    frames = torch.from_numpy(
+        (rng.standard_normal((2, s_src, cfg.d_model)) * 0.5)
+        .astype(np.float32))
+    _close(f"{name} encoder output", gpu.encode(frames.to(device)),
+           cpu.encode(frames))
+    flash0, paged0 = flash_prefill.launches, paged_decode.launches
+    runs = []
+    for m, dev in ((gpu, device), (cpu, torch.device("cpu"))):
+        lg, st = m.forward(toks.to(dev), frames=frames.to(dev),
+                           collect_state=True)
+        cache = m.init_cache(2, prompt_len + steps, src_len=s_src)
+        _load_prefill(cache, st, prompt_len)
+        runs.append((m, dev, cache, lg, st))
+    _close(f"{name} forward", runs[0][3], runs[1][3])
+    for part in ("kv", "cross"):
+        for k in ("k", "v"):
+            _close(f"{name} forward {part} {k}", runs[0][4][part][k],
+                   runs[1][4][part][k])
+    nxt = torch.argmax(runs[1][3][:, -1], dim=-1).to(torch.int32)
+    pos = torch.full((2,), prompt_len, dtype=torch.int32)
+    for i in range(steps):
+        out = [m.decode_step(cache, nxt[:, None].to(dev), pos.to(dev))[:, 0]
+               for m, dev, cache, _, _ in runs]
+        _close(f"{name} decode_step {i} at position {prompt_len + i}",
+               out[0], out[1])
+        nxt = torch.argmax(out[1], dim=-1).to(torch.int32)
+        pos = pos + 1
+    flash = flash_prefill.launches - flash0
+    paged = paged_decode.launches - paged0
+    if (flash != cfg.num_encoder_layers + 2 * cfg.num_layers
+            or paged != 2 * cfg.num_layers * steps):
+        raise AssertionError(f"{name}: forward and {steps} steps launched "
+                             f"flash_prefill {flash} and paged_decode "
+                             f"{paged} times")
+    log(f"[model] {name}: forward launched flash_prefill {flash} times, "
+        f"{steps} decode_steps paged_decode {paged} times")
+    del gpu, cpu
 
 
 # ---------------------------------------------------------------------------
@@ -2534,7 +2673,7 @@ def phase_cluster(tiny, mamba, device, *, n_requests=8, max_new=32) -> dict:
 # phase 8: the other paged families at full width
 # ---------------------------------------------------------------------------
 
-def _build_model(cfg, device, seed: int):
+def _build_model(cfg, device, seed: int, tag: str = "families"):
     from repro_torch.models.model import Model
 
     t0 = time.perf_counter()
@@ -2544,7 +2683,7 @@ def _build_model(cfg, device, seed: int):
     n = sum(p.numel() for p in model.parameters())
     moe = (f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok} of "
            f"width {cfg.expert_d_ff}, " if cfg.num_experts else "")
-    log(f"[families] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, {moe}"
         f"{n / 1e9:.2f} B parameters ({cfg.dtype}), KV "
         f"{cfg.kv_cache_bytes_per_token()} B per token, init "
@@ -3050,6 +3189,176 @@ def phase_mla(device, *, n_requests=8, max_new=32, max_seq_len=1024,
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the encoder-decoder, seamless-m4t-large-v2
+# ---------------------------------------------------------------------------
+
+def phase_seamless(device, *, batch=4, s_src=500, prompt_len=32,
+                   steps=32) -> dict:
+    """Full seamless-m4t-large-v2 (24 encoder and 24 decoder layers,
+    bf16, seeded random weights; no engine serves the family, as in the
+    reference): ``batch`` utterances of ``s_src`` seeded frames (x 0.5,
+    as ``tests/test_arch_smoke.py`` draws them) and ``prompt_len``-token
+    target prompts through ``forward(frames=, collect_state=True)``,
+    the self cache from ``init_cache(batch, prompt_len + steps,
+    src_len=s_src)``, then ``steps`` greedy ``decode_step``s.  The launch
+    counts are zeroed just before that run and read just after: the
+    dense prefill must launch 3 times per decoder layer's worth
+    (encoder, self, cross) in the forward, the paged decode twice per
+    layer and step (self, cross), nothing else.  Every step's logits are
+    held to a teacher-forced ``forward`` over the prompt and the
+    generated tokens at ``BF16_LOGIT_TOL``; the greedy token must equal
+    the forward's argmax except where the forward's top-2 margin lies
+    inside that limit (a near-tie, counted).  Then the encoder alone
+    replayed from a CUDA graph with the dense prefill's share, a decode
+    step's breakdown (``time_step``) against the bytes it must read with
+    the paged decode's share, and the peak memory.  Returns the launch
+    counts of the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.chunked_prefill import prefill_body
+    from repro_torch.models.attention import _paged
+    from repro_torch.models.layers import torch_dtype
+
+    cfg = get_config("seamless-m4t-large-v2")
+    name = cfg.name
+    dt = torch_dtype(cfg.dtype)
+    L = cfg.num_layers
+    # the peak is taken above what earlier phases still hold
+    held = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    model = _build_model(cfg, device, 0, tag="seamless")
+    log(f"[seamless] {name}: {cfg.num_encoder_layers} encoder + {L} decoder "
+        f"layers, {cfg.param_count():,} parameters (ModelConfig), every "
+        f"width as published (no cut); {batch} utterances of {s_src} "
+        f"frames, {prompt_len}-token prompts, {steps} greedy steps; K4 body "
+        f"{prefill_body(dt, cfg.head_dim, cfg.head_dim)}")
+    gen = torch.Generator(device=device).manual_seed(21)
+    frames = torch.randn(batch, s_src, cfg.d_model, generator=gen,
+                         device=device) * 0.5
+    toks = torch.randint(3, cfg.vocab_size, (batch, prompt_len),
+                         generator=gen, device=device, dtype=torch.int32)
+
+    def run():
+        logits, state = model.forward(toks, frames=frames,
+                                      collect_state=True)
+        fwd = {k: f.launches for k, f in kernel_fns().items()}
+        cache = model.init_cache(batch, prompt_len + steps, src_len=s_src)
+        _load_prefill(cache, state, prompt_len)
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)
+        out, step_logits = [nxt], []
+        pos = torch.full((batch,), prompt_len, dtype=torch.int32,
+                         device=device)
+        for _ in range(steps):
+            lg = model.decode_step(cache, nxt[:, None], pos)[:, 0]
+            step_logits.append(lg)
+            nxt = lg.argmax(-1).to(torch.int32)
+            out.append(nxt)
+            pos = pos + 1
+        sync(device)
+        return fwd, cache, torch.stack(out, 1), torch.stack(step_logits, 1)
+
+    t0 = time.perf_counter()
+    (fwd, cache, gen_toks, step_logits), counts = counted(run)
+    run_s = time.perf_counter() - t0
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_prefill=cfg.num_encoder_layers + 2 * L,
+                paged_decode=2 * L * steps)
+    if fwd["flash_prefill"] != want["flash_prefill"] or counts != want:
+        raise AssertionError(f"{name}: launches {counts} (the forward's "
+                             f"{fwd}), want {want}")
+    log(f"[seamless] {name}: forward + {steps} decode steps in {run_s:.2f} s "
+        f"(eager, first run); launches {counts}: flash_prefill "
+        f"{fwd['flash_prefill']} per forward, paged_decode {2 * L} per step")
+
+    # teacher-forced: one forward over the prompt and the fed tokens
+    full = torch.cat([toks, gen_toks[:, :steps]], 1)
+    ref = model.forward(full, frames=frames)[0][:, prompt_len:].float()
+    got = step_logits.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite decode logits")
+    err = (got - ref).abs()
+    lim = BF16_LOGIT_TOL["atol"] + BF16_LOGIT_TOL["rtol"] * ref.abs()
+    worst = (err / lim).max().item()
+    top2 = ref.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    tie = margin <= (BF16_LOGIT_TOL["atol"]
+                     + BF16_LOGIT_TOL["rtol"] * top2[..., 0].abs())
+    differ = gen_toks[:, 1:] != ref.argmax(-1)
+    log(f"[seamless] {name}: {steps} decode steps x {batch} rows vs a "
+        f"teacher-forced forward: max abs err {err.max().item():.3e} "
+        f"({worst:.4f} x the bf16 limit {BF16_LOGIT_TOL}; "
+        f"{int((err > lim / 2).sum())} of {err.numel()} logits past half "
+        f"of it); argmax differs "
+        f"at {int(differ.sum())} of {differ.numel()} positions, near-ties "
+        f"(top-2 margin inside the limit) {int(tie.sum())}")
+    if worst > 1.0 or bool((differ & ~tie).any()):
+        raise AssertionError(f"{name}: the decode steps leave the "
+                             "teacher-forced forward")
+    del ref, got, err, lim
+
+    # the encoder alone, and K4's share of it
+    def encode():
+        return model.encode(frames)
+
+    encode()
+    enc_ms = graph_replay_ms(encode, f"{name} encoder", iters=5)
+    args, n_bytes, flops = flash_case(gen, dt, device, b=batch, sq=s_src,
+                                      skv=s_src, off=0, causal=False,
+                                      h=cfg.num_heads, hkv=cfg.num_kv_heads,
+                                      d=cfg.head_dim, dv=cfg.head_dim)
+    timer = Timer(device)
+    k4_ms = timer.ms(run_flash(args)[0])
+    enc = list(model.encoder.parameters())
+    enc_flops = (2 * sum(p.numel() for p in enc) * batch * s_src
+                 + cfg.num_encoder_layers * flops)
+    # its weights and the frames read once, its output written once
+    enc_bytes = (nbytes(*enc, frames)
+                 + batch * s_src * cfg.d_model * model.embed.tok.element_size())
+    enc_bound, enc_by = bound_ms(enc_bytes, enc_flops, dt)
+    row = dict(model=name, batch=batch, frames=s_src,
+               graph_encoder_ms=enc_ms, encoder_bound_ms=enc_bound,
+               encoder_bound_by=enc_by, flash_prefill_ms=k4_ms,
+               flash_prefill_share_of_graph_encoder=(
+                   cfg.num_encoder_layers * k4_ms / enc_ms))
+    log(f"[seamless] encoder {json.dumps(row)}")
+
+    # one decode step at the last position, and K1's share of it
+    step_toks = gen_toks[:, -1:].contiguous()
+    step_pos = torch.full((batch,), prompt_len + steps - 1, dtype=torch.int32,
+                          device=device)
+    step = dict(model=name, batch=batch, frames=s_src,
+                length=prompt_len + steps, **time_step(
+                    lambda: model.decode_step(cache, step_toks, step_pos),
+                    device))
+    q = torch.randn(batch, cfg.num_heads, cfg.head_dim, generator=gen,
+                    device=device).to(dt)
+    src_lens = torch.full((batch,), s_src, dtype=torch.int32, device=device)
+    self_ms = timer.ms(lambda: _paged(q, cache["kv"]["k"][0],
+                                      cache["kv"]["v"][0], step_pos + 1))
+    cross_ms = timer.ms(lambda: _paged(q, cache["cross"]["k"][0],
+                                       cache["cross"]["v"][0], src_lens))
+    # a step reads the decoder's weights (the cross blocks included, the
+    # encoder's not), B rows of the embedding table, the self and cross
+    # caches
+    tok = model.embed.tok
+    dec = (sum(p.numel() * p.element_size() for p in model.parameters())
+           - sum(p.numel() * p.element_size()
+                 for p in model.encoder.parameters())
+           - tok.numel() * tok.element_size())
+    read = (dec + batch * cfg.d_model * tok.element_size()
+            + nbytes(*cache["kv"].values(), *cache["cross"].values()))
+    step.update(bytes_read=read, step_bound_ms=read / HBM_BYTES_PER_S * 1e3,
+                paged_decode_self_ms=self_ms, paged_decode_cross_ms=cross_ms,
+                paged_decode_share_of_graph_step=(
+                    L * (self_ms + cross_ms) / step["graph_step_ms"]),
+                peak_memory_gb=(torch.cuda.max_memory_allocated(device)
+                                - held) / 1e9,
+                held_at_start_gb=held / 1e9)
+    log(f"[seamless] step {json.dumps(step)}")
+    del model, cache
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3100,6 +3409,9 @@ def main() -> int:
     phase_mla_model(get_config("deepseek-v3-671b").replace(
         num_layers=2, first_k_dense=1, num_experts=16, capacity_factor=2.0,
         dtype="float32"), device)
+    # seamless-m4t at full width, 2 encoder and 2 decoder layers
+    phase_encdec_model(get_config("seamless-m4t-large-v2").replace(
+        num_layers=2, num_encoder_layers=2, dtype="float32"), device)
     torch.cuda.empty_cache()
     log(f"[phase] model {time.perf_counter() - t0:.1f} s")
 
@@ -3129,9 +3441,14 @@ def main() -> int:
     t0 = time.perf_counter()
     mla_counts = phase_mla(device)
     log(f"[phase] mla {time.perf_counter() - t0:.1f} s")
+    gc.collect()               # earlier phases' models held in cycles
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    seamless_counts = phase_seamless(device)
+    log(f"[phase] seamless {time.perf_counter() - t0:.1f} s")
     # launches over every phase's main-path runs, each counted from 0
     for phase in (*fabric_counts.values(), cluster_counts, family_counts,
-                  hybrid_counts, mla_counts):
+                  hybrid_counts, mla_counts, seamless_counts):
         for k in KERNELS:
             counts[k] += phase[k]
 

@@ -5,8 +5,9 @@ The port's own copy of ``repro/configs/__init__.py``'s ``get_config`` and
 ``skymemory-tinyllama``, the dense GQA, MoE and VLM families the paged
 engine serves, and the attention-free ``mamba2-1.3b``, the hybrid
 ``zamba2-1.2b`` and the MLA ``deepseek-v3-671b`` the dense runtime
-serves; the reference's encoder-decoder architecture arrives with the
-family that serves it (see ROADMAP.md).
+serves, and the encoder-decoder ``seamless-m4t-large-v2``, which runs
+through ``Model.forward(frames=)`` and ``Model.decode_step`` (no engine
+serves it, as in the reference).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ ARCH_IDS = [
     "granite-moe-3b-a800m",  # MoE, stop-the-world admission
     "stablelm-12b",          # head_dim 160, partial rotary, LayerNorm
     "deepseek-v3-671b",      # MLA + MoE, the dense runtime
+    "seamless-m4t-large-v2", # encoder-decoder: frames -> cross-attention
     "skymemory-tinyllama",   # the paper's own testbed model (§5)
 ]
 

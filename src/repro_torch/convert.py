@@ -10,7 +10,11 @@ they are unstacked into ``Model.blocks``.  An MLA model with
 ``params["blocks_dense"]``: layer ``l < first_k_dense`` comes from
 there, the rest from ``params["blocks"]`` at ``l - first_k_dense``.
 The hybrid's unstacked ``params["shared_attn"]`` fills
-``Model.shared_attn``.  Weight layouts are the same (``[in, out]``).
+``Model.shared_attn``.  The encoder-decoder's ``params["encoder"]``
+(stacked ``blocks`` and the ``norm``) fills ``Model.encoder`` and
+``Model.encoder_norm``, and its stacked ``params["cross"]`` (``norm``,
+``attn``) fills ``Model.cross``.  Weight layouts are the same
+(``[in, out]``).
 """
 from __future__ import annotations
 
@@ -38,8 +42,11 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> Model:
     on a subtree the model has no place for (``SKIPPED`` aside) and on a
     shape that differs from the model's."""
     model = Model(cfg, device=device)
-    unread = set(tree) - {"embed", "blocks", "blocks_dense", "shared_attn",
-                          "final_norm", *SKIPPED}
+    readable = {"embed", "blocks", "blocks_dense", "shared_attn",
+                "final_norm", *SKIPPED}
+    if cfg.is_encoder_decoder:
+        readable |= {"encoder", "cross"}
+    unread = set(tree) - readable
     if unread:
         raise ValueError(f"{cfg.name}: parameters the port does not read: "
                          f"{sorted(unread)}")
@@ -71,6 +78,16 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> Model:
     if model.shared_attn is not None:
         for name, param in model.shared_attn.named_parameters():
             put(param, node(tree["shared_attn"], name))
+    if model.encoder is not None:
+        enc = tree["encoder"]
+        for i, blk in enumerate(model.encoder):
+            for name, param in blk.named_parameters():
+                put(param, node(enc["blocks"], name)[i])
+        for name, param in model.encoder_norm.named_parameters():
+            put(param, enc["norm"][name])
+        for l, cb in enumerate(model.cross):
+            for name, param in cb.named_parameters():
+                put(param, node(tree["cross"], name)[l])
     for name, param in model.final_norm.named_parameters():
         put(param, tree["final_norm"][name])
     return model

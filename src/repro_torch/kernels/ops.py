@@ -29,8 +29,16 @@ def _on_cpu(t: torch.Tensor) -> bool:
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     sliding_window: int | None = None, lengths=None,
                     softmax_scale: float | None = None):
-    """Prefill attention ([B,Sq,H,D] x [B,Skv,Hkv,D])."""
+    """Prefill attention ([B,Sq,H,D] x [B,Skv,Hkv,D]).  On the CPU a
+    long key sequence (``Skv >= STREAMING_KV_THRESHOLD``, no
+    ``lengths``) streams over key blocks and never builds the full
+    score matrix, as the reference's jnp path does."""
     if _on_cpu(q):
+        if lengths is None and k.shape[1] >= ref.STREAMING_KV_THRESHOLD:
+            return ref.attention_streaming_ref(
+                q, k, v, causal=causal, q_offset=q_offset,
+                sliding_window=sliding_window, softmax_scale=softmax_scale,
+                block_k=ref.STREAMING_BLOCK_K)
         return ref.attention_ref(
             q, k, v, causal=causal, q_offset=q_offset,
             sliding_window=sliding_window, lengths=lengths,

@@ -4,9 +4,10 @@ These are the semantics of record for the port's CUDA kernels, and the
 path a CPU tensor takes: ``kernels/ops.py`` sends CPU inputs here and
 CUDA inputs to the kernels, and ``chip_smoke.py`` holds each kernel
 against its plain version on the card.  They mirror
-``repro/kernels/ref.py`` (``attention_ref``, ``paged_attention_ref`` in
-both layouts, ``chunked_prefill_paged_ref``, ``ssd_scan_ref``,
-``ssd_decode_step_ref``) and compute scores and states in f32.
+``repro/kernels/ref.py`` (``attention_ref``, ``attention_streaming_ref``,
+``paged_attention_ref`` in both layouts, ``chunked_prefill_paged_ref``,
+``ssd_scan_ref``, ``ssd_decode_step_ref``) and compute scores and
+states in f32.
 """
 from __future__ import annotations
 
@@ -59,6 +60,61 @@ def attention_ref(
         logits = torch.where(valid, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+STREAMING_KV_THRESHOLD = 8192
+STREAMING_BLOCK_K = 2048
+
+
+def attention_streaming_ref(
+    q: torch.Tensor,              # [B, Sq, H, Dq]
+    k: torch.Tensor,              # [B, Skv, Hkv, Dq]
+    v: torch.Tensor,              # [B, Skv, Hkv, Dv]
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    sliding_window: int | None = None,
+    softmax_scale: float | None = None,
+    block_k: int = STREAMING_BLOCK_K,
+) -> torch.Tensor:
+    """``attention_ref``'s function with an online softmax over key
+    blocks of ``block_k``: the (Sq x Skv) score matrix is never built,
+    only one (Sq x block_k) block at a time, in f32.  The last block is
+    zero-padded and its padding masked.  Returns ``[B, Sq, H, Dv]`` in
+    q's dtype."""
+    b, sq, h, d = q.shape
+    dv = v.shape[-1]
+    skv = k.shape[1]
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    dev = q.device
+    q32 = q.float()
+    q_pos = torch.arange(sq, device=dev)[:, None] + q_offset
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=dev)
+    for k0 in range(0, skv, block_k):
+        kb = _repeat_kv(k[:, k0:k0 + block_k], h).float()
+        vb = _repeat_kv(v[:, k0:k0 + block_k], h).float()
+        pad = block_k - kb.shape[1]
+        if pad:
+            kb = torch.nn.functional.pad(kb, (0, 0, 0, 0, 0, pad))
+            vb = torch.nn.functional.pad(vb, (0, 0, 0, 0, 0, pad))
+        s = torch.einsum("bqhd,bkhd->bhqk", q32, kb) * scale
+        k_pos = torch.arange(k0, k0 + block_k, device=dev)[None, :]
+        mask = (k_pos < skv).expand(sq, block_k)
+        if causal:
+            mask = mask & (k_pos <= q_pos)
+        if sliding_window is not None:
+            mask = mask & (k_pos > q_pos - sliding_window)
+        s = torch.where(mask[None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def paged_attention_ref(

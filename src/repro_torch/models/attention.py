@@ -1,6 +1,7 @@
-"""GQA attention: dense prefill, paged chunked prefill, paged decode and
-decode over a dense per-sequence cache, ported from
-``repro/models/attention.py``.
+"""GQA attention: dense prefill (causal, or non-causal for an encoder
+and for cross-attention), paged chunked prefill, paged decode, and
+decode over a dense per-sequence cache or a frozen cross K/V, ported
+from ``repro/models/attention.py``.
 
 The paged functions update the per-layer pool views ``k_pool`` /
 ``v_pool``, and ``attention_decode`` the per-layer cache views
@@ -40,32 +41,44 @@ class Attention(nn.Module):
             dense_init_(w, generator)
 
 
-def _project_qkv(p: Attention, x, cfg: ModelConfig):
+def _project_qkv(p: Attention, x, cfg: ModelConfig, kv_x=None):
+    """q from ``x``, and k / v from ``kv_x`` (cross-attention's source)
+    or, without it, from ``x``."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kv_x = x if kv_x is None else kv_x
+    skv = kv_x.shape[1]
     q = (x @ p.wq).reshape(b, s, h, hd)
-    k = (x @ p.wk).reshape(b, s, hkv, hd)
-    v = (x @ p.wv).reshape(b, s, hkv, hd)
+    k = (kv_x @ p.wk).reshape(b, skv, hkv, hd)
+    v = (kv_x @ p.wv).reshape(b, skv, hkv, hd)
     return q, k, v
 
 
 def attention_prefill(p: Attention, x, cfg: ModelConfig, *, q_offset: int = 0,
-                      kv_cache: tuple | None = None):
-    """Full-sequence causal attention; returns ``(out, (k, v))``.
+                      kv_cache: tuple | None = None, kv_x=None,
+                      causal: bool = True):
+    """Full-sequence attention; returns ``(out, (k, v))``.
     ``kv_cache=(k_prefix, v_prefix)`` [B, Sp, Hkv, hd] is a restored
     prefix: fresh K/V are appended after it and queries attend across
-    both (the dense flash kernel with ``q_offset = Sp``)."""
+    both (the dense flash kernel with ``q_offset = Sp``).
+
+    ``causal=False`` is the encoder's self-attention (RoPE as usual).
+    With ``kv_x`` [B, S_src, d_model] the call is cross-attention: K/V
+    are projected from ``kv_x``, neither q nor k gets RoPE, and every
+    query sees every source position (non-causal, offset 0)."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg)
-    pos = torch.arange(s, device=x.device) + q_offset
-    q = apply_rope(q, pos, cfg.rope_theta, cfg.rotary_pct)
-    k = apply_rope(k, pos, cfg.rope_theta, cfg.rotary_pct)
+    cross = kv_x is not None
+    q, k, v = _project_qkv(p, x, cfg, kv_x)
+    if not cross:
+        pos = torch.arange(s, device=x.device) + q_offset
+        q = apply_rope(q, pos, cfg.rope_theta, cfg.rotary_pct)
+        k = apply_rope(k, pos, cfg.rope_theta, cfg.rotary_pct)
     if kv_cache is not None:
         k = torch.cat([kv_cache[0].to(k.dtype), k], dim=1)
         v = torch.cat([kv_cache[1].to(v.dtype), v], dim=1)
-    out = ops.flash_attention(
-        q, k, v, causal=True,
-        q_offset=kv_cache[0].shape[1] if kv_cache is not None else 0)
+    offset = kv_cache[0].shape[1] if kv_cache is not None and not cross else 0
+    out = ops.flash_attention(q, k, v, causal=causal and not cross,
+                              q_offset=offset)
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
     return out @ p.wo, (k, v)
 
@@ -190,12 +203,20 @@ def attention_decode_paged(p: Attention, x, cfg: ModelConfig, *, k_pool,
     return out.reshape(b, 1, h * hd) @ p.wo
 
 
-def attention_decode(p: Attention, x, cfg: ModelConfig, *, k_cache, v_cache,
-                     pos, sliding_window: int | None = None):
+def attention_decode(p: Attention, x, cfg: ModelConfig, *, k_cache=None,
+                     v_cache=None, pos=None,
+                     sliding_window: int | None = None,
+                     cross_kv: tuple | None = None):
     """One-token decode over a dense per-sequence cache; ``x`` [B, 1,
     d_model], ``k_cache``/``v_cache`` [B, S, Hkv, hd] (one layer, updated
     in place), ``pos`` [B] int32 tokens already cached per sequence.
     Returns the attention output [B, 1, d_model].
+
+    With ``cross_kv=(k, v)`` [B, S_src, Hkv, hd] (one layer of the
+    encoder-decoder's frozen cross K/V) the call is cross-attention
+    instead: q = ``x @ wq`` without RoPE attends over all ``S_src``
+    positions of every row, and nothing is written (the self cache and
+    ``pos`` are not read).
 
     RoPE is applied at the absolute position ``pos`` before the write.
     With ``sliding_window`` the cache is a ring of ``S`` slots: the new
@@ -210,6 +231,12 @@ def attention_decode(p: Attention, x, cfg: ModelConfig, *, k_cache, v_cache,
     step."""
     b = x.shape[0]
     h, hd = cfg.num_heads, cfg.head_dim
+    if cross_kv is not None:
+        k, v = cross_kv
+        q = (x @ p.wq).reshape(b, h, hd)
+        lengths = torch.full((b,), k.shape[1], dtype=torch.int32,
+                             device=x.device)
+        return _paged(q, k, v, lengths).reshape(b, 1, h * hd) @ p.wo
     s_cache = k_cache.shape[1]
     q, k_new, v_new = _project_qkv(p, x, cfg)
     positions = pos[:, None]

@@ -2,7 +2,8 @@
 engine's device-resident K/V page pool (dense-attention families) and the
 dense per-sequence caches of the families ``DenseRuntime`` serves
 (``init_cache``: the SSM state, the hybrid's state and shared-attention
-K/V, the K/V ring of a sliding-window GQA model, and the MLA latents).
+K/V, the K/V ring of a sliding-window GQA model, the MLA latents, and
+the encoder-decoder's self K/V and frozen cross K/V).
 
 ``PagedKVCache`` holds ``k_pool`` / ``v_pool`` of shape
 ``[layers, num_pages, page_size, kv_heads, head_dim]`` on the engine's
@@ -61,7 +62,7 @@ def cache_len(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int | None = None, *,
-               device) -> dict:
+               src_len: int | None = None, device) -> dict:
     """The dense decode cache of ``batch`` sequences, zeros:
 
     * SSM: ``{"ssm": {"conv": [L, B, K-1, d_inner + 2 G N]`` in the
@@ -71,16 +72,27 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int | None = None, *,
       block's ``n_attn_layers`` invocations;
     * the GQA families: ``"kv"`` for every layer;
     * MLA: ``{"mla": {"ckv": [L, B, S, kv_lora_rank], "kr": [L, B, S,
-      qk_rope_head_dim]}}``, the latents alone.
+      qk_rope_head_dim]}}``, the latents alone;
+    * the encoder-decoder: ``"kv"`` for every decoder layer, and
+      ``"cross": {"k", "v"}`` of ``[L, B, src_len, Hkv, hd]``, which
+      ``Model.forward``'s collected ``state["cross"]`` fills.
 
     ``kv`` and ``mla`` arrays hold ``S = cache_len(cfg, seq_len)`` tokens
     in ``kvc_dtype`` or the model dtype: a ring of ``sliding_window``
     slots when the window is shorter than ``seq_len``.  An int8 latent
-    cache and the encoder-decoder cross K/V are not ported."""
+    cache is not ported.  The encoder-decoder needs ``src_len`` (the
+    reference sizes the cross K/V at ``seq_len`` without it, and attends
+    its zero rows as valid), and refuses an int8 cache (the reference
+    reads an int8 cross K/V without dequantizing it): ROADMAP.md
+    section 3."""
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder decode cache is not ported "
-            "yet (ROADMAP.md queue 1)")
+        if src_len is None:
+            raise ValueError(f"{cfg.name}: the cross K/V cache needs "
+                             "src_len")
+        if cfg.kvc_dtype == "int8":
+            raise NotImplementedError(
+                f"{cfg.name}: an int8 encoder-decoder cache is not ported "
+                "(ROADMAP.md section 3)")
     if cfg.use_mla:
         if cfg.kvc_dtype == "int8":
             # the reference casts each new latent into an int8 cache by
@@ -117,6 +129,11 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int | None = None, *,
         dt = torch_dtype(cfg.kvc_dtype or cfg.dtype)
         cache["kv"] = {"k": torch.zeros(shape, dtype=dt, device=device),
                        "v": torch.zeros(shape, dtype=dt, device=device)}
+    if cfg.is_encoder_decoder:
+        shape = (cfg.num_layers, batch, src_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        cache["cross"] = {"k": torch.zeros(shape, dtype=dt, device=device),
+                          "v": torch.zeros(shape, dtype=dt, device=device)}
     return cache
 
 

@@ -1,26 +1,31 @@
 """The model, ported from ``repro/models/model.py``: the GQA decoder
 (dense, MoE, and the VLM backbone, with or without a sliding window),
 the MLA decoder (deepseek-v3), the attention-free SSM (Mamba-2) stack,
-and the hybrid (zamba2: SSM layers with one shared attention block).
+the hybrid (zamba2: SSM layers with one shared attention block), and
+the encoder-decoder (seamless-m4t).
 
 ``Model`` is an ``nn.Module`` holding its weights (``embed``, an
-``nn.ModuleList`` of ``blocks``, ``final_norm``, and the hybrid's
-``shared_attn``) on one device.  The reference's ``lax.scan`` over
-stacked layers, and its segmented scans of the hybrid, are a Python loop
-over ``self.blocks``: the hybrid runs its shared block after every layer
-``l`` with ``cfg.is_attn_layer(l)``, which is the reference's period
-segmentation.  A block's attention is ``Attention`` or, with
-``cfg.use_mla``, ``MLA``; its feed-forward is its ``mlp`` or, when
-``cfg.num_experts``, its ``moe``, except in the first
+``nn.ModuleList`` of ``blocks``, ``final_norm``, the hybrid's
+``shared_attn``, and the encoder-decoder's ``encoder``,
+``encoder_norm`` and ``cross``) on one device.  The reference's
+``lax.scan`` over stacked layers, and its segmented scans of the hybrid,
+are a Python loop over ``self.blocks``: the hybrid runs its shared block
+after every layer ``l`` with ``cfg.is_attn_layer(l)``, which is the
+reference's period segmentation.  A block's attention is ``Attention``
+or, with ``cfg.use_mla``, ``MLA``; its feed-forward is its ``mlp`` or,
+when ``cfg.num_experts``, its ``moe``, except in the first
 ``cfg.first_k_dense`` layers of an MLA model (the reference applies
 ``first_k_dense`` only with MLA, as two stacks, ``blocks_dense`` and
-``blocks``; here they are one ``nn.ModuleList``).  The GQA families
-without a window serve through the paged steps, which write each
-layer's K/V into ``k_pool[l]`` / ``v_pool[l]`` in place; the SSM,
-hybrid and MLA families and a windowed GQA model through
-``decode_step`` over the dense cache of ``init_cache``.  The
-encoder-decoder family raises ``NotImplementedError``; the MLA model's
-multi-token-prediction head is training-only and not built.
+``blocks``; here they are one ``nn.ModuleList``).  The encoder-decoder
+encodes ``frames`` (the stubbed speech frontend's embeddings) with
+non-causal self-attention, and each decoder layer attends over the
+encoder output through its cross block (``cross[l]``) after its
+self-attention.  The GQA families without a window serve through the
+paged steps, which write each layer's K/V into ``k_pool[l]`` /
+``v_pool[l]`` in place; the SSM, hybrid and MLA families and a windowed
+GQA model through ``decode_step`` over the dense cache of
+``init_cache``, which also holds the encoder-decoder's cross K/V.  The
+MLA model's multi-token-prediction head is training-only and not built.
 """
 from __future__ import annotations
 
@@ -45,15 +50,6 @@ from repro_torch.models.layers import MLP, Embed, Norm
 from repro_torch.models.mla import MLA, mla_decode, mla_prefill
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssd import SSD, ssd_decode, ssd_prefill
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if (cfg.arch_type not in ("dense", "moe", "vlm", "ssm", "hybrid")
-            or cfg.is_encoder_decoder):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA, MoE, MLA, VLM, SSM and hybrid "
-            "families are ported; the encoder-decoder family waits for "
-            "ROADMAP.md queue 1")
 
 
 def _moe_layer(cfg: ModelConfig, layer: int) -> bool:
@@ -92,10 +88,11 @@ class SSMBlock(nn.Module):
         self.ssd = SSD(cfg, device)
 
 
-class SharedAttn(nn.Module):
-    """The hybrid's shared attention block (``params["shared_attn"]``):
-    a norm and attention, no feed-forward, one set of weights reused at
-    every attention layer of the stack."""
+class NormAttn(nn.Module):
+    """A norm and attention, no feed-forward: the hybrid's shared block
+    (``params["shared_attn"]``, one set of weights reused at every
+    attention layer of the stack) and a decoder layer's cross block
+    (``params["cross"]``, one per layer of the encoder-decoder)."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -104,14 +101,13 @@ class SharedAttn(nn.Module):
 
 
 class Model(nn.Module):
-    """GQA or MLA decoder, SSM stack or hybrid on ``device`` (default
-    ``"cuda"``, which raises when no CUDA device is present).  Weights
-    are uninitialised until ``init`` or
+    """GQA or MLA decoder, SSM stack, hybrid or encoder-decoder on
+    ``device`` (default ``"cuda"``, which raises when no CUDA device is
+    present).  Weights are uninitialised until ``init`` or
     ``repro_torch.convert.params_from_numpy`` fills them."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda"):
         super().__init__()
-        _check_family(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         # the SSM and hybrid stacks are SSD layers
@@ -121,8 +117,16 @@ class Model(nn.Module):
             SSMBlock(cfg, self.device) if self.is_ssm
             else Block(cfg, self.device, moe=_moe_layer(cfg, l))
             for l in range(cfg.num_layers))
-        self.shared_attn = (SharedAttn(cfg, self.device)
+        self.shared_attn = (NormAttn(cfg, self.device)
                             if cfg.arch_type == "hybrid" else None)
+        self.encoder = self.encoder_norm = self.cross = None
+        if cfg.is_encoder_decoder:
+            self.encoder = nn.ModuleList(
+                Block(cfg, self.device, moe=False)
+                for _ in range(cfg.num_encoder_layers))
+            self.encoder_norm = Norm(cfg, self.device)
+            self.cross = nn.ModuleList(NormAttn(cfg, self.device)
+                                       for _ in range(cfg.num_layers))
         self.final_norm = Norm(cfg, self.device)
 
     @torch.no_grad()
@@ -140,17 +144,27 @@ class Model(nn.Module):
                 (blk.moe if blk.is_moe else blk.mlp).init(generator)
         if self.shared_attn is not None:
             self.shared_attn.attn.init(generator)
+        if self.encoder is not None:
+            for blk in self.encoder:
+                blk.attn.init(generator)
+                blk.mlp.init(generator)
+            for cb in self.cross:
+                cb.attn.init(generator)
         return self
 
     # ------------------------------------------------------------------
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, *, q_offset: int = 0,
                 collect_state: bool = False, prefix_state: dict | None = None,
-                image_embeds: torch.Tensor | None = None):
+                image_embeds: torch.Tensor | None = None,
+                frames: torch.Tensor | None = None):
         """Full-sequence causal forward over ``tokens`` [B, S].  The VLM
         family prepends ``image_embeds`` [B, N_img, D] (the stubbed anyres
         patch embeddings), as the reference's ``Model.embed`` does; ``S``
-        then counts both.
+        then counts both.  The encoder-decoder family needs ``frames``
+        [B, S_src, D] (the stubbed speech frontend's embeddings): they are
+        encoded (``encode``) and every decoder layer attends over the
+        encoder output after its self-attention.
 
         Returns ``(logits [B, S, V], state)``; ``state`` is
         ``{"kv": {"k": [L, B, S', Hkv, hd], "v": ...}}`` when
@@ -160,6 +174,10 @@ class Model(nn.Module):
         the dense flash kernel with a non-zero offset.  For MLA the state
         is the latents, ``{"mla": {"ckv": [L, B, S', r], "kr": [L, B, S',
         dr]}}``, and so is the prefix.
+
+        The encoder-decoder's ``state`` also holds each layer's cross
+        K/V, ``{"cross": {"k": [L, B, S_src, Hkv, hd], "v": ...}}``,
+        which ``decode_step`` reads from its cache.
 
         For the SSM family ``state`` is ``{"ssm": {"conv": [L, B, K-1,
         C], "state": [L, B, H, P, N]}}`` and ``prefix_state`` a snapshot
@@ -174,9 +192,15 @@ class Model(nn.Module):
         if self.is_ssm:
             return self._ssm_forward(x, q_offset, collect_state,
                                      prefix_state)
+        enc_out = None
+        if cfg.is_encoder_decoder:
+            if frames is None:
+                raise ValueError(f"{cfg.name}: forward needs frames")
+            enc_out = self.encode(frames)
         part, names = (("mla", ("ckv", "kr")) if cfg.use_mla
                        else ("kv", ("k", "v")))
         layers = []                         # each layer's (k, v) or latents
+        crosses = []                        # each layer's cross (k, v)
         for l, blk in enumerate(self.blocks):
             pref = None
             if prefix_state is not None:
@@ -188,15 +212,39 @@ class Model(nn.Module):
                 a, st = attention_prefill(blk.attn, blk.norm1(x), cfg,
                                           q_offset=q_offset, kv_cache=pref)
             x = x + a
+            if enc_out is not None:
+                cb = self.cross[l]
+                c, ckv = attention_prefill(cb.attn, cb.norm(x), cfg,
+                                           kv_x=enc_out, causal=False)
+                x = x + c
             x = x + blk.ffn(blk.norm2(x))
             if collect_state:
                 layers.append(st)
+                if enc_out is not None:
+                    crosses.append(ckv)
         logits = self.embed.logits(self.final_norm(x))
         state = None
         if collect_state:
             state = {part: {n: torch.stack([st[i] for st in layers])
                             for i, n in enumerate(names)}}
+            if crosses:
+                state["cross"] = {n: torch.stack([c[i] for c in crosses])
+                                  for i, n in enumerate(("k", "v"))}
         return logits, state
+
+    @torch.no_grad()
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder-decoder's encoder (the reference's ``_encode``):
+        ``frames`` [B, S_src, D] cast to the model dtype, then every
+        encoder layer's non-causal self-attention (RoPE at positions
+        ``0..S_src-1``) and MLP, then the encoder norm."""
+        x = frames.to(self.embed.tok.dtype)
+        for blk in self.encoder:
+            a, _ = attention_prefill(blk.attn, blk.norm1(x), self.cfg,
+                                     causal=False)
+            x = x + a
+            x = x + blk.ffn(blk.norm2(x))
+        return self.encoder_norm(x)
 
     def _ssm_forward(self, x, q_offset, collect_state, prefix_state):
         cfg = self.cfg
@@ -235,19 +283,24 @@ class Model(nn.Module):
         return logits, state
 
     # ------------------------------------------------------------------
-    def init_cache(self, batch: int, seq_len: int | None = None) -> dict:
+    def init_cache(self, batch: int, seq_len: int | None = None, *,
+                   src_len: int | None = None) -> dict:
         """The dense decode cache (``models/cache.py::init_cache``) for
         ``batch`` sequences of up to ``seq_len`` tokens (K/V, or MLA
-        latents); the SSM family's does not depend on the sequence
-        length."""
-        return init_cache(self.cfg, batch, seq_len, device=self.device)
+        latents), and for the encoder-decoder the cross K/V of
+        ``src_len`` frames; the SSM family's does not depend on the
+        sequence length."""
+        return init_cache(self.cfg, batch, seq_len, src_len=src_len,
+                          device=self.device)
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor, pos=None):
         """One serve step over the dense ``cache``, which is updated in
         place (the reference returns a new cache): ``tokens`` [B, 1] at
         per-sequence positions ``pos`` [B] int32, the tokens each
-        sequence has cached.  The SSM family needs no ``pos``.  Returns
+        sequence has cached.  The SSM family needs no ``pos``.  The
+        encoder-decoder's layers attend over ``cache["cross"]`` after
+        their self-attention; that part is read, never written.  Returns
         logits [B, 1, V]."""
         cfg = self.cfg
         swin = cfg.sliding_window or None
@@ -281,6 +334,12 @@ class Model(nn.Module):
                 x = x + attention_decode(
                     blk.attn, blk.norm1(x), cfg, k_cache=kv["k"][l],
                     v_cache=kv["v"][l], pos=pos, sliding_window=swin)
+                if self.cross is not None:
+                    cb = self.cross[l]
+                    x = x + attention_decode(
+                        cb.attn, cb.norm(x), cfg,
+                        cross_kv=(cache["cross"]["k"][l],
+                                  cache["cross"]["v"][l]))
                 x = x + blk.ffn(blk.norm2(x))
         return self.embed.logits(self.final_norm(x))
 

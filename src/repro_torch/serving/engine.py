@@ -22,7 +22,9 @@ any payload decodes.  Besides the closed batch (``generate``) the engine
 streams: ``submit`` returns a ``Future`` that ``pump`` (inline) or the
 worker loop (``start`` / ``stop``, ``serving/worker.py``) resolves.  The
 MoE family always admits stop-the-world (``chunk_tokens`` is forced to 0).
-The MLA and encoder-decoder families are not ported (ROADMAP.md queue 1).
+The encoder-decoder family is refused, as the reference's engine cannot
+serve it either: its prefill needs ``frames`` and its dense caches have
+no place for the cross K/V (ROADMAP.md section 3).
 """
 from __future__ import annotations
 
@@ -72,6 +74,11 @@ class Engine:
         payload_codec: "PayloadCodec | str | None" = None,
         device="cuda",
     ) -> None:
+        if model.cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                f"{model.cfg.name}: no engine serves the encoder-decoder "
+                "family; drive Model.forward(frames=) and "
+                "Model.decode_step (ROADMAP.md section 3)")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "

@@ -83,9 +83,9 @@ def granite():
 
 def test_registry_holds_the_new_configs():
     assert set(NEW) <= set(list_configs())
-    # the paper's TinyLlama, mamba2-1.3b, the hybrid zamba2-1.2b and the
-    # MLA deepseek-v3-671b
-    assert len(list_configs()) == len(NEW) + 4
+    # the paper's TinyLlama, mamba2-1.3b, the hybrid zamba2-1.2b, the
+    # MLA deepseek-v3-671b and the encoder-decoder seamless-m4t-large-v2
+    assert len(list_configs()) == len(NEW) + 5
 
 
 @pytest.mark.parametrize("name", NEW[4:])

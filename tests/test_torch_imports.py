@@ -185,9 +185,14 @@ def test_other_families_raise_not_implemented():
     from repro_torch.models.model import Model
 
     cfg = smoke_config(get_config("skymemory-tinyllama"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg.replace(is_encoder_decoder=True, num_encoder_layers=2),
-              device="cpu")
+    # the encoder-decoder family is ported now: it builds on the CPU, and
+    # its default device raises without a card
+    encdec = Model(smoke_config(get_config("seamless-m4t-large-v2")),
+                   device="cpu")
+    assert len(encdec.encoder) == len(encdec.cross) == 2
+    assert not encdec.supports_paged_decode
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(smoke_config(get_config("seamless-m4t-large-v2")))
     # MLA is served now: it builds on the CPU, and its default device
     # raises without a card
     mla = smoke_config(get_config("deepseek-v3-671b"))

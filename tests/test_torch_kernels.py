@@ -79,6 +79,64 @@ def test_flash_attention_plain_matches_reference(b, sq, skv, h, hkv, d, dv,
     _close(got, pallas)
 
 
+@pytest.mark.parametrize(
+    "b,sq,skv,h,hkv,d,dv,off,win,causal,block_k",
+    [
+        (2, 12, 45, 4, 2, 8, 8, 33, None, True, 16),   # causal, ragged tail
+        (1, 10, 37, 4, 4, 16, 16, 0, None, False, 8),  # non-causal
+        (2, 9, 50, 4, 1, 8, 8, 41, 13, True, 16),      # window: blocks
+                                                       # fully masked first
+        (1, 8, 29, 4, 2, 12, 8, 21, None, True, 8),    # Dq != Dv
+    ],
+)
+def test_attention_streaming_plain_matches_reference(b, sq, skv, h, hkv, d, dv,
+                                                     off, win, causal,
+                                                     block_k):
+    """The streaming plain version (online softmax over key blocks of
+    ``block_k``, the last one ragged) against the reference's
+    ``attention_streaming_ref`` and the full-matrix ``attention_ref``."""
+    rng = np.random.default_rng(skv * 10 + block_k)
+    q, k = _rand(rng, (b, sq, h, d)), _rand(rng, (b, skv, hkv, d))
+    v = _rand(rng, (b, skv, hkv, dv))
+    kw = dict(causal=causal, q_offset=off, sliding_window=win)
+    got = tref.attention_streaming_ref(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        block_k=block_k, **kw)
+    want = jref.attention_streaming_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_k=block_k,
+        **kw)
+    _close(got, want)
+    _close(got, jref.attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), **kw))
+
+
+@pytest.mark.parametrize("skv,streams", [(8192, True), (8191, False)])
+def test_flash_attention_streams_long_keys_on_cpu(monkeypatch, skv, streams):
+    """On the CPU ``ops.flash_attention`` takes the streaming plain
+    version from ``STREAMING_KV_THRESHOLD`` keys on, in blocks of
+    ``STREAMING_BLOCK_K``, as the reference's jnp path does, and gives
+    the reference's answer."""
+    assert (tref.STREAMING_KV_THRESHOLD, tref.STREAMING_BLOCK_K) == (
+        jref.STREAMING_KV_THRESHOLD, jref.STREAMING_BLOCK_K)
+    calls = []
+    real = tref.attention_streaming_ref
+
+    def spy(*a, **kw):
+        calls.append(kw["block_k"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tref, "attention_streaming_ref", spy)
+    rng = np.random.default_rng(skv)
+    q, k, v = (_rand(rng, (1, 3, 2, 8)), _rand(rng, (1, skv, 1, 8)),
+               _rand(rng, (1, skv, 1, 8)))
+    kw = dict(causal=True, q_offset=skv - 3)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), **kw)
+    assert calls == ([tref.STREAMING_BLOCK_K] if streams else [])
+    _close(got, jref.attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), **kw))
+
+
 # ---------------------------------------------------------------------------
 # paged decode (K1 contiguous pages, K2 block tables)
 # ---------------------------------------------------------------------------
