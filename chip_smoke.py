@@ -41,7 +41,17 @@ Phases (each raises on failure; nothing is caught):
    prefill at B4 x S512 and B4 x S500, cross-attention (non-causal,
    offset 0) of Sq 32 over Skv 500 and Sq 37 over Skv 512 (the bf16
    prefills must run ``tensor-core``), and the cross decode with every
-   length the source length, over 4 pages of 128 and one page of 500;
+   length the source length, over 4 pages of 128 and one page of 500.
+   Then the dense prefill's training pair (``phase_backward``): the
+   forward with its LSE (against ``torch.logsumexp`` of the plain f32
+   scores) and ``flash_prefill_bwd`` (dq, dk, dv against
+   ``attention_bwd_ref`` in f32 on the same inputs, twice, bitwise equal)
+   at TinyLlama's training shape (B4 x S2048, H32, Hkv4, D64, causal) and
+   at a ragged tail, an offset, a window, seamless's non-causal encoder
+   and cross shapes, stablelm's D 160 and deepseek's MLA Dq 192 / Dv 128,
+   bf16 (the tensor-core body) and f32, each with its time, the plain
+   backward's, its bound, and forward + backward against
+   ``scaled_dot_product_attention``'s;
 4. model: TinyLlama's widths at 2 layers, f32, seeded: ``forward``,
    ``prefill_chunk_paged`` and ``decode_step_paged`` logits on the card
    against the same on the CPU.  Then mamba2-1.3b's widths at 2 layers,
@@ -69,7 +79,11 @@ Phases (each raises on failure; nothing is caught):
    against the CPU.  Last seamless-m4t-large-v2 at full width, 2
    encoder and 2 decoder layers, f32, 256 frames and a 40-token target:
    the encoder output, ``forward`` logits with the self and cross K/V,
-   and 8 ``decode_step``s against the CPU;
+   and 8 ``decode_step``s against the CPU.  Last training at TinyLlama's
+   widths, 2 layers, f32 (``[train]`` lines): ``train_loss`` and every
+   gradient on ``SyntheticLM`` batches card against CPU, the same under
+   ``remat="full"``, then 3 AdamW steps and the parameters after them;
+   the backward kernel launches once per layer and step;
 5. serve: full TinyLlama (22 layers, bf16, seeded random weights) behind
    the paged ``Engine``: 8 requests with a shared 256-token prefix in
    three modes (chunked contiguous pool, stop-the-world admission, a
@@ -149,7 +163,7 @@ Phases (each raises on failure; nothing is caught):
 10. mla (``[mla]`` lines): deepseek-v3-671b at its published widths,
     cut to 4 layers (its 3 dense layers and one MoE layer of 256 experts
     top-8 and one shared; bf16, seeded random weights; the
-    multi-token-prediction head is training-only and not built) behind
+    multi-token-prediction head is training-only: ``mtp_depth`` 0) behind
     ``Engine``, which serves MLA through the dense runtime, on the same 8
     requests: cold; twice through ``Engine(kvc=...)`` on the paper's 19x5
     fabric (the warm pass must restore 256 tokens of every request, every
@@ -173,10 +187,21 @@ Phases (each raises on failure; nothing is caught):
     limit, the greedy tokens to its argmax except at near-ties (counted).
     Then the encoder alone replayed from a CUDA graph with the dense
     prefill's share, a decode step's breakdown against the bytes it
-    reads with the paged decode's share, and the peak memory.
+    reads with the paged decode's share, and the peak memory;
+12. train (``[train]`` lines): full TinyLlama (22 layers, bf16
+    parameters, f32 AdamW moments, seeded random weights) trained 30
+    steps through ``train()`` on ``SyntheticLM(vocab 32000, seq 2048,
+    batch 4, seed 0)`` (the batches drawn before the run and timed
+    apart): the dense prefill and its backward must launch 22 times per
+    step, ``ce`` must fall; step 0's gradients bitwise equal over two
+    runs; a checkpoint round trip bitwise, with equal logits; the median
+    step, tokens/s, model FLOPs and their share of 989 TFLOP/s, K4's
+    forward and backward shares of a traced step, and the peak memory
+    with and without ``remat="full"``.
 
 The ``kernels`` line counts each kernel's launches over the main-path
-runs of phases 5-11, each counted from 0 just before it.
+runs of phases 4 (training) and 5-12, each counted from 0 just before
+it.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -331,7 +356,8 @@ def phase_device() -> tuple[str, str]:
 # phase 2: build
 # ---------------------------------------------------------------------------
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build every library; returns nvcc's output per source."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -347,6 +373,7 @@ def phase_build() -> None:
     # worker can launch a kernel
     for name in _build.SIGNATURES:
         _build.load(name)
+    return logs
 
 
 # ---------------------------------------------------------------------------
@@ -529,7 +556,7 @@ def flash_fma(args):
 
     def run():
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  b, sq, skv, h, hkv, d, dv, d ** -0.5, kw["q_offset"],
+                  None, b, sq, skv, h, hkv, d, dv, d ** -0.5, kw["q_offset"],
                   int(kw["causal"]), int(kw["sliding_window"] or 0), 0,
                   torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(code, "flash_prefill (fma body)")
@@ -1010,6 +1037,211 @@ def phase_kernels(device, timer: Timer) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3, the training pair: K4's forward with its LSE and its backward
+# ---------------------------------------------------------------------------
+
+# the backward against ``attention_bwd_ref`` run in f32 on the same inputs
+# (the kernel's output and LSE): f32 at the repo's gradient limit; bf16
+# with the reference gradient rounded to bf16 once, at the bf16 limit of
+# the repo's model tests.  The LSE is held against ``torch.logsumexp`` of
+# the plain f32 scores
+BWD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-3),
+           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+LSE_TOL = dict(atol=1e-5, rtol=0.0)
+# (label, B, Sq, Skv, H, Hkv, Dq, Dv, causal, q_offset, window); the first
+# is TinyLlama's training shape, the kernels line's record
+BWD_CASES = (
+    ("TinyLlama training B4 S2048 H32 Hkv4 D64 causal", 4, 2048, 2048, 32, 4,
+     64, 64, True, 0, None),
+    ("ragged B4 S500 H32 Hkv4 D64 causal", 4, 500, 500, 32, 4, 64, 64, True,
+     0, None),
+    ("B1 Sq113 over Skv369 q_offset 256 H32 Hkv4 D64", 1, 113, 369, 32, 4, 64,
+     64, True, 256, None),
+    ("window 256 B2 S1024 H32 Hkv4 D64 causal", 2, 1024, 1024, 32, 4, 64, 64,
+     True, 0, 256),
+    ("seamless encoder non-causal B4 S512 H16 D64", 4, 512, 512, 16, 16, 64,
+     64, False, 0, None),
+    ("seamless cross non-causal B4 Sq32 over Skv500 H16 D64", 4, 32, 500, 16,
+     16, 64, 64, False, 0, None),
+    ("stablelm B1 S512 H32 Hkv8 D160 causal", 1, 512, 512, 32, 8, 160, 160,
+     True, 0, None),
+    ("deepseek MLA B1 S369 H128 Dq192 Dv128 causal", 1, 369, 369, 128, 128,
+     192, 128, True, 0, None),
+)
+
+
+def _visible_pairs(sq, skv, causal, off, window) -> int:
+    """(query, key) pairs the mask leaves visible, per sequence and head."""
+    seen = 0
+    for i in range(sq):
+        p = off + i
+        lo = max(0, p - window + 1) if window else 0
+        hi = min(skv, p + 1) if causal else skv
+        seen += max(0, hi - lo)
+    return seen
+
+
+def events_ms(fn, iters: int = 10, flush=None) -> float:
+    """Median device ms of ``fn`` (launched eagerly, host gaps included)
+    over ``iters`` runs, each after ``flush`` is rewritten (cold L2): for
+    calls that run autograd, which a CUDA graph does not capture."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(iters):
+        if flush is not None:
+            flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _ptxas(logs: dict, pattern: str) -> str:
+    """The ``ptxas`` register and spill lines of the entry whose mangled
+    name holds ``pattern``."""
+    lines = logs.get("flash_backward", "").splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and pattern in line:
+            rest = [l.split("info    :")[-1].strip() for l in lines[i + 1:i + 4]
+                    if "registers" in l or "spill" in l]
+            return "; ".join(rest)
+    return "not in this build's log (library already built)"
+
+
+def phase_backward(device, timer: Timer, build_logs: dict) -> dict:
+    """K4's training pair on the card: ``flash_prefill(return_lse=True)``
+    and ``flash_prefill_bwd`` at ``BWD_CASES``, bf16 and f32, inputs and
+    ``d_out`` ~ N(0, 1) from ``case_seed``.  The LSE against
+    ``torch.logsumexp`` of the plain f32 scores; dq / dk / dv against
+    ``attention_bwd_ref`` in f32 on the same inputs; each case twice,
+    bitwise equal.  Times: the backward (CUDA-graph replays, cold L2), the
+    plain backward, the bound of the five products and the bytes, and the
+    forward + backward against ``scaled_dot_product_attention``'s forward
+    + backward (eager, cold L2; SDPA is a yardstick the port never
+    calls).  Returns the main case's bf16 record."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.chunked_prefill import flash_prefill
+    from repro_torch.kernels.flash_backward import bwd_body, flash_prefill_bwd
+    from repro_torch.kernels.ops import FlashAttention
+
+    record = None
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for (label, b, sq, skv, h, hkv, dq_, dv_, causal, off,
+             win) in BWD_CASES:
+            name = f"{tag} {label}"
+            gen = torch.Generator(device=device).manual_seed(
+                case_seed("flash_prefill_bwd", name))
+            q = torch.randn(b, sq, h, dq_, generator=gen, device=device).to(
+                dtype)
+            k = torch.randn(b, skv, hkv, dq_, generator=gen,
+                            device=device).to(dtype)
+            v = torch.randn(b, skv, hkv, dv_, generator=gen,
+                            device=device).to(dtype)
+            d_out = torch.randn(b, sq, h, dv_, generator=gen,
+                                device=device).to(dtype)
+            kw = dict(causal=causal, q_offset=off, sliding_window=win)
+            out, lse = flash_prefill(q, k, v, return_lse=True, **kw)
+            # the LSE against the plain scores, one head group at a time
+            kr = torch.repeat_interleave(k.float(), h // hkv, dim=2)
+            s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * dq_ ** -0.5
+            qp = torch.arange(sq, device=device)[:, None] + off
+            kp = torch.arange(skv, device=device)[None]
+            mask = kp <= qp if causal else torch.ones_like(kp <= qp)
+            if win:
+                mask &= kp > qp - win
+            want_lse = torch.logsumexp(s.masked_fill(~mask, -torch.inf), -1)
+            del s, kr
+            lse_err = (lse - want_lse).abs().max().item()
+            if not bool(torch.isfinite(lse).all()) or lse_err > LSE_TOL["atol"]:
+                raise AssertionError(f"flash_prefill_bwd [{name}]: forward "
+                                     f"LSE max abs err {lse_err:.3e}")
+
+            def bwd():
+                return flash_prefill_bwd(q, k, v, out, lse, d_out, **kw)
+
+            def plain():
+                return ref.attention_bwd_ref(q, k, v, out, lse, d_out, **kw)
+
+            got, again = bwd(), bwd()
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"flash_prefill_bwd [{name}]: two runs "
+                                     "differ")
+            want = ref.attention_bwd_ref(q.float(), k.float(), v.float(),
+                                         out.float(), lse, d_out.float(),
+                                         **kw)
+            tol = BWD_TOL[dtype]
+            errs, worst = [], 0.0
+            for n, g, w in zip(("dq", "dk", "dv"), got, want):
+                err, ratio, _ = _check(f"flash_prefill_bwd [{name}] {n}",
+                                       "flash_prefill_bwd", g, w.to(dtype),
+                                       tol)
+                errs.append(err)
+                worst = max(worst, ratio)
+            del want
+            ms = timer.ms(bwd)
+            plain_ms = timer.ms(plain)
+            seen = b * h * _visible_pairs(sq, skv, causal, off, win)
+            flops = 2 * seen * (3 * dq_ + 2 * dv_)
+            n_bytes = nbytes(q, k, v, out, d_out, lse) + nbytes(q, k, v)
+            bms, by = bound_ms(n_bytes, flops, dtype)
+
+            # forward + backward: the port's through its autograd function,
+            # SDPA's through its own (GQA, a boolean mask for an offset or
+            # a window, built outside the timed call)
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+            def port_fb():
+                o = FlashAttention.apply(*leaves, causal, off, win, None)
+                return torch.autograd.grad(o, leaves, d_out)
+
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lt = [t.transpose(1, 2) for t in leaves]
+            amask = None if not (off or win) else mask
+
+            def sdpa_fb():
+                o = sdpa(*lt, attn_mask=amask,
+                         is_causal=causal and amask is None,
+                         enable_gqa=True)
+                return torch.autograd.grad(o, leaves, d_out.transpose(1, 2))
+
+            fb_ms = events_ms(port_fb, flush=timer.flush)
+            sdpa_ms = events_ms(sdpa_fb, flush=timer.flush)
+            body = bwd_body(dtype, dq_, dv_)
+            if dtype == torch.bfloat16 and body != "tensor-core":
+                raise AssertionError(f"flash_prefill_bwd [{name}] ran body "
+                                     f"{body}")
+            inst = (f"bwd_dkdv_tcILi{dq_}ELi{dv_}E" if body == "tensor-core"
+                    else "bwd_dkdv_fmaI" + ("f" if dtype == torch.float32
+                                            else "13__nv_bfloat16"))
+            log(f"[kernel] flash_prefill_bwd [{name}] body {body}: LSE max "
+                f"abs err {lse_err:.3e}; dq/dk/dv max_abs_err "
+                f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} ({worst:.2f} x "
+                f"limit {tol}); bitwise repeatable; ms {ms:.4f}  plain_ms "
+                f"{plain_ms:.4f}  bound_ms {bms:.5f} ({by}; {flops / 1e9:.2f} "
+                f"GFLOP, {n_bytes / 1e6:.1f} MB)  forward+backward ms "
+                f"{fb_ms:.4f}  library_ms (SDPA forward+backward) "
+                f"{sdpa_ms:.4f}")
+            log(f"[kernel] flash_prefill_bwd [{name}] ptxas: dkdv "
+                f"{_ptxas(build_logs, inst)}; dq "
+                f"{_ptxas(build_logs, inst.replace('dkdv', 'dq'))}")
+            if record is None:
+                record = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                              bound_ms=bms, bound_by=by, library_ms=sdpa_ms,
+                              forward_backward_ms=fb_ms, shape=name,
+                              body=body)
+            del out, lse, got, again, leaves, lt
+            torch.cuda.empty_cache()
+    return record
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the model on the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -1402,6 +1634,337 @@ def phase_encdec_model(cfg, device, *, seed=0, s_src=256, prompt_len=40,
 
 
 # ---------------------------------------------------------------------------
+# phase 4, training: TinyLlama's widths at 2 layers, card against CPU
+# ---------------------------------------------------------------------------
+
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=5, total_steps=30)
+
+
+def loss_and_grads(model, batch, remat=None):
+    """``train_loss`` over ``batch`` and every parameter's gradient (the
+    parameters require grad; nothing is updated)."""
+    for p in model.parameters():
+        p.grad = None
+    loss, metrics = model.train_loss(batch, remat=remat)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return loss.detach(), metrics, grads
+
+
+def phase_train_model(cfg, device, *, seed=0, batch=2, seq=256,
+                      steps=3) -> dict:
+    """Training at full width, 2 layers, f32, card against CPU, on
+    ``SyntheticLM`` batches: ``train_loss`` (atol 1e-5) and every
+    parameter's gradient (``MODEL_TOL``), then ``steps``
+    ``make_train_step`` steps (AdamW, ``TRAIN_OPT``) and the parameters
+    after them (``MODEL_TOL``: the most an element can part by on AdamW's
+    sign-sensitive first updates, twice the summed learning rates, is
+    below its atol).  The backward kernel must launch once per layer per
+    step; one step's loss and gradients under ``remat="full"`` must equal
+    those without it (bitwise or within 1e-6).  Returns the launch counts
+    of the card's steps."""
+    from repro_torch.models.model import Model
+    from repro_torch.training import (
+        AdamWConfig,
+        DataConfig,
+        SyntheticLM,
+        TrainConfig,
+        init_opt_state,
+        make_train_step,
+    )
+    from repro_torch.training.loop import to_device, trainable
+
+    name = cfg.name
+    gpu = Model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(seed))
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                batch_size=batch, seed=seed)).batches()
+    batches = [next(it) for _ in range(steps)]
+    log(f"[train] {name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+        f"{cfg.dtype}; SyntheticLM B{batch} x S{seq}")
+    trainable(gpu)
+    trainable(cpu)
+    lg, mg, gg = loss_and_grads(gpu, to_device(batches[0], device))
+    lc, mc, gc_ = loss_and_grads(cpu, to_device(batches[0], "cpu"))
+    loss_err = abs(lg.item() - lc.item())
+    if not np.isfinite(lg.item()) or loss_err > 1e-5:
+        raise AssertionError(f"{name}: train_loss card {lg.item():.6f} vs "
+                             f"CPU {lc.item():.6f}")
+    log(f"[train] {name}: train_loss card {lg.item():.6f} vs CPU "
+        f"{lc.item():.6f} (abs err {loss_err:.2e}); ce {mg['ce'].item():.6f}")
+    worst = 0.0
+    for n in gc_:
+        got, want = gg[n].float().cpu(), gc_[n]
+        err = (got - want).abs()
+        lim = MODEL_TOL["atol"] + MODEL_TOL["rtol"] * want.abs()
+        if not torch.isfinite(got).all() or bool((err > lim).any()):
+            raise AssertionError(f"{name} grad {n}: card vs CPU max abs err "
+                                 f"{err.max().item():.3e}")
+        worst = max(worst, err.max().item())
+    log(f"[train] {name}: all {len(gc_)} gradients card vs CPU max abs err "
+        f"{worst:.3e} (MODEL_TOL {MODEL_TOL})")
+
+    # one step's loss and gradients under full recomputation
+    lr_, _, gr = loss_and_grads(gpu, to_device(batches[0], device),
+                                remat="full")
+    remat_err = max((gr[n] - gg[n]).abs().max().item() for n in gg)
+    if abs(lr_.item() - lg.item()) > 1e-6 or remat_err > 1e-6:
+        raise AssertionError(f"{name}: remat='full' loss {lr_.item()} vs "
+                             f"{lg.item()}, gradients {remat_err:.3e}")
+    bitwise = lr_.item() == lg.item() and remat_err == 0.0
+    log(f"[train] {name}: remat='full' loss and gradients "
+        f"{'bitwise equal' if bitwise else f'within {remat_err:.1e}'}")
+    del gg, gc_, gr
+
+    tcfg = TrainConfig(opt=AdamWConfig(**TRAIN_OPT))
+    runs = []
+    for m, dev in ((gpu, device), (cpu, torch.device("cpu"))):
+        runs.append((m, dev, make_train_step(m, tcfg),
+                     init_opt_state(trainable(m))))
+
+    def card_steps():
+        m, dev, step, state = runs[0]
+        return [step(state, to_device(bt, dev)) for bt in batches]
+
+    g_metrics, counts = counted(card_steps)
+    m, dev, step, state = runs[1]
+    c_metrics = [step(state, to_device(bt, dev)) for bt in batches]
+    for i, (a, b_) in enumerate(zip(g_metrics, c_metrics)):
+        log(f"[train] {name} step {i}: loss card {a['loss'].item():.6f} CPU "
+            f"{b_['loss'].item():.6f}; grad_norm card "
+            f"{a['grad_norm'].item():.6f} CPU {b_['grad_norm'].item():.6f}")
+    worst = 0.0
+    for (n, p), (_, q) in zip(gpu.named_parameters(), cpu.named_parameters()):
+        got, want = p.detach().float().cpu(), q.detach()
+        err = (got - want).abs()
+        lim = MODEL_TOL["atol"] + MODEL_TOL["rtol"] * want.abs()
+        if not torch.isfinite(got).all() or bool((err > lim).any()):
+            raise AssertionError(f"{name} after {steps} steps, {n}: card vs "
+                                 f"CPU max abs err {err.max().item():.3e}")
+        worst = max(worst, err.max().item())
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_prefill=cfg.num_layers * steps,
+                flash_prefill_bwd=cfg.num_layers * steps)
+    if counts != want:
+        raise AssertionError(f"{name}: {steps} steps launched {counts}, "
+                             f"want {want}")
+    log(f"[train] {name}: {steps} AdamW steps, parameters card vs CPU max "
+        f"abs err {worst:.3e}; launches {counts}")
+    del gpu, cpu, runs
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 12: train full TinyLlama
+# ---------------------------------------------------------------------------
+
+class Replay:
+    """A dataset whose ``batches()`` yields ``batches`` in order: the
+    ``SyntheticLM`` batches drawn before the run, so that the host's
+    Python draw is timed apart from the steps."""
+
+    def __init__(self, batches):
+        self._batches = batches
+
+    def batches(self):
+        yield from self._batches
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 per matmul weight and token
+    (forward and backward; the embedding table is a gather, the
+    unembedding a matmul), and the attention products: 2 in the forward
+    and 5 in the backward, 2 x head_dim FLOPs per visible (query, key)
+    pair and head."""
+    d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    per_layer = d * (h + 2 * hkv) * hd + h * hd * d + 3 * d * cfg.d_ff
+    matmul = cfg.num_layers * per_layer + d * cfg.vocab_size
+    pairs = batch * h * seq * (seq + 1) // 2
+    return 6 * matmul * batch * seq + cfg.num_layers * 14 * hd * pairs
+
+
+def phase_train(device, *, steps=30, batch=4, seq=2048) -> dict:
+    """Full TinyLlama (22 layers, bf16 parameters, f32 moments, seeded
+    random weights) trained ``steps`` AdamW steps (``TRAIN_OPT``) through
+    ``train()`` on ``SyntheticLM(vocab 32000, seq 2048, batch 4, seed
+    0)``.  The launch counts are zeroed just before the run and read just
+    after: the dense prefill (with its LSE: every forward runs through
+    ``ops.FlashAttention``) and its backward must launch once per layer
+    per step, nothing else.  The last ``ce`` must be below the first, and
+    every value finite.  Before the run, step 0's gradients twice from
+    the same state must be bitwise equal; after it, a checkpoint round
+    trip must give bitwise-equal parameters and moments and the same
+    logits.  Prints the median step (steps 5 on), tokens/s, model FLOPs
+    and their share of 989 TFLOP/s, K4's forward and backward shares of a
+    traced step, peak memory with and without ``remat="full"``, and the
+    host ms of a batch.  Returns the launch counts of the run."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.training import (
+        AdamWConfig,
+        DataConfig,
+        SyntheticLM,
+        TrainConfig,
+        init_opt_state,
+        load_checkpoint,
+        make_train_step,
+        save_checkpoint,
+        train,
+    )
+    from repro_torch.training.loop import to_device, trainable
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_config("skymemory-tinyllama")
+    name = cfg.name
+    held = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    model = _build_model(cfg, device, 0, tag="train")
+    params = trainable(model)
+    n_params = sum(p.numel() for p in params.values())
+    it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                batch_size=batch, seed=0)).batches()
+    t0 = time.perf_counter()
+    batches = [next(it) for _ in range(steps)]
+    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    log(f"[train] {name}: {n_params:,} parameters ({cfg.dtype}), AdamW "
+        f"moments float32, {TRAIN_OPT}; SyntheticLM B{batch} x S{seq}: "
+        f"{host_ms:.1f} host ms per batch (drawn before the run)")
+
+    # step 0 twice from the same state: bitwise-equal gradients
+    b0 = to_device(batches[0], device)
+    _, _, g1 = loss_and_grads(model, b0)
+    _, _, g2 = loss_and_grads(model, b0)
+    same = all(torch.equal(g1[n], g2[n]) for n in g1)
+    if not same:
+        raise AssertionError(f"{name}: step 0's gradients differ between "
+                             "two runs")
+    log(f"[train] {name}: step 0's gradients bitwise equal over two runs")
+    del g1, g2
+
+    tcfg = TrainConfig(opt=AdamWConfig(**TRAIN_OPT), log_every=1)
+    sync(device)
+    (model, state, hist), counts = counted(
+        lambda: train(model, Replay(batches), tcfg, num_steps=steps))
+    sync(device)
+    for h in hist:
+        if not all(np.isfinite(h[k]) for k in ("ce", "aux", "loss",
+                                               "grad_norm", "lr")):
+            raise AssertionError(f"{name}: step {h['step']} non-finite {h}")
+    log(f"[train] {name}: loss curve (ce by step) "
+        + " ".join(f"{h['ce']:.4f}" for h in hist))
+    if not hist[-1]["ce"] < hist[0]["ce"]:
+        raise AssertionError(f"{name}: ce {hist[0]['ce']} -> "
+                             f"{hist[-1]['ce']} did not fall")
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_prefill=cfg.num_layers * steps,
+                flash_prefill_bwd=cfg.num_layers * steps)
+    if counts != want:
+        raise AssertionError(f"{name}: {steps} steps launched {counts}, "
+                             f"want {want}")
+    ends = [h["elapsed_s"] for h in hist]
+    step_s = [b_ - a for a, b_ in zip([0.0] + ends, ends)]
+    med_ms = statistics.median(step_s[5:]) * 1e3
+    flops = train_flops(cfg, batch, seq)
+    peak_train = (torch.cuda.max_memory_allocated(device) - held) / 1e9
+    row = dict(model=name, steps=steps, batch=batch, seq=seq,
+               first_ce=hist[0]["ce"], last_ce=hist[-1]["ce"],
+               step_ms_median_5_on=med_ms,
+               step_ms_runs=[x * 1e3 for x in step_s],
+               tokens_per_s=batch * seq / (med_ms / 1e3),
+               model_tflop_per_step=flops / 1e12,
+               peak_share=flops / (med_ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
+               host_ms_per_batch=host_ms, peak_memory_gb=peak_train,
+               held_at_start_gb=held / 1e9, launches=counts)
+    log(f"[train] run {json.dumps(row)}")
+
+    # one more step, traced: K4's forward and backward shares
+    step_fn = make_train_step(model, tcfg)
+    bt = to_device(batches[-1], device)
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, bt)
+        sync(device)
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    busy = _busy_ms(prof)
+    fwd = bwd = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dur = (e.time_range.end - e.time_range.start) / 1e3
+            if "prefill_tc" in e.name or "prefill_fma" in e.name:
+                fwd += dur
+            elif "bwd_" in e.name:
+                bwd += dur
+    trace = dict(traced_step_ms=traced_ms, device_busy_ms=busy,
+                 flash_prefill_ms=fwd, flash_prefill_bwd_ms=bwd,
+                 flash_prefill_share=None if not busy else fwd / busy,
+                 flash_prefill_bwd_share=None if not busy else bwd / busy,
+                 idle_share=None if not busy else 1 - busy / traced_ms,
+                 top_device_kernels=_top_kernels(prof, 1, k=8))
+    log(f"[train] traced step {json.dumps(trace)}")
+    if busy is None:
+        log("[train] the profiler trace holds no device events: K4's shares "
+            "not measured")
+
+    # peak memory of one step's forward and backward, with and without
+    # full recomputation
+    peaks = {}
+    for remat in (None, "full"):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        loss_and_grads(model, bt, remat=remat)
+        sync(device)
+        peaks[str(remat)] = (torch.cuda.max_memory_allocated(device)
+                             - base) / 1e9
+    log(f"[train] peak memory of a forward and backward above the weights "
+        f"and moments: {json.dumps(peaks)} GB (remat None, full)")
+
+    # checkpoint round trip
+    ckpt = ROOT / "build" / "train_checkpoint"
+    t0 = time.perf_counter()
+    done = int(state["step"])          # the run's steps and the traced one
+    save_checkpoint(str(ckpt), model, state, step=done,
+                    metadata={"arch": name})
+    save_s = time.perf_counter() - t0
+    other = _build_model(cfg, device, 1, tag="train")
+    other_state = init_opt_state(dict(other.named_parameters()))
+    t0 = time.perf_counter()
+    _, other_state, meta = load_checkpoint(str(ckpt), other, other_state)
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt)
+    for (n, p), (_, q) in zip(model.named_parameters(),
+                              other.named_parameters()):
+        if not torch.equal(p, q):
+            raise AssertionError(f"{name}: checkpoint changed {n}")
+    for part in ("m", "v"):
+        for n in state[part]:
+            if not torch.equal(state[part][n], other_state[part][n]):
+                raise AssertionError(f"{name}: checkpoint changed {part} {n}")
+    if int(other_state["step"]) != done or meta["step"] != done:
+        raise AssertionError(f"{name}: checkpoint step {meta}")
+    probe = torch.from_numpy(batches[0]["tokens"][:1, :256]).to(device)
+    with torch.no_grad():
+        a = model(probe)[0]
+        b_ = other(probe)[0]
+    if not torch.equal(a, b_):
+        raise AssertionError(f"{name}: the reloaded model's logits differ, "
+                             f"max {(a - b_).abs().max().item():.3e}")
+    log(f"[train] {name}: checkpoint round trip bitwise (parameters, "
+        f"moments, step {meta['step']}), reloaded logits equal; save "
+        f"{save_s:.1f} s, load {load_s:.1f} s")
+    del model, other, state, other_state, params
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 5: serve full TinyLlama, then full mamba2-1.3b
 # ---------------------------------------------------------------------------
 
@@ -1423,8 +1986,11 @@ def make_requests(n: int = 8, max_new: int = 32):
     return reqs
 
 
-KERNELS = ("paged_decode", "chunked_prefill_paged", "flash_prefill",
-           "ssd_chunk_scan")
+# the serving kernels, and every kernel (training adds the dense
+# prefill's backward)
+SERVE_KERNELS = ("paged_decode", "chunked_prefill_paged", "flash_prefill",
+                 "ssd_chunk_scan")
+KERNELS = SERVE_KERNELS + ("flash_prefill_bwd",)
 
 
 def kernel_fns():
@@ -1432,13 +1998,15 @@ def kernel_fns():
         chunked_prefill_paged,
         flash_prefill,
     )
+    from repro_torch.kernels.flash_backward import flash_prefill_bwd
     from repro_torch.kernels.paged_attention import paged_decode
     from repro_torch.kernels.ssd_scan import ssd_chunk_scan
 
     return {"paged_decode": paged_decode,
             "chunked_prefill_paged": chunked_prefill_paged,
             "flash_prefill": flash_prefill,
-            "ssd_chunk_scan": ssd_chunk_scan}
+            "ssd_chunk_scan": ssd_chunk_scan,
+            "flash_prefill_bwd": flash_prefill_bwd}
 
 
 def zero_launches() -> dict:
@@ -2663,7 +3231,7 @@ def phase_cluster(tiny, mamba, device, *, n_requests=8, max_new=32) -> dict:
     for model in (tiny, mamba):
         add_counts(total, int8_snapshots(model, device, **common))
     log(f"[phase] cluster int8 snapshots {time.perf_counter() - t0:.1f} s")
-    _require_launched(total, KERNELS)
+    _require_launched(total, SERVE_KERNELS)
     log(f"[cluster] main-path launches: {total}; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     return total
@@ -3113,14 +3681,15 @@ def phase_mla(device, *, n_requests=8, max_new=32, max_seq_len=1024,
     from repro_torch.serving import Engine
 
     full = get_config("deepseek-v3-671b")
-    cfg = full.replace(num_layers=num_layers)
+    cfg = full.replace(num_layers=num_layers, mtp_depth=0)
     name = cfg.name
     log(f"[mla] {name}: reduced: num_layers {full.num_layers} -> "
         f"{num_layers} ({cfg.first_k_dense} dense layers and "
         f"{num_layers - cfg.first_k_dense} MoE layer of {cfg.num_experts} "
         f"experts top-{cfg.num_experts_per_tok} and "
         f"{cfg.num_shared_experts} shared), the multi-token-prediction "
-        f"head not built (training only); every width as published")
+        f"head not built (mtp_depth 1 -> 0: training only, serving never "
+        f"reads it); every width as published")
     body = prefill_body(torch_dtype(cfg.dtype),
                         cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
                         cfg.v_head_dim)
@@ -3370,7 +3939,7 @@ def main() -> int:
     name, smi = phase_device()
 
     t0 = time.perf_counter()
-    phase_build()
+    build_logs = phase_build()
     log(f"[phase] build {time.perf_counter() - t0:.1f} s")
 
     from repro_torch.configs import get_config
@@ -3380,6 +3949,10 @@ def main() -> int:
     t0 = time.perf_counter()
     records = phase_kernels(device, timer)
     log(f"[phase] kernels {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    records["flash_prefill_bwd"] = phase_backward(device, timer, build_logs)
+    torch.cuda.empty_cache()
+    log(f"[phase] kernels, backward {time.perf_counter() - t0:.1f} s")
 
     tiny = get_config("skymemory-tinyllama")
     mamba = get_config("mamba2-1.3b")
@@ -3408,10 +3981,14 @@ def main() -> int:
     # so the resume routes each token as the uninterrupted forward does)
     phase_mla_model(get_config("deepseek-v3-671b").replace(
         num_layers=2, first_k_dense=1, num_experts=16, capacity_factor=2.0,
-        dtype="float32"), device)
+        mtp_depth=0, dtype="float32"), device)
     # seamless-m4t at full width, 2 encoder and 2 decoder layers
     phase_encdec_model(get_config("seamless-m4t-large-v2").replace(
         num_layers=2, num_encoder_layers=2, dtype="float32"), device)
+    # training at TinyLlama's widths, 2 layers: the backward's first
+    # main-path run
+    train_model_counts = phase_train_model(
+        tiny.replace(num_layers=2, dtype="float32"), device)
     torch.cuda.empty_cache()
     log(f"[phase] model {time.perf_counter() - t0:.1f} s")
 
@@ -3446,9 +4023,15 @@ def main() -> int:
     t0 = time.perf_counter()
     seamless_counts = phase_seamless(device)
     log(f"[phase] seamless {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_counts = phase_train(device)
+    log(f"[phase] train {time.perf_counter() - t0:.1f} s")
     # launches over every phase's main-path runs, each counted from 0
     for phase in (*fabric_counts.values(), cluster_counts, family_counts,
-                  hybrid_counts, mla_counts, seamless_counts):
+                  hybrid_counts, mla_counts, seamless_counts,
+                  train_model_counts, train_counts):
         for k in KERNELS:
             counts[k] += phase[k]
 
@@ -3462,6 +4045,10 @@ def main() -> int:
                           "src/repro/kernels/chunked_prefill.py:28"),
         "ssd_chunk_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                            "src/repro/kernels/ssd_scan.py:24"),
+        "flash_prefill_bwd": (
+            "src/repro_torch/kernels/csrc/flash_backward.cu",
+            "the gradient of src/repro/kernels/chunked_prefill.py:28 (no "
+            "backward kernel in the reference)"),
     }
     kernels = []
     for k in KERNELS:
@@ -3472,7 +4059,10 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"], "body": r["body"]})
+            "shape": r["shape"], "body": r["body"],
+            **({"forward_backward_ms": r["forward_backward_ms"],
+                "library": "scaled_dot_product_attention forward+backward"}
+               if "forward_backward_ms" in r else {})})
     log(f"[phase] total {time.perf_counter() - t_all:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

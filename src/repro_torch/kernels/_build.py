@@ -11,7 +11,10 @@ every source at once, one ``nvcc`` process each, all started together.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a non-zero code into an exception.  ``count`` adds one
-to a wrapper's ``launches``.
+to a wrapper's ``launches``.  ``refuse_grad`` keeps a wrapper from
+silently detaching an autograd graph: a ``ctypes`` call is outside
+autograd, so a wrapper without a backward raises where a graph would
+pass through it.
 
 The serving engine calls the wrappers from two threads (the decode loop
 and the adapter's write-back worker), so the first build of a library
@@ -27,6 +30,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -52,8 +57,13 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
            (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, P)
            for t in ("f32", "bf16")},
         **{f"flash_prefill_{t}":
-           (P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, I, P)
+           (P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, I, P)
            for t in ("f32", "bf16")},
+    },
+    "flash_backward": {
+        f"flash_prefill_bwd_{t}": (P, P, P, P, P, P, P, P, P, P, I, I, I, I,
+                                   I, I, I, F, I, I, I, I, P)
+        for t in ("f32", "bf16")
     },
     "ssd_scan": {
         "ssd_scan_f32": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
@@ -138,6 +148,18 @@ def check(code: int, what: str) -> None:
     """Raise if a launch reported a CUDA error."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {code}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when grad is enabled and one of
+    ``tensors`` requires it: the kernel has no backward, and its output
+    would come out detached.  Called before any device check, so that
+    the refusal holds on every device."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what}: the kernel has no backward; call it under "
+            "torch.no_grad() or on tensors that do not require grad")
 
 
 def count(wrapper) -> None:

@@ -6,7 +6,10 @@
   offsets attends over a shared page pool through block tables.
 * ``flash_prefill`` replaces its ``_kernel``: dense flash attention with
   a ``q_offset``, causal or not, an optional sliding window, GQA and
-  Dq != Dv (MLA's prefill).
+  Dq != Dv (MLA's prefill).  With ``return_lse`` it also writes each
+  query row's natural-log LSE, which its backward
+  (``kernels/flash_backward.py``) reads; ``ops.FlashAttention`` is the
+  only caller that asks for it.
 
 Both take CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the
 plain versions in ``kernels/ref.py``.  Each launch runs one of the two
@@ -76,7 +79,9 @@ def chunked_prefill_paged(q: torch.Tensor, k_pool: torch.Tensor,
                           softmax_scale: float | None = None) -> torch.Tensor:
     """q [R, C, H, Dq] over pool [N, page, Hkv, D]/[.., Dv] through
     block tables [R, P]; ``lengths``/``q_offsets`` [R] int32.  Returns
-    [R, C, H, Dv]; query rows with no visible key are zeros."""
+    [R, C, H, Dv]; query rows with no visible key are zeros.  It has no
+    backward and refuses a graph (``_build.refuse_grad``)."""
+    _build.refuse_grad("chunked_prefill_paged", q, k_pool, v_pool)
     _check("chunked_prefill_paged", {"q": q, "k_pool": k_pool, "v_pool": v_pool},
            {"lengths": lengths, "block_tables": block_tables,
             "q_offsets": q_offsets})
@@ -115,10 +120,16 @@ chunked_prefill_paged.launches = 0
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, q_offset: int = 0,
                   sliding_window: int | None = None, lengths=None,
-                  softmax_scale: float | None = None) -> torch.Tensor:
+                  softmax_scale: float | None = None,
+                  return_lse: bool = False):
     """q [B, Sq, H, Dq] against k [B, Skv, Hkv, Dq], v [.., Dv]; returns
-    [B, Sq, H, Dv].  ``q_offset`` is the absolute position of q[:, 0].
-    Like the TPU kernel it replaces, it takes no ``lengths``."""
+    [B, Sq, H, Dv], and with ``return_lse`` also the [B, H, Sq] f32
+    natural-log LSE of each row's scaled, masked scores (-inf for a row
+    with no visible key).  ``q_offset`` is the absolute position of
+    q[:, 0].  Like the TPU kernel it replaces, it takes no ``lengths``.
+    Its gradient goes through ``ops.FlashAttention``; called directly on
+    a graph it raises (``_build.refuse_grad``)."""
+    _build.refuse_grad("flash_prefill", q, k, v)
     if lengths is not None:
         raise NotImplementedError("use paged_attention for length masking")
     _check("flash_prefill", {"q": q, "k": k, "v": v}, {})
@@ -136,15 +147,18 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
     tc = _body_flag("flash_prefill", "dense", q, (k, v))
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     fn = getattr(_build.load("chunked_prefill"),
                  f"flash_prefill_{_DTYPES[q.dtype]}")
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-              skv, h, hkv, d, dv, scale, int(q_offset), int(bool(causal)),
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              None if lse is None else lse.data_ptr(), b, sq, skv, h, hkv, d,
+              dv, scale, int(q_offset), int(bool(causal)),
               int(sliding_window or 0), tc,
               torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "flash_prefill")
     _build.count(flash_prefill)
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_prefill.launches = 0

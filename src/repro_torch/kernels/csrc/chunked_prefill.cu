@@ -94,7 +94,15 @@ struct DenseArgs {
   int q_offset;
   int causal;
   int window;               // <= 0: no sliding window
+  float* lse;               // [B, H, Sq] natural-log LSE, or null
 };
+
+// The natural-log logsumexp of a row's scaled, masked scores from its
+// running max ``m`` (in the units of the softmax's exponent, natural or
+// log2) and sum ``l``: -inf for a row with no visible key (l == 0).
+__device__ __forceinline__ float row_lse(float m, float l, float to_nat) {
+  return l > 0.f ? m * to_nat + logf(l) : -INFINITY;
+}
 
 // The keys a query tile [q0, q0 + n_rows) of sequence b can see:
 // [kv_begin, kv_end), and the absolute position of its first row.
@@ -343,6 +351,11 @@ prefill_tc(const __nv_bfloat16* __restrict__ q,
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const float inv = 1.f / fmaxf(sum, 1e-30f);
     const int r = warp * 16 + qr + hr * 8;
+    // m is in log2 units (the scores times scale * log2 e): ln 2 brings
+    // the LSE back to natural log, the unit the backward reads
+    if (!PAGED && da.lse != nullptr && qc == 0 && r < n_rows)
+      da.lse[((size_t)b * h + hq) * sq + q0 + r] =
+          row_lse(m[hr], sum, 0.6931471805599453f);
     if (r < n_rows) {
       __nv_bfloat16* dst = out + (((size_t)b * sq + q0 + r) * h + hq) * DV;
 #pragma unroll
@@ -489,6 +502,10 @@ prefill_fma(const T* __restrict__ q, const T* __restrict__ k,
     out[(((size_t)b * sq + q0 + r) * h + hq) * dv + c] =
         from_f32<T>(acc[i] / fmaxf(l[r], 1e-30f));
   }
+  if (!PAGED && da.lse != nullptr) {
+    for (int r = tid; r < n_rows; r += THREADS)
+      da.lse[((size_t)b * h + hq) * sq + q0 + r] = row_lse(m[r], l[r], 1.f);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -564,18 +581,18 @@ int launch_paged(const void* q, const void* k_pool, const void* v_pool,
   PagedArgs pa{static_cast<const int*>(lengths),
                static_cast<const int*>(q_offsets),
                static_cast<const int*>(block_tables), pages_per_seq, page};
-  DenseArgs da{0, 0, 1, 0};
+  DenseArgs da{0, 0, 1, 0, nullptr};
   return launch<T, true>(q, k_pool, v_pool, out, pa, da, r, sq, h, hkv, d,
                          dv, scale, tensor_cores, stream);
 }
 
 template <typename T>
 int launch_dense(const void* q, const void* k, const void* v, void* out,
-                 int b, int sq, int skv, int h, int hkv, int d, int dv,
-                 float scale, int q_offset, int causal, int window,
+                 void* lse, int b, int sq, int skv, int h, int hkv, int d,
+                 int dv, float scale, int q_offset, int causal, int window,
                  int tensor_cores, void* stream) {
   PagedArgs pa{nullptr, nullptr, nullptr, 0, 1};
-  DenseArgs da{skv, q_offset, causal, window};
+  DenseArgs da{skv, q_offset, causal, window, static_cast<float*>(lse)};
   return launch<T, false>(q, k, v, out, pa, da, b, sq, h, hkv, d, dv, scale,
                           tensor_cores, stream);
 }
@@ -606,23 +623,25 @@ extern "C" int chunked_prefill_paged_bf16(
       hkv, d, dv, page, pages_per_seq, scale, tensor_cores, stream);
 }
 
+// ``lse`` is null for serving; for training it receives the [B, H, Sq]
+// natural-log LSE of every query row, which the backward reads.
 extern "C" int flash_prefill_f32(const void* q, const void* k, const void* v,
-                                 void* out, int b, int sq, int skv, int h,
-                                 int hkv, int d, int dv, float scale,
+                                 void* out, void* lse, int b, int sq, int skv,
+                                 int h, int hkv, int d, int dv, float scale,
                                  int q_offset, int causal, int window,
                                  int tensor_cores, void* stream) {
-  return repro_torch::launch_dense<float>(q, k, v, out, b, sq, skv, h, hkv, d,
-                                          dv, scale, q_offset, causal, window,
-                                          tensor_cores, stream);
+  return repro_torch::launch_dense<float>(q, k, v, out, lse, b, sq, skv, h,
+                                          hkv, d, dv, scale, q_offset, causal,
+                                          window, tensor_cores, stream);
 }
 
 extern "C" int flash_prefill_bf16(const void* q, const void* k,
-                                  const void* v, void* out, int b, int sq,
-                                  int skv, int h, int hkv, int d, int dv,
-                                  float scale, int q_offset, int causal,
-                                  int window, int tensor_cores,
+                                  const void* v, void* out, void* lse, int b,
+                                  int sq, int skv, int h, int hkv, int d,
+                                  int dv, float scale, int q_offset,
+                                  int causal, int window, int tensor_cores,
                                   void* stream) {
   return repro_torch::launch_dense<__nv_bfloat16>(
-      q, k, v, out, b, sq, skv, h, hkv, d, dv, scale, q_offset, causal,
+      q, k, v, out, lse, b, sq, skv, h, hkv, d, dv, scale, q_offset, causal,
       window, tensor_cores, stream);
 }

@@ -4,6 +4,7 @@
 // TPU kernels use, and inline PTX for cp.async, ldmatrix and mma.sync.
 #pragma once
 
+#include <math.h>
 #include <stdint.h>
 
 #include <cuda_bf16.h>

@@ -4,6 +4,12 @@ A CPU tensor takes the plain PyTorch version in ``kernels/ref.py``; a
 CUDA tensor launches the hand-written Hopper kernel, or the call raises.
 There is no switch and no fallback: the device alone decides.  The
 signatures are those of ``repro/kernels/ops.py`` without ``impl``.
+
+Training: when grad is enabled and q, k or v requires it,
+``flash_attention`` goes through ``FlashAttention``, whose forward keeps
+the LSE and whose backward is the hand-written kernel on the card
+(``kernels/flash_backward.py``) and the plain ``ref.attention_bwd_ref``
+on the CPU.  The other kernels have no backward and refuse a graph.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ from repro_torch.kernels.chunked_prefill import (
     chunked_prefill_paged as _chunked_prefill_paged_kernel,
 )
 from repro_torch.kernels.chunked_prefill import flash_prefill
+from repro_torch.kernels.flash_backward import flash_prefill_bwd
 from repro_torch.kernels.paged_attention import paged_decode
 from repro_torch.kernels.ssd_scan import ssd_chunk_scan
 
@@ -26,13 +33,55 @@ def _on_cpu(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
+class FlashAttention(torch.autograd.Function):
+    """The dense prefill with its gradient.  The forward saves q, k, v, the
+    output and its per-row LSE; the backward recomputes the probabilities
+    from them (``flash_prefill`` with ``return_lse`` and
+    ``flash_prefill_bwd`` on the card, ``ref.attention_fwd_lse_ref`` and
+    ``ref.attention_bwd_ref`` on the CPU: the device alone decides)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, sliding_window,
+                softmax_scale):
+        kw = dict(causal=causal, q_offset=q_offset,
+                  sliding_window=sliding_window, softmax_scale=softmax_scale)
+        if _on_cpu(q):
+            out, lse = ref.attention_fwd_lse_ref(q, k, v, **kw)
+        else:
+            out, lse = flash_prefill(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        d_out = d_out.contiguous()
+        if _on_cpu(q):
+            grads = ref.attention_bwd_ref(q, k, v, out, lse, d_out, **ctx.kw)
+        else:
+            grads = flash_prefill_bwd(q, k, v, out, lse, d_out, **ctx.kw)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)),
+                None, None, None, None)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     sliding_window: int | None = None, lengths=None,
                     softmax_scale: float | None = None):
     """Prefill attention ([B,Sq,H,D] x [B,Skv,Hkv,D]).  On the CPU a
     long key sequence (``Skv >= STREAMING_KV_THRESHOLD``, no
     ``lengths``) streams over key blocks and never builds the full
-    score matrix, as the reference's jnp path does."""
+    score matrix, as the reference's jnp path does.  With grad enabled
+    and an input that requires it, the call goes through
+    ``FlashAttention`` (no ``lengths``: the reference's training never
+    passes them)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if lengths is not None:
+            raise NotImplementedError("flash_attention: no gradient with "
+                                      "lengths")
+        return FlashAttention.apply(q, k, v, causal, q_offset,
+                                    sliding_window, softmax_scale)
     if _on_cpu(q):
         if lengths is None and k.shape[1] >= ref.STREAMING_KV_THRESHOLD:
             return ref.attention_streaming_ref(

@@ -86,7 +86,9 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     [N, page, Hkv, D]; without, they are contiguous per-sequence pages
     [B, P, page, Hkv, D] (the pool viewed by slot region, no copy).
     ``lengths`` [B] int32 counts each sequence's valid tokens.  Launches
-    on the current stream without synchronising."""
+    on the current stream without synchronising.  It has no backward
+    and refuses a graph (``_build.refuse_grad``)."""
+    _build.refuse_grad("paged_decode", q, k_pool, v_pool)
     _check_inputs(q, k_pool, v_pool, lengths, block_tables)
     b, h, d = q.shape
     if block_tables is None:

@@ -7,7 +7,10 @@ against its plain version on the card.  They mirror
 ``repro/kernels/ref.py`` (``attention_ref``, ``attention_streaming_ref``,
 ``paged_attention_ref`` in both layouts, ``chunked_prefill_paged_ref``,
 ``ssd_scan_ref``, ``ssd_decode_step_ref``) and compute scores and
-states in f32.
+states in f32.  ``attention_fwd_lse_ref`` and ``attention_bwd_ref`` are
+the plain versions of the dense prefill's training pair (forward with
+its LSE, and the backward), which the reference does not have: its
+``jax.grad`` differentiates ``attention_ref`` itself.
 """
 from __future__ import annotations
 
@@ -66,6 +69,116 @@ STREAMING_KV_THRESHOLD = 8192
 STREAMING_BLOCK_K = 2048
 
 
+def _visible(sq: int, k0: int, k1: int, q_offset: int, causal: bool,
+             sliding_window: int | None, device) -> torch.Tensor:
+    """[Sq, k1 - k0] bool: key ``k0 + j`` is visible to query ``i`` (the
+    mask of ``attention_ref``)."""
+    q_pos = torch.arange(sq, device=device)[:, None] + q_offset
+    kv_pos = torch.arange(k0, k1, device=device)[None, :]
+    mask = torch.ones((sq, k1 - k0), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kv_pos <= q_pos
+    if sliding_window is not None:
+        mask &= kv_pos > q_pos - sliding_window
+    return mask
+
+
+def attention_fwd_lse_ref(
+    q: torch.Tensor,              # [B, Sq, H, Dq]
+    k: torch.Tensor,              # [B, Skv, Hkv, Dq]
+    v: torch.Tensor,              # [B, Skv, Hkv, Dv]
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    sliding_window: int | None = None,
+    softmax_scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``attention_ref`` and the natural-log logsumexp of each row's
+    scaled, masked scores: ``(out [B, Sq, H, Dv] in q's dtype, lse [B, H,
+    Sq] f32)``.  A row with no visible key has ``lse = -inf`` and an output
+    of zeros, as the kernel writes it (``attention_ref`` would average
+    every value there).  From ``STREAMING_KV_THRESHOLD`` keys on it streams
+    over key blocks, as ``attention_streaming_ref`` does."""
+    if k.shape[1] >= STREAMING_KV_THRESHOLD:
+        return _streaming(q, k, v, causal=causal, q_offset=q_offset,
+                          sliding_window=sliding_window,
+                          softmax_scale=softmax_scale,
+                          block_k=STREAMING_BLOCK_K)
+    sq, h, d = q.shape[1], q.shape[2], q.shape[3]
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    kr, vr = _repeat_kv(k, h), _repeat_kv(v, h)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, kr).float() * scale
+    mask = _visible(sq, 0, k.shape[1], q_offset, causal, sliding_window,
+                    q.device)
+    logits = torch.where(mask[None, None], logits, NEG_INF)
+    seen = mask.any(-1)                                          # [Sq]
+    lse = torch.where(seen, torch.logsumexp(logits, dim=-1), -torch.inf)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vr)
+    out = torch.where(seen[None, :, None, None], out, torch.zeros_like(out))
+    return out, lse
+
+
+def attention_bwd_ref(
+    q: torch.Tensor,              # [B, Sq, H, Dq]
+    k: torch.Tensor,              # [B, Skv, Hkv, Dq]
+    v: torch.Tensor,              # [B, Skv, Hkv, Dv]
+    out: torch.Tensor,            # [B, Sq, H, Dv] the forward's output
+    lse: torch.Tensor,            # [B, H, Sq] f32 the forward's LSE
+    d_out: torch.Tensor,          # [B, Sq, H, Dv]
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    sliding_window: int | None = None,
+    softmax_scale: float | None = None,
+    block_k: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of the dense prefill by the flash-backward algebra,
+    in f32, each cast to its input's dtype: ``P = exp(S - lse)``, ``delta
+    = rowsum(dO o O)``, ``dS = P o (dO.V^T - delta)``, ``dV = P^T.dO``,
+    ``dK = scale dS^T.Q``, ``dQ = scale dS.K``, dK and dV summed over each
+    group of ``H / Hkv`` query heads.  A row with ``lse = -inf`` (no
+    visible key) gets zero gradients.  Keys are taken in blocks of
+    ``block_k`` (all at once below ``STREAMING_KV_THRESHOLD`` unless
+    given), so the score matrix is never larger than one block."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    dv_dim = v.shape[-1]
+    rep = h // hkv
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    if block_k is None:
+        block_k = (STREAMING_BLOCK_K if skv >= STREAMING_KV_THRESHOLD
+                   else max(skv, 1))
+    q32, do32 = q.float(), d_out.float()
+    delta = (do32 * out.float()).sum(-1).transpose(1, 2)        # [B, H, Sq]
+    seen = torch.isfinite(lse)
+    lse0 = torch.where(seen, lse, 0.0)[..., None]
+    dq = torch.zeros((b, sq, h, d), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for k0 in range(0, skv, block_k):
+        k1 = min(skv, k0 + block_k)
+        kb = _repeat_kv(k[:, k0:k1], h).float()
+        vb = _repeat_kv(v[:, k0:k1], h).float()
+        s = torch.einsum("bqhd,bkhd->bhqk", q32, kb) * scale
+        mask = _visible(sq, k0, k1, q_offset, causal, sliding_window,
+                        q.device)[None, None] & seen[..., None]
+        p = torch.where(mask, torch.exp(torch.where(mask, s - lse0, 0.0)),
+                        0.0)
+        dp = torch.einsum("bqhd,bkhd->bhqk", do32, vb)
+        ds = p * (dp - delta[..., None])
+        dv_h = torch.einsum("bhqk,bqhd->bkhd", p, do32)
+        dk_h = torch.einsum("bhqk,bqhd->bkhd", ds, q32) * scale
+        dq += torch.einsum("bhqk,bkhd->bqhd", ds, kb) * scale
+        n = k1 - k0
+        dks.append(dk_h.reshape(b, n, hkv, rep, d).sum(3))
+        dvs.append(dv_h.reshape(b, n, hkv, rep, dv_dim).sum(3))
+    dk = (torch.cat(dks, 1) if dks
+          else torch.zeros_like(k, dtype=torch.float32))
+    dv = (torch.cat(dvs, 1) if dvs
+          else torch.zeros_like(v, dtype=torch.float32))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def attention_streaming_ref(
     q: torch.Tensor,              # [B, Sq, H, Dq]
     k: torch.Tensor,              # [B, Skv, Hkv, Dq]
@@ -82,6 +195,18 @@ def attention_streaming_ref(
     only one (Sq x block_k) block at a time, in f32.  The last block is
     zero-padded and its padding masked.  Returns ``[B, Sq, H, Dv]`` in
     q's dtype."""
+    return _streaming(q, k, v, causal=causal, q_offset=q_offset,
+                      sliding_window=sliding_window,
+                      softmax_scale=softmax_scale, block_k=block_k,
+                      with_lse=False)[0]
+
+
+def _streaming(q, k, v, *, causal, q_offset, sliding_window, softmax_scale,
+               block_k, with_lse: bool = True):
+    """The online softmax of ``attention_streaming_ref``; with
+    ``with_lse`` a row with no visible key gives zeros and ``lse = -inf``
+    (``attention_fwd_lse_ref``'s contract), else the streaming output as
+    it was.  Returns ``(out, lse or None)``."""
     b, sq, h, d = q.shape
     dv = v.shape[-1]
     skv = k.shape[1]
@@ -114,7 +239,13 @@ def attention_streaming_ref(
         acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.transpose(1, 2).to(q.dtype)
+    if not with_lse:
+        return out.transpose(1, 2).to(q.dtype), None
+    seen = _visible(sq, 0, skv, q_offset, causal, sliding_window,
+                    dev).any(-1)                                   # [Sq]
+    lse = torch.where(seen, m + torch.log(l), -torch.inf)
+    out = torch.where(seen[None, None, :, None], out, 0.0)
+    return out.transpose(1, 2).to(q.dtype), lse
 
 
 def paged_attention_ref(

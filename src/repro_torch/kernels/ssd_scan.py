@@ -60,7 +60,11 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     Returns ``(y [B, L, H, P] in x's dtype, final_state [B, H, P, N]
     f32)``, the contract of ``ref.ssd_scan_ref``.  ``L`` must be a
     multiple of ``chunk_size`` (1 to 128), ``N`` at most 128.  Launches
-    on the current stream without synchronising."""
+    on the current stream without synchronising.  It has no backward
+    yet and refuses a graph (``_build.refuse_grad``): SSM and hybrid
+    training runs on the CPU's plain scan until it has one."""
+    _build.refuse_grad("ssd_chunk_scan", x, dt, a, b_mat, c_mat,
+                       initial_state)
     _check_inputs({"x": x, "dt": dt, "a": a, "b_mat": b_mat,
                    "c_mat": c_mat, "initial_state": initial_state})
     bsz, seqlen, h, p = x.shape

@@ -55,6 +55,7 @@ def _project_qkv(p: Attention, x, cfg: ModelConfig, kv_x=None):
 
 
 def attention_prefill(p: Attention, x, cfg: ModelConfig, *, q_offset: int = 0,
+                      sliding_window: int | None = None,
                       kv_cache: tuple | None = None, kv_x=None,
                       causal: bool = True):
     """Full-sequence attention; returns ``(out, (k, v))``.
@@ -65,7 +66,11 @@ def attention_prefill(p: Attention, x, cfg: ModelConfig, *, q_offset: int = 0,
     ``causal=False`` is the encoder's self-attention (RoPE as usual).
     With ``kv_x`` [B, S_src, d_model] the call is cross-attention: K/V
     are projected from ``kv_x``, neither q nor k gets RoPE, and every
-    query sees every source position (non-causal, offset 0)."""
+    query sees every source position (non-causal, offset 0).
+
+    ``sliding_window`` (the training forward's ``cfg.sliding_window``)
+    lets the query at position p see keys in ``(p - window, p]``; it goes
+    to the kernel as it is, as the reference passes it."""
     b, s, _ = x.shape
     cross = kv_x is not None
     q, k, v = _project_qkv(p, x, cfg, kv_x)
@@ -78,7 +83,7 @@ def attention_prefill(p: Attention, x, cfg: ModelConfig, *, q_offset: int = 0,
         v = torch.cat([kv_cache[1].to(v.dtype), v], dim=1)
     offset = kv_cache[0].shape[1] if kv_cache is not None and not cross else 0
     out = ops.flash_attention(q, k, v, causal=causal and not cross,
-                              q_offset=offset)
+                              q_offset=offset, sliding_window=sliding_window)
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
     return out @ p.wo, (k, v)
 

@@ -23,7 +23,8 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def weight(shape, dtype: torch.dtype, device) -> nn.Parameter:
     """An uninitialised inference weight (filled by ``dense_init_`` or a
-    converted checkpoint)."""
+    converted checkpoint).  It does not require grad, so serving builds no
+    graph; training turns ``requires_grad`` on (``training.loop``)."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
@@ -102,6 +103,19 @@ class MLP(nn.Module):
         else:
             h = F.gelu(x @ self.wi, approximate="tanh")
         return h @ self.wo
+
+
+def cross_entropy_loss(logits: torch.Tensor,
+                       targets: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy in f32, ``mean(logsumexp(logits) -
+    logits[target])``: ``repro/models/layers.py::cross_entropy_loss``
+    without a mask or z-loss (``train_loss`` passes neither).  The gold
+    logit is gathered; the reference contracts with a one-hot for its
+    sharded vocab, the same value."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return (lse - gold).mean()
 
 
 class Embed(nn.Module):

@@ -82,13 +82,15 @@ def _expand(c_kv, w):
 
 
 def mla_prefill(p: MLA, x, cfg: ModelConfig, *, q_offset: int = 0,
+                sliding_window: int | None = None,
                 latent_prefix: tuple | None = None):
     """Full-sequence causal MLA; returns ``(out, (c_kv, k_rope))``, the
     latent pair covering prefix and fresh tokens (the KVC payload).
 
     ``latent_prefix=(ckv [B, Sp, r], kr [B, Sp, dr])`` is a restored
     prefix: the fresh latents are appended after it, and the queries
-    (at positions ``q_offset ...``) attend across both."""
+    (at positions ``q_offset ...``) attend across both.
+    ``sliding_window`` goes to the kernel, as in the reference."""
     b, s, _ = x.shape
     h = cfg.num_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -105,7 +107,7 @@ def mla_prefill(p: MLA, x, cfg: ModelConfig, *, q_offset: int = 0,
                    k_rope[:, :, None].expand(b, skv, h, dr)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     out = ops.flash_attention(q, k, _expand(c_kv, p.w_uv), causal=True,
-                              q_offset=skv - s,
+                              q_offset=skv - s, sliding_window=sliding_window,
                               softmax_scale=(dn + dr) ** -0.5)
     return out.reshape(b, s, h * dv) @ p.wo, (c_kv, k_rope)
 

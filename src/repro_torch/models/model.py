@@ -24,13 +24,30 @@ self-attention.  The GQA families without a window serve through the
 paged steps, which write each layer's K/V into ``k_pool[l]`` /
 ``v_pool[l]`` in place; the SSM, hybrid and MLA families and a windowed
 GQA model through ``decode_step`` over the dense cache of
-``init_cache``, which also holds the encoder-decoder's cross K/V.  The
-MLA model's multi-token-prediction head is training-only and not built.
+``init_cache``, which also holds the encoder-decoder's cross K/V.
+
+Training: ``train_loss`` is the reference's ``Model.train_loss`` (mean
+token cross-entropy, plus the MoE aux summed over layers, plus the MLA
+model's multi-token-prediction loss through ``Model.mtp``, which serving
+never reads).  ``forward`` and ``encode`` build a graph when grad is
+enabled and a parameter requires it; the serving paths call them under
+``torch.no_grad()``.  ``remat`` recomputes each block in the backward:
+``"full"`` keeps only its input (``torch.utils.checkpoint``), ``"dots"``
+also its matmul outputs and ``"dots_no_batch"`` those without a batch
+dimension (selective checkpointing), as the reference's ``jax.checkpoint``
+policies do.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (
@@ -46,10 +63,52 @@ from repro_torch.models.cache import (
     supports_paged_decode,
 )
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MLP, Embed, Norm
+from repro_torch.models.layers import (
+    MLP,
+    Embed,
+    Norm,
+    cross_entropy_loss,
+    torch_dtype,
+    weight,
+)
 from repro_torch.models.mla import MLA, mla_decode, mla_prefill
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssd import SSD, ssd_decode, ssd_prefill
+
+
+_MATMULS = {"dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                      torch.ops.aten.bmm.default),
+            "dots_no_batch": (torch.ops.aten.mm.default,
+                              torch.ops.aten.addmm.default)}
+
+
+def _save_matmuls(ops, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in ops
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str | None):
+    """``fn`` recomputed in the backward under ``policy`` (None or
+    ``"none"``: as it is; ``"full"``: only the inputs are kept;
+    ``"dots"`` / ``"dots_no_batch"``: the outputs of every matrix product,
+    or of those without a batch dimension, are kept too), as the
+    reference's ``_remat`` wraps a block in ``jax.checkpoint``.  Without
+    grad there is no backward, and ``fn`` runs as it is."""
+    if policy is None or policy == "none":
+        return fn
+    if policy not in ("full", *_MATMULS):
+        raise ValueError(f"unknown remat policy {policy!r}")
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        if policy == "full":
+            return checkpoint(fn, *args, use_reentrant=False)
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                functools.partial(_save_matmuls,
+                                                  _MATMULS[policy]))
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=ctx)
+    return run
 
 
 def _moe_layer(cfg: ModelConfig, layer: int) -> bool:
@@ -75,10 +134,12 @@ class Block(nn.Module):
         else:
             self.mlp = MLP(cfg, device)
 
-    def ffn(self, h: torch.Tensor) -> torch.Tensor:
+    def ffn(self, h: torch.Tensor):
+        """``(y, aux)``: the MoE layer's load-balance and z-loss aux, or
+        None for an MLP."""
         if self.is_moe:
-            return self.moe(h)[0]       # (y, aux): serving drops the aux
-        return self.mlp(h)
+            return self.moe(h)
+        return self.mlp(h), None
 
 
 class SSMBlock(nn.Module):
@@ -98,6 +159,21 @@ class NormAttn(nn.Module):
         super().__init__()
         self.norm = Norm(cfg, device)
         self.attn = Attention(cfg, device)
+
+
+class MTP(nn.Module):
+    """The multi-token-prediction head (``params["mtp"]``): ``proj``
+    [depth, 2d, d], ``blocks`` (depth dense blocks) and ``norm``.  Only
+    ``train_loss`` reads it, and only depth 0, as the reference does."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d = cfg.d_model
+        self.proj = weight((cfg.mtp_depth, 2 * d, d), torch_dtype(cfg.dtype),
+                           device)
+        self.blocks = nn.ModuleList(Block(cfg, device, moe=False)
+                                    for _ in range(cfg.mtp_depth))
+        self.norm = Norm(cfg, device)
 
 
 class Model(nn.Module):
@@ -127,6 +203,7 @@ class Model(nn.Module):
             self.encoder_norm = Norm(cfg, self.device)
             self.cross = nn.ModuleList(NormAttn(cfg, self.device)
                                        for _ in range(cfg.num_layers))
+        self.mtp = MTP(cfg, self.device) if cfg.mtp_depth else None
         self.final_norm = Norm(cfg, self.device)
 
     @torch.no_grad()
@@ -150,14 +227,23 @@ class Model(nn.Module):
                 blk.mlp.init(generator)
             for cb in self.cross:
                 cb.attn.init(generator)
+        if self.mtp is not None:
+            proj = self.mtp.proj
+            tmp = torch.randn(proj.shape, generator=generator,
+                              device=proj.device)
+            proj.copy_(tmp.mul_(proj.shape[1] ** -0.5))
+            for blk in self.mtp.blocks:
+                blk.attn.init(generator)
+                blk.mlp.init(generator)
         return self
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor, *, q_offset: int = 0,
                 collect_state: bool = False, prefix_state: dict | None = None,
                 image_embeds: torch.Tensor | None = None,
-                frames: torch.Tensor | None = None):
+                frames: torch.Tensor | None = None,
+                sliding_window: int | None = None,
+                remat: str | None = None):
         """Full-sequence causal forward over ``tokens`` [B, S].  The VLM
         family prepends ``image_embeds`` [B, N_img, D] (the stubbed anyres
         patch embeddings), as the reference's ``Model.embed`` does; ``S``
@@ -184,40 +270,49 @@ class Model(nn.Module):
         of that layout, which the scan resumes from (``q_offset`` is then
         only the snapshot's position).  The hybrid's ``state`` holds both:
         ``ssm`` for every layer and ``kv`` [n_attn, B, S', Hkv, hd] for
-        the shared block's invocations."""
+        the shared block's invocations.
+
+        ``sliding_window`` and ``remat`` are the training forward's (see
+        ``train_loss``); serving passes neither."""
+        logits, _, state = self._forward(
+            tokens, q_offset=q_offset, collect_state=collect_state,
+            prefix_state=prefix_state, image_embeds=image_embeds,
+            frames=frames, sliding_window=sliding_window, remat=remat)
+        return logits, state
+
+    def _forward(self, tokens, *, q_offset=0, collect_state=False,
+                 prefix_state=None, image_embeds=None, frames=None,
+                 sliding_window=None, remat=None):
+        """``forward``'s ``(logits, aux, state)``: ``aux`` is the MoE aux
+        summed over the layers (an f32 zero without experts), which only
+        ``train_loss`` reads."""
         cfg = self.cfg
         x = self.embed.embed(tokens)
         if cfg.arch_type == "vlm" and image_embeds is not None:
             x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
         if self.is_ssm:
             return self._ssm_forward(x, q_offset, collect_state,
-                                     prefix_state)
+                                     prefix_state, sliding_window, remat)
         enc_out = None
         if cfg.is_encoder_decoder:
             if frames is None:
                 raise ValueError(f"{cfg.name}: forward needs frames")
-            enc_out = self.encode(frames)
+            enc_out = self.encode(frames, remat=remat)
         part, names = (("mla", ("ckv", "kr")) if cfg.use_mla
                        else ("kv", ("k", "v")))
         layers = []                         # each layer's (k, v) or latents
         crosses = []                        # each layer's cross (k, v)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        block = _remat(self._attn_block, remat)
         for l, blk in enumerate(self.blocks):
             pref = None
             if prefix_state is not None:
                 pref = tuple(prefix_state[part][n][l] for n in names)
-            if cfg.use_mla:
-                a, st = mla_prefill(blk.attn, blk.norm1(x), cfg,
-                                    q_offset=q_offset, latent_prefix=pref)
-            else:
-                a, st = attention_prefill(blk.attn, blk.norm1(x), cfg,
-                                          q_offset=q_offset, kv_cache=pref)
-            x = x + a
-            if enc_out is not None:
-                cb = self.cross[l]
-                c, ckv = attention_prefill(cb.attn, cb.norm(x), cfg,
-                                           kv_x=enc_out, causal=False)
-                x = x + c
-            x = x + blk.ffn(blk.norm2(x))
+            cross = self.cross[l] if enc_out is not None else None
+            x, a, st, ckv = block(blk, x, enc_out, cross, q_offset,
+                                  sliding_window, pref)
+            if a is not None:
+                aux = aux + a
             if collect_state:
                 layers.append(st)
                 if enc_out is not None:
@@ -230,34 +325,74 @@ class Model(nn.Module):
             if crosses:
                 state["cross"] = {n: torch.stack([c[i] for c in crosses])
                                   for i, n in enumerate(("k", "v"))}
-        return logits, state
+        return logits, aux, state
 
-    @torch.no_grad()
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+    def _attn_block(self, blk, x, enc_out, cross, q_offset, sliding_window,
+                    pref):
+        """One decoder layer (the reference's ``_attn_block``): attention
+        (or MLA), the cross block when ``enc_out`` is given, the
+        feed-forward.  Returns ``(x, aux or None, self state, cross (k,
+        v))``."""
+        cfg = self.cfg
+        if cfg.use_mla:
+            a, st = mla_prefill(blk.attn, blk.norm1(x), cfg,
+                                q_offset=q_offset,
+                                sliding_window=sliding_window,
+                                latent_prefix=pref)
+        else:
+            a, st = attention_prefill(blk.attn, blk.norm1(x), cfg,
+                                      q_offset=q_offset,
+                                      sliding_window=sliding_window,
+                                      kv_cache=pref)
+        x = x + a
+        ckv = None
+        if enc_out is not None:
+            c, ckv = attention_prefill(cross.attn, cross.norm(x), cfg,
+                                       kv_x=enc_out, causal=False)
+            x = x + c
+        y, aux = blk.ffn(blk.norm2(x))
+        return x + y, aux, st, ckv
+
+    def encode(self, frames: torch.Tensor, *,
+               remat: str | None = None) -> torch.Tensor:
         """The encoder-decoder's encoder (the reference's ``_encode``):
         ``frames`` [B, S_src, D] cast to the model dtype, then every
         encoder layer's non-causal self-attention (RoPE at positions
-        ``0..S_src-1``) and MLP, then the encoder norm."""
-        x = frames.to(self.embed.tok.dtype)
-        for blk in self.encoder:
-            a, _ = attention_prefill(blk.attn, blk.norm1(x), self.cfg,
+        ``0..S_src-1``) and MLP, then the encoder norm; each layer under
+        ``remat``."""
+        cfg = self.cfg
+
+        def layer(blk, x):
+            a, _ = attention_prefill(blk.attn, blk.norm1(x), cfg,
                                      causal=False)
             x = x + a
-            x = x + blk.ffn(blk.norm2(x))
+            return x + blk.mlp(blk.norm2(x))
+
+        layer = _remat(layer, remat)
+        x = frames.to(self.embed.tok.dtype)
+        for blk in self.encoder:
+            x = layer(blk, x)
         return self.encoder_norm(x)
 
-    def _ssm_forward(self, x, q_offset, collect_state, prefix_state):
+    def _ssm_forward(self, x, q_offset, collect_state, prefix_state,
+                     sliding_window=None, remat=None):
         cfg = self.cfg
         convs, states, ks, vs = [], [], [], []
         pre_kv = prefix_state.get("kv") if prefix_state is not None else None
+
+        def ssm_layer(blk, x, pref):
+            y, st = ssd_prefill(blk.ssd, blk.norm1(x), cfg, state=pref)
+            return x + y, st
+
+        # the reference recomputes the SSD layers, not the shared block
+        ssm_layer = _remat(ssm_layer, remat)
         j = 0                                   # shared-attention call
         for l, blk in enumerate(self.blocks):
             pref = None
             if prefix_state is not None:
                 pref = {"conv": prefix_state["ssm"]["conv"][l],
                         "state": prefix_state["ssm"]["state"][l]}
-            y, st = ssd_prefill(blk.ssd, blk.norm1(x), cfg, state=pref)
-            x = x + y
+            x, st = ssm_layer(blk, x, pref)
             if collect_state:
                 convs.append(st["conv"])
                 states.append(st["state"])
@@ -267,7 +402,7 @@ class Model(nn.Module):
                            else (pre_kv["k"][j], pre_kv["v"][j]))
                 a, (k, v) = attention_prefill(
                     sa.attn, sa.norm(x), cfg, q_offset=q_offset,
-                    kv_cache=pref_kv)
+                    sliding_window=sliding_window, kv_cache=pref_kv)
                 x = x + a
                 if collect_state:
                     ks.append(k)
@@ -280,7 +415,49 @@ class Model(nn.Module):
                              "state": torch.stack(states)}}
             if ks:
                 state["kv"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
-        return logits, state
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=x.device), state
+
+    # ------------------------------------------------------------------
+    def train_loss(self, batch: dict, *, remat: str | None = None):
+        """The reference's ``Model.train_loss``: ``(loss, {"ce", "aux",
+        "loss"})``.  ``batch`` holds ``tokens`` and ``targets`` [B, S] on
+        the model's device, and ``image_embeds`` (VLM) or ``frames``
+        (encoder-decoder) where the family takes them.  The loss is the
+        mean cross-entropy of position t's logits against ``targets[t+1]``
+        (the VLM's image positions dropped), plus 0.3 x the MTP loss when
+        the model has an MTP head, plus the MoE aux summed over layers;
+        ``ce`` is the first term alone.  Attention runs at
+        ``cfg.sliding_window``."""
+        cfg = self.cfg
+        tokens, targets = batch["tokens"], batch["targets"]
+        image_embeds = batch.get("image_embeds")
+        logits, aux, _ = self._forward(
+            tokens, image_embeds=image_embeds, frames=batch.get("frames"),
+            sliding_window=cfg.sliding_window or None, remat=remat)
+        if cfg.arch_type == "vlm" and image_embeds is not None:
+            logits = logits[:, image_embeds.shape[1]:]
+        loss = cross_entropy_loss(logits[:, :-1], targets[:, 1:])
+        metrics = {"ce": loss, "aux": aux}
+        if self.mtp is not None:
+            loss = loss + 0.3 * self._mtp_loss(tokens, targets)
+        total = loss + aux
+        metrics["loss"] = total
+        return total, metrics
+
+    def _mtp_loss(self, tokens, targets):
+        """DeepSeek-V3 multi-token prediction, as the reference computes it:
+        ``[h_t ; emb(token_{t+1})]`` (the embedding rolled by one, so the
+        last position wraps to the first) through ``proj[0]`` and block 0
+        (no MoE, no window), then the MTP norm and the unembedding,
+        predicting token t+2."""
+        x = self.embed.embed(tokens)
+        h = torch.cat([x, torch.roll(x, -1, dims=1)], dim=-1)
+        h = (h @ self.mtp.proj[0]).to(x.dtype)
+        h2 = self._attn_block(self.mtp.blocks[0], h, None, None, 0, None,
+                              None)[0]
+        lg = self.embed.logits(self.mtp.norm(h2))
+        return cross_entropy_loss(lg[:, :-2], targets[:, 2:])
 
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, seq_len: int | None = None, *,
@@ -329,7 +506,7 @@ class Model(nn.Module):
                     ckv_cache=cache["mla"]["ckv"][l],
                     krope_cache=cache["mla"]["kr"][l], pos=pos,
                     sliding_window=swin)
-                x = x + blk.ffn(blk.norm2(x))
+                x = x + blk.ffn(blk.norm2(x))[0]
             else:
                 x = x + attention_decode(
                     blk.attn, blk.norm1(x), cfg, k_cache=kv["k"][l],
@@ -340,7 +517,7 @@ class Model(nn.Module):
                         cb.attn, cb.norm(x), cfg,
                         cross_kv=(cache["cross"]["k"][l],
                                   cache["cross"]["v"][l]))
-                x = x + blk.ffn(blk.norm2(x))
+                x = x + blk.ffn(blk.norm2(x))[0]
         return self.embed.logits(self.final_norm(x))
 
     # ------------------------------------------------------------------
@@ -371,7 +548,7 @@ class Model(nn.Module):
                 blk.attn, blk.norm1(x), cfg, k_pool=k_pool[l],
                 v_pool=v_pool[l], block_tables=block_tables,
                 lengths=lengths, contiguous=contiguous)
-            x = x + blk.ffn(blk.norm2(x))
+            x = x + blk.ffn(blk.norm2(x))[0]
         return self.embed.logits(self.final_norm(x))
 
     @torch.no_grad()
@@ -390,7 +567,7 @@ class Model(nn.Module):
                 blk.attn, blk.norm1(x), cfg, k_pool=k_pool[l],
                 v_pool=v_pool[l], block_tables=block_tables,
                 q_offsets=q_offsets, n_valid=n_valid)
-            x = x + blk.ffn(blk.norm2(x))
+            x = x + blk.ffn(blk.norm2(x))[0]
         idx = torch.clamp(n_valid.long() - 1, min=0)
         last = x[torch.arange(x.shape[0], device=x.device), idx]   # [R, D]
         return self.embed.logits(self.final_norm(last))

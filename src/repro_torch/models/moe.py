@@ -120,9 +120,11 @@ def moe_keep(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return (position < cap) & (member > 0)
 
 
-@torch.no_grad()
 def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig):
-    """x: [B, S, D] -> (y [B, S, D], aux).  Works for S=1 decode too."""
+    """x: [B, S, D] -> (y [B, S, D], aux).  Works for S=1 decode too.
+    Differentiable: the router's gradient flows through the combine
+    weights (``top_p``) and the aux loss; the dispatch writes into a fresh
+    buffer (``index_put``), whose backward gathers the rows back."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     t = b * s

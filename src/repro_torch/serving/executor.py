@@ -103,14 +103,17 @@ class PagedExecutor:
     def prefill_dense(self, toks):
         """Batched bucketed dense prefill (stop-the-world misses):
         ``(logits, state)`` of ``Model.forward``."""
-        return self.model.forward(self.to_device(toks), collect_state=True)
+        with torch.no_grad():
+            return self.model.forward(self.to_device(toks),
+                                      collect_state=True)
 
     def prefill_exact(self, tokens: list[int]):
         """Unpadded, per-sequence prefill (MoE families, where padding
         would perturb capacity-based routing of real tokens).  Returns
         ``(last_logits, state)``."""
-        lg, state = self.model.forward(self.to_device(tokens)[None],
-                                       collect_state=True)
+        with torch.no_grad():
+            lg, state = self.model.forward(self.to_device(tokens)[None],
+                                           collect_state=True)
         return lg[0, len(tokens) - 1], state
 
     def sample_first(self, logits_rows, samplings) -> np.ndarray:
@@ -194,12 +197,13 @@ class DenseRuntime:
                 prefix_state = self.adapter.payload_to_state(payload)
         toks = torch.as_tensor(tokens, dtype=torch.int32,
                                device=self.device)[None]
-        if cached:
-            lg, state = self.model.forward(
-                toks[:, cached:], q_offset=cached, prefix_state=prefix_state,
-                collect_state=True)
-        else:
-            lg, state = self.model.forward(toks, collect_state=True)
+        with torch.no_grad():
+            if cached:
+                lg, state = self.model.forward(
+                    toks[:, cached:], q_offset=cached,
+                    prefix_state=prefix_state, collect_state=True)
+            else:
+                lg, state = self.model.forward(toks, collect_state=True)
         self.stats.prefill_time_s += time.perf_counter() - t0
         self.stats.cached_tokens += cached
         self.stats.prefilled_tokens += len(tokens) - cached

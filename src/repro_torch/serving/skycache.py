@@ -197,15 +197,17 @@ class SkyKVCAdapter:
         recomputed from the token chain."""
         toks = torch.as_tensor(list(tokens), dtype=torch.int32,
                                device=self.device)[None]
-        if past is None or past_len == 0:
-            _, state = self.model.forward(toks, collect_state=True)
-        else:
-            # the returned K/V and MLA latents already include the
-            # prefix (attention concatenates it in front of the fresh
-            # keys); an SSM state is cumulative by construction
-            _, state = self.model.forward(
-                toks[:, past_len:], q_offset=past_len,
-                prefix_state=self.payload_to_state(past), collect_state=True)
+        with torch.no_grad():
+            if past is None or past_len == 0:
+                _, state = self.model.forward(toks, collect_state=True)
+            else:
+                # the returned K/V and MLA latents already include the
+                # prefix (attention concatenates it in front of the fresh
+                # keys); an SSM state is cumulative by construction
+                _, state = self.model.forward(
+                    toks[:, past_len:], q_offset=past_len,
+                    prefix_state=self.payload_to_state(past),
+                    collect_state=True)
         prev_hash = None
         if self.codec.delta and self._delta_ok and past_len > 0:
             prev_hash = chain_hashes(

@@ -34,6 +34,7 @@ from repro_torch.kernels.paged_attention import (
 )
 from repro_torch.kernels.ssd_scan import ENTRY as SSD_ENTRY
 from repro_torch.kernels.ssd_scan import ssd_body, ssd_chunk_scan
+from repro_torch.kernels.flash_backward import bwd_body, flash_prefill_bwd
 
 torch.set_num_threads(2)
 TOL = dict(atol=2e-5, rtol=2e-4)
@@ -284,6 +285,46 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert paged_decode.launches == 0
     assert chunked_prefill_paged_kernel.launches == 0
     assert flash_prefill.launches == 0
+
+
+def test_kernels_without_a_backward_refuse_a_graph():
+    """No wrapper silently detaches an autograd graph: with grad enabled
+    and an input that requires it, the decode, the paged prefill and the
+    SSD scan (no backward yet) raise ``NotImplementedError`` before any
+    device check, and so does the dense prefill's wrapper called
+    directly (its gradient goes through ``ops.FlashAttention``).  Under
+    ``torch.no_grad()`` the device check speaks again."""
+    q = torch.zeros(1, 2, 8, requires_grad=True)
+    pool = torch.zeros(2, 4, 2, 8)
+    lens = torch.ones(1, dtype=torch.int32)
+    bt = torch.zeros(1, 2, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        paged_decode(q, pool, pool, lens, bt)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        chunked_prefill_paged_kernel(q[:, None], pool, pool, lens, bt, lens)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        flash_prefill(q[:, None], q[:, None].detach(), q[:, None].detach())
+    x = torch.zeros(1, 4, 2, 8)
+    bc = torch.zeros(1, 4, 1, 16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ssd_chunk_scan(x, torch.zeros(1, 4, 2), torch.zeros(2), bc, bc,
+                       chunk_size=4)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="CUDA"):
+            paged_decode(q, pool, pool, lens, bt)
+        with pytest.raises(ValueError, match="CUDA"):
+            ssd_chunk_scan(x, torch.zeros(1, 4, 2), torch.zeros(2), bc, bc,
+                           chunk_size=4)
+    # the backward's own wrapper launches on CUDA tensors or raises
+    t = torch.zeros(1, 2, 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_prefill_bwd(t, t, t, t, torch.zeros(1, 2, 2), t)
+    assert flash_prefill_bwd.launches == 0 and ssd_chunk_scan.launches == 0
+    # the backward's body, chosen as the forward's is
+    assert bwd_body(torch.bfloat16, 64, 64) == "tensor-core"
+    assert bwd_body(torch.bfloat16, 192, 128) == "tensor-core"
+    assert bwd_body(torch.bfloat16, 96, 64) == "fma"
+    assert bwd_body(torch.float32, 64, 64) == "fma"
 
 
 def test_build_names_every_source_and_entry_point():

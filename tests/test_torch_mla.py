@@ -252,11 +252,14 @@ def test_mla_decode_matches_reference(window, s_cache):
 
 def test_blocks_dense_then_moe(zoo):
     """Layer 0 is dense (``first_k_dense`` 1), layer 1 MoE, both MLA;
-    the multi-token-prediction head is not built."""
+    the multi-token-prediction head (training's) is built, one dense MLA
+    block deep, and serving never reads it."""
     _, params, tm = zoo["deepseek-smoke"]
     assert [b.is_moe for b in tm.blocks] == [False, True]
     assert all(isinstance(b.attn, MLA) for b in tm.blocks)
-    assert "mtp" in params and not hasattr(tm, "mtp")
+    assert "mtp" in params and len(tm.mtp.blocks) == 1
+    assert isinstance(tm.mtp.blocks[0].attn, MLA)
+    assert not tm.mtp.blocks[0].is_moe
     assert not tm.supports_paged_decode
 
 
@@ -465,8 +468,9 @@ def test_engine_cold_and_warm_streams_identical(zoo):
 
 def test_convert_reads_both_stacks_skips_mtp_and_rejects_bad_trees(zoo):
     """Layer 0 comes from ``blocks_dense``, layer 1 from ``blocks``;
-    ``mtp`` is skipped; a subtree the port has no place for and a weight
-    of the wrong shape raise."""
+    ``mtp`` is read into ``Model.mtp`` (it was skipped before training
+    came); a subtree the port has no place for and a weight of the wrong
+    shape raise."""
     _, params, tm = zoo["deepseek-smoke"]
     tree = jax.tree.map(np.asarray, params)
     np.testing.assert_array_equal(tm.blocks[0].attn.w_uk.numpy(),
@@ -475,6 +479,9 @@ def test_convert_reads_both_stacks_skips_mtp_and_rejects_bad_trees(zoo):
                                   tree["blocks"]["attn"]["w_uk"][0])
     np.testing.assert_array_equal(tm.blocks[0].mlp.wo.numpy(),
                                   tree["blocks_dense"]["mlp"]["wo"][0])
+    np.testing.assert_array_equal(tm.mtp.proj.numpy(), tree["mtp"]["proj"])
+    np.testing.assert_array_equal(tm.mtp.blocks[0].attn.wq_b.numpy(),
+                                  tree["mtp"]["blocks"]["attn"]["wq_b"][0])
     with pytest.raises(ValueError, match="does not read"):
         params_from_numpy(tm.cfg, {**tree, "encoder": tree["blocks"]},
                           device="cpu")
