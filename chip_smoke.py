@@ -51,7 +51,13 @@ Phases (each raises on failure; nothing is caught):
    and cross shapes, stablelm's D 160 and deepseek's MLA Dq 192 / Dv 128,
    bf16 (the tensor-core body) and f32, each with its time, the plain
    backward's, its bound, and forward + backward against
-   ``scaled_dot_product_attention``'s;
+   ``scaled_dot_product_attention``'s; SDPA's forward alone and its
+   backward alone (the yardstick of one direction), the port's forward
+   with its LSE alone, its plain version and its bound; at the main case
+   the backward's split into its launches from one CUPTI trace; the
+   tensor-core body's tiling as the library reports it against
+   ``tc_plan``, and the wgmma, mbarrier and TMA instructions of each of
+   its kernels in the built library (``cuobjdump -sass``);
 4. model: TinyLlama's widths at 2 layers, f32, seeded: ``forward``,
    ``prefill_chunk_paged`` and ``decode_step_paged`` logits on the card
    against the same on the CPU.  Then mamba2-1.3b's widths at 2 layers,
@@ -212,6 +218,8 @@ from __future__ import annotations
 
 import gc
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1070,6 +1078,21 @@ BWD_CASES = (
 )
 
 
+def bwd_inputs(device, dtype, name, b, sq, skv, h, hkv, dq_, dv_, causal,
+               off, win):
+    """q, k, v and d_out ~ N(0, 1) of a ``BWD_CASES`` entry, drawn from a
+    generator seeded by the case's name (``case_seed``), and its mask
+    arguments."""
+    gen = torch.Generator(device=device).manual_seed(
+        case_seed("flash_prefill_bwd", name))
+    q = torch.randn(b, sq, h, dq_, generator=gen, device=device).to(dtype)
+    k = torch.randn(b, skv, hkv, dq_, generator=gen, device=device).to(dtype)
+    v = torch.randn(b, skv, hkv, dv_, generator=gen, device=device).to(dtype)
+    d_out = torch.randn(b, sq, h, dv_, generator=gen, device=device).to(dtype)
+    return q, k, v, d_out, dict(causal=causal, q_offset=off,
+                                sliding_window=win)
+
+
 def _visible_pairs(sq, skv, causal, off, window) -> int:
     """(query, key) pairs the mask leaves visible, per sequence and head."""
     seen = 0
@@ -1113,6 +1136,97 @@ def _ptxas(logs: dict, pattern: str) -> str:
     return "not in this build's log (library already built)"
 
 
+# SASS opcodes that show the tensor-core body on Hopper's own paths: wgmma
+# (HGMMA), mbarrier waits and arrivals (SYNCS), TMA tile loads (UTMALDG)
+SASS_OPS = ("HGMMA", "SYNCS", "UTMALDG")
+
+
+def sass_counts(lib: Path, patterns: tuple) -> dict:
+    """Per kernel whose mangled name holds one of ``patterns``, keyed by
+    its instance (``bwd_dkdv_wgILi64ELi64E``), how many instructions of
+    each of ``SASS_OPS`` its SASS in ``lib`` holds (``cuobjdump -sass``);
+    empty where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+        / "cuobjdump")
+    if not Path(tool).exists():
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[-1].strip()
+            at = next((name.index(p) for p in patterns if p in name), None)
+            cur = None
+            if at is not None:   # the instance ends where its args do
+                cur = name[at:name.index("EE", at) + 1]
+                counts[cur] = dict.fromkeys(SASS_OPS, 0)
+        elif cur is not None:
+            for op in SASS_OPS:
+                if f" {op}" in line:
+                    counts[cur][op] += 1
+    return counts
+
+
+def launch_split(fn, iters: int = 5) -> dict:
+    """Device ms per call of each kernel that ``fn`` launches, from one
+    ``torch.profiler`` (CUPTI) trace of ``iters`` calls, longest first;
+    empty when the trace holds no device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    tot = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            tot[e.name] = tot.get(e.name, 0.0) + (e.time_range.end
+                                                 - e.time_range.start)
+    return {n: t / 1e3 / iters
+            for n, t in sorted(tot.items(), key=lambda x: -x[1])}
+
+
+def backward_split(split: dict, *, seen: int, dq: int, dv: int,
+                   delta_bytes: int) -> list:
+    """``launch_split`` of one backward as [kernel, ms, rate]: the dkdv
+    launch's four products (2 seen (2 Dq + 2 Dv) FLOP) and the dq launch's
+    three (2 seen (2 Dq + Dv)) in TFLOP/s, the delta pass's bytes in GB/s."""
+    rows = []
+    for name, ms in split.items():
+        short = next((k for k in ("bwd_delta", "bwd_dkdv", "bwd_dq")
+                      if k in name), name[:60])
+        if short == "bwd_dkdv":
+            rate = f"{2 * seen * (2 * dq + 2 * dv) / ms / 1e9:.1f} TFLOP/s"
+        elif short == "bwd_dq":
+            rate = f"{2 * seen * (2 * dq + dv) / ms / 1e9:.1f} TFLOP/s"
+        elif short == "bwd_delta":
+            rate = f"{delta_bytes / ms / 1e6:.1f} GB/s"
+        else:
+            rate = ""
+        rows.append([short, round(ms, 5), rate])
+    return rows
+
+
+def check_tc_plans() -> None:
+    """The tensor-core body's tiling as the built library lays it out
+    against ``tc_plan``, every instance: the two must agree, and each
+    block's shared memory must fit the H100's 232,448 bytes."""
+    from repro_torch.kernels.flash_backward import (
+        SMEM_LIMIT, TENSOR_CORE_SHAPES, card_plan, tc_plan)
+
+    for dq_, dv_ in TENSOR_CORE_SHAPES:
+        got, want = card_plan(dq_, dv_), tc_plan(dq_, dv_)
+        if got != want or max(got["smem_dkdv"], got["smem_dq"]) > SMEM_LIMIT:
+            raise AssertionError(f"flash_prefill_bwd plan <{dq_}, {dv_}>: "
+                                 f"library {got}, tc_plan {want}")
+        log(f"[kernel] flash_prefill_bwd plan <{dq_}, {dv_}>: {got}")
+
+
 def phase_backward(device, timer: Timer, build_logs: dict) -> dict:
     """K4's training pair on the card: ``flash_prefill(return_lse=True)``
     and ``flash_prefill_bwd`` at ``BWD_CASES``, bf16 and f32, inputs and
@@ -1123,11 +1237,30 @@ def phase_backward(device, timer: Timer, build_logs: dict) -> dict:
     plain backward, the bound of the five products and the bytes, and the
     forward + backward against ``scaled_dot_product_attention``'s forward
     + backward (eager, cold L2; SDPA is a yardstick the port never
-    calls).  Returns the main case's bf16 record."""
-    from repro_torch.kernels import ref
+    calls); SDPA's forward alone and backward alone (``autograd.grad`` on
+    a retained graph), eager, cold L2; the port's forward with its LSE
+    alone against its plain version and its bound; at the main case the
+    backward's split into its launches (one CUPTI trace).  Returns the
+    main case's bf16 record."""
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels.chunked_prefill import flash_prefill
     from repro_torch.kernels.flash_backward import bwd_body, flash_prefill_bwd
     from repro_torch.kernels.ops import FlashAttention
+
+    check_tc_plans()
+    sass = sass_counts(_build.library_path("flash_backward"),
+                       ("bwd_dkdv_wg", "bwd_dq_wg"))
+    if not sass:
+        log("[kernel] flash_prefill_bwd sass: not measured (no cuobjdump)")
+    for inst, ops in sass.items():
+        log(f"[kernel] flash_prefill_bwd sass {inst}: {ops}")
+        if not all(ops.values()):
+            raise AssertionError(f"flash_prefill_bwd: {inst} lacks one of "
+                                 f"{SASS_OPS}: {ops}")
+    # ptxas says "Potential Performance Loss" where it serialises wgmma
+    for line in build_logs.get("flash_backward", "").splitlines():
+        if "warning" in line.lower() or "Performance Loss" in line:
+            log(f"[build] flash_backward: {line.strip()}")
 
     record = None
     for dtype in (torch.bfloat16, torch.float32):
@@ -1135,17 +1268,9 @@ def phase_backward(device, timer: Timer, build_logs: dict) -> dict:
         for (label, b, sq, skv, h, hkv, dq_, dv_, causal, off,
              win) in BWD_CASES:
             name = f"{tag} {label}"
-            gen = torch.Generator(device=device).manual_seed(
-                case_seed("flash_prefill_bwd", name))
-            q = torch.randn(b, sq, h, dq_, generator=gen, device=device).to(
-                dtype)
-            k = torch.randn(b, skv, hkv, dq_, generator=gen,
-                            device=device).to(dtype)
-            v = torch.randn(b, skv, hkv, dv_, generator=gen,
-                            device=device).to(dtype)
-            d_out = torch.randn(b, sq, h, dv_, generator=gen,
-                                device=device).to(dtype)
-            kw = dict(causal=causal, q_offset=off, sliding_window=win)
+            q, k, v, d_out, kw = bwd_inputs(device, dtype, name, b, sq, skv,
+                                            h, hkv, dq_, dv_, causal, off,
+                                            win)
             out, lse = flash_prefill(q, k, v, return_lse=True, **kw)
             # the LSE against the plain scores, one head group at a time
             kr = torch.repeat_interleave(k.float(), h // hkv, dim=2)
@@ -1213,11 +1338,34 @@ def phase_backward(device, timer: Timer, build_logs: dict) -> dict:
 
             fb_ms = events_ms(port_fb, flush=timer.flush)
             sdpa_ms = events_ms(sdpa_fb, flush=timer.flush)
+            # one direction at a time: SDPA's forward alone (as training
+            # runs it, keeping its LSE) and its backward alone on a
+            # retained graph; the port's forward with its LSE alone
+            def sdpa_f():
+                return sdpa(*lt, attn_mask=amask,
+                            is_causal=causal and amask is None,
+                            enable_gqa=True)
+
+            o_s, g_s = sdpa_f(), d_out.transpose(1, 2)
+
+            def sdpa_b():
+                return torch.autograd.grad(o_s, leaves, g_s,
+                                           retain_graph=True)
+
+            sdpa_f_ms = events_ms(sdpa_f, flush=timer.flush)
+            sdpa_b_ms = events_ms(sdpa_b, flush=timer.flush)
+            del o_s
+            fwd_ms = timer.ms(lambda: flash_prefill(q, k, v, return_lse=True,
+                                                    **kw))
+            fwd_plain_ms = timer.ms(
+                lambda: ref.attention_fwd_lse_ref(q, k, v, **kw))
+            fwd_flops = 2 * seen * (dq_ + dv_)
+            fbms, fby = bound_ms(nbytes(q, k, v, out, lse), fwd_flops, dtype)
             body = bwd_body(dtype, dq_, dv_)
             if dtype == torch.bfloat16 and body != "tensor-core":
                 raise AssertionError(f"flash_prefill_bwd [{name}] ran body "
                                      f"{body}")
-            inst = (f"bwd_dkdv_tcILi{dq_}ELi{dv_}E" if body == "tensor-core"
+            inst = (f"bwd_dkdv_wgILi{dq_}ELi{dv_}E" if body == "tensor-core"
                     else "bwd_dkdv_fmaI" + ("f" if dtype == torch.float32
                                             else "13__nv_bfloat16"))
             log(f"[kernel] flash_prefill_bwd [{name}] body {body}: LSE max "
@@ -1227,15 +1375,27 @@ def phase_backward(device, timer: Timer, build_logs: dict) -> dict:
                 f"{plain_ms:.4f}  bound_ms {bms:.5f} ({by}; {flops / 1e9:.2f} "
                 f"GFLOP, {n_bytes / 1e6:.1f} MB)  forward+backward ms "
                 f"{fb_ms:.4f}  library_ms (SDPA forward+backward) "
-                f"{sdpa_ms:.4f}")
+                f"{sdpa_ms:.4f}; SDPA forward alone {sdpa_f_ms:.4f}, "
+                f"backward alone {sdpa_b_ms:.4f}")
+            log(f"[kernel] flash_prefill_bwd [{name}] forward with its LSE: "
+                f"ms {fwd_ms:.4f}  plain_ms {fwd_plain_ms:.4f}  bound_ms "
+                f"{fbms:.5f} ({fby}; {fwd_flops / 1e9:.2f} GFLOP)")
             log(f"[kernel] flash_prefill_bwd [{name}] ptxas: dkdv "
                 f"{_ptxas(build_logs, inst)}; dq "
                 f"{_ptxas(build_logs, inst.replace('dkdv', 'dq'))}")
             if record is None:
+                split = backward_split(
+                    launch_split(bwd), seen=seen, dq=dq_, dv=dv_,
+                    delta_bytes=nbytes(out, d_out) + b * h * sq * 4)
+                log(f"[kernel] flash_prefill_bwd [{name}] launches, one "
+                    f"CUPTI trace (kernel, ms, rate): "
+                    f"{json.dumps(split) if split else 'no device events'}")
                 record = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                              bound_ms=bms, bound_by=by, library_ms=sdpa_ms,
-                              forward_backward_ms=fb_ms, shape=name,
-                              body=body)
+                              bound_ms=bms, bound_by=by,
+                              library_ms=sdpa_b_ms,
+                              forward_backward_ms=fb_ms,
+                              library_forward_backward_ms=sdpa_ms,
+                              shape=name, body=body)
             del out, lse, got, again, leaves, lt
             torch.cuda.empty_cache()
     return record
@@ -4061,7 +4221,9 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "body": r["body"],
             **({"forward_backward_ms": r["forward_backward_ms"],
-                "library": "scaled_dot_product_attention forward+backward"}
+                "library": "scaled_dot_product_attention's backward alone",
+                "library_forward_backward_ms":
+                    r["library_forward_backward_ms"]}
                if "forward_backward_ms" in r else {})})
     log(f"[phase] total {time.perf_counter() - t_all:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -61,9 +61,10 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
            for t in ("f32", "bf16")},
     },
     "flash_backward": {
-        f"flash_prefill_bwd_{t}": (P, P, P, P, P, P, P, P, P, P, I, I, I, I,
-                                   I, I, I, F, I, I, I, I, P)
-        for t in ("f32", "bf16")
+        **{f"flash_prefill_bwd_{t}": (P, P, P, P, P, P, P, P, P, P, I, I, I,
+                                      I, I, I, I, F, I, I, I, I, P)
+           for t in ("f32", "bf16")},
+        "flash_prefill_bwd_plan": (I, I, P),
     },
     "ssd_scan": {
         "ssd_scan_f32": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),

@@ -17,9 +17,11 @@
 // (sliding window); a row with no visible key has lse = -inf and gets
 // zero gradients (every P of it is set to 0, never exp(-inf + inf)).
 //
-// Three launches, all deterministic (fixed summation order, no atomics):
+// Deterministic launches (fixed summation order, no atomics):
 //
-//   * bwd_delta: one warp per (b, i, h) row, delta [B, H, Sq] f32;
+//   * delta = rowsum(dO o O) [B, H, Sq] f32: the FMA body's own launch,
+//     bwd_delta, one warp per (b, i, h) row; the tensor-core body computes
+//     it in the prologue of its dq launch, which runs first;
 //   * dkdv: one block per (key tile, kv head, sequence).  A block loads
 //     its K/V tile once, walks the query tiles of all H / Hkv heads of its
 //     group that can see the tile (causal: from the diagonal on; window:
@@ -31,21 +33,42 @@
 //
 // Two bodies, chosen by the wrapper from (dtype, Dq, Dv) alone:
 //
-//   * bwd_tc, bf16 with (Dq, Dv) in {(64, 64), (128, 128), (160, 160),
-//     (192, 192), (192, 128)}: the forward's FlashAttention-2 arrangement
-//     (prefill_tc in chunked_prefill.cu) on mma.sync.m16n8k16, 4 warps of
-//     16 rows each.  In dkdv a warp owns 16 keys: S^T = K.Q^T and dP^T =
-//     V.dO^T accumulate in f32 registers, P^T and dS^T are formed there
-//     and rounded to bf16 once as the A operands of dV += P^T.dO and dK +=
-//     dS^T.Q (Q and dO read by ldmatrix.trans), as the forward feeds P to
-//     P.V; dK and dV stay in registers across the whole walk.  In dq a
-//     warp owns 16 query rows and the same holds for S, dP, dS and dQ +=
-//     dS.K.  The walked tiles (Q and dO in dkdv, K and V in dq) are
-//     double-buffered in shared memory by 16-byte cp.async; K and V (dkdv)
-//     or Q and dO (dq) are staged once.  Only tiles that cross the
-//     diagonal, the window's edge or a ragged end mask element by
-//     element.  Where Dq + Dv > 256 a dkdv step takes 32 query rows, not
-//     64, so that the two accumulators fit the registers.
+//   * bwd_wg, bf16 with (Dq, Dv) in {(64, 64), (128, 128), (160, 160),
+//     (192, 192), (192, 128)}: the FlashAttention-3 arrangement on wgmma.
+//     A block is one consumer warpgroup of 64 rows (keys in dkdv, query
+//     rows in dq) beside one producer warp, which streams the walked tiles
+//     through a ring of up to four stages: TMA copies
+//     (cp.async.bulk.tensor) of one head's rows from 4-D maps of the [B, S,
+//     heads, D] tensors, 128-byte swizzled, zero-filled past the ends,
+//     each stage's arrival on an mbarrier and its release by the consumer
+//     on another.  At D 64 two blocks share an SM (168 registers a
+//     thread), so that one's exponentials overlap the other's products;
+//     above, one block has 255.  ptxas keeps a warpgroup's wgmma in
+//     flight only within the register budget the kernel starts with, so
+//     no setmaxnreg moves registers from the producer: measured, two
+//     consumer warpgroups beside a producer warpgroup (384 threads, 168
+//     registers at entry) serialised their wgmma once a consumer needed
+//     more, and beside a producer warp (288 threads) ptxas allowed no more
+//     than 168 either (PERF.md).
+//     - dkdv: S^T = K.Q^T and dP^T = V.dO^T with both operands in shared
+//       memory (the producer hands over each tile's LSE and delta rows and
+//       its position with it); P^T and dS^T are formed in the f32
+//       accumulators and
+//       rounded to bf16 once as the register A of dV += P^T.dO and dK +=
+//       dS^T.Q, whose B is the same Q / dO tile read transposed by its
+//       descriptor.  The query tile is Br = 64 rows up to Dq + Dv = 256,
+//       32 up to 320 (D 160, MLA's 192 / 128) and 16 beyond, so that dK,
+//       dV, S^T and dP^T fit the registers without spilling.
+//     - dq: S = Q.K^T and dP = dO.V^T over 64-key tiles, dS the register
+//       A of dQ += dS.K, K read transposed from the tile that fed S.
+//     Each pair of products is issued alternately, so that one
+//     accumulation chain's latency hides behind the other's; a tile's
+//     products are waited for before the next tile's are issued (letting
+//     them overlap made ptxas serialise every wgmma).  dK, dV and dQ stay
+//     in f32 registers for the whole walk and are written once.
+//     Only tiles that cross the causal diagonal, the window's edge or a
+//     ragged end mask element by element; a row that sees no key (lse
+//     -inf) gets P = 0.
 //   * bwd_fma, everything else (f32, whose limit tensor cores would miss by
 //     rounding through TF32, and bf16 at other head dims): f32 FMAs from
 //     shared memory, 32 x 32 tiles, any Dq and Dv up to 256.
@@ -54,15 +77,21 @@
 // D64, causal) the five products over the visible half of the scores are
 // ~172 GFLOP, 0.174 ms at the bf16 tensor-core peak (989 TFLOP/s); its
 // bytes (Q, K, V, O, dO, LSE in; dQ, dK, dV out: ~153 MB) take 0.046 ms.
-// So it is bound by operations, and the bf16 body runs on tensor cores.
-// The dq launch recomputes S and dP rather than sharing them with dkdv
-// through atomics or a second pass over stored P.
+// So it is bound by operations, and what the design does about it: every
+// product is a wgmma (up to m64n192k16 an instruction) fed from swizzled
+// shared memory without bank conflicts; the copies are off the compute
+// warps; two blocks a SM at D 64 overlap one's exponentials with the
+// other's products.  The dq launch recomputes S and dP rather than sharing
+// them with dkdv through atomics (whose order would vary from run to run)
+// or a stored P: it executes seven products, ~240.6 GFLOP at that shape,
+// 0.243 ms at the peak.
 
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro_torch {
 namespace {
@@ -334,360 +363,617 @@ bwd_dq_fma(const T* __restrict__ q, const T* __restrict__ k,
 }  // namespace fma_body
 
 // ---------------------------------------------------------------------------
-// bwd_tc: bf16 on tensor cores (mma.sync)
+// bwd_wg: bf16 on wgmma, a TMA producer warp feeding two consumer
+// warpgroups
 // ---------------------------------------------------------------------------
 
-namespace tc_body {
+namespace wg_body {
 
 using bf16 = __nv_bfloat16;
+namespace hp = hopper;
 
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-constexpr int BK = 16 * WARPS;  // keys per dkdv block, 16 per warp
-constexpr int BQ_DQ = 16 * WARPS;  // query rows per dq block, 16 per warp
-constexpr int BK_DQ = 64;       // keys per tile of the dq walk
-constexpr int PAD = 8;          // bf16 elements (16 bytes) after each row
+constexpr int WG = 128;                 // threads of a warpgroup
+constexpr uint32_t SMEM_LIMIT = 232448;  // dynamic shared memory of a block
 constexpr float LOG2E = 1.4426950408889634f;
 
-// query rows per tile of the dkdv walk: 64, or 32 where the two f32
-// accumulators (dK over Dq, dV over Dv) already hold most registers
-template <int DQ, int DV>
-__host__ __device__ constexpr int bq_dkdv() { return DQ + DV <= 256 ? 64 : 32; }
+constexpr int THREADS = WG + 32;         // a consumer and the producer warp
 
-template <int DQ, int DV>
-constexpr size_t dkdv_smem() {
-  // K and V tiles once, then two buffers of Q and dO tiles, LSE and delta
-  return sizeof(bf16) * ((size_t)BK * (DQ + PAD) + (size_t)BK * (DV + PAD) +
-                         2 * (size_t)bq_dkdv<DQ, DV>() * (DQ + DV + 2 * PAD)) +
-         sizeof(float) * 4 * (size_t)bq_dkdv<DQ, DV>();
+// bytes of shared memory of a ring of ``s`` stages beside ``fixed`` bytes
+// staged once, with the barriers and the alignment slack; the stages a
+// ring takes: as many, up to 4, as fit ``blocks`` blocks on an SM
+__host__ __device__ constexpr uint32_t ring_smem(uint32_t fixed,
+                                                 uint32_t stage, int s) {
+  return fixed + s * stage + (2 * s + 1) * 8 + 1024;
+}
+__host__ __device__ constexpr int ring_stages(uint32_t fixed, uint32_t stage,
+                                              int blocks) {
+  return ring_smem(fixed, stage, 4) * blocks <= SMEM_LIMIT   ? 4
+         : ring_smem(fixed, stage, 3) * blocks <= SMEM_LIMIT ? 3
+                                                             : 2;
 }
 
+// query rows per tile of the dkdv walk.  The consumer thread holds dK (Dq
+// / 2 floats), dV (Dv / 2), S^T and dP^T (Br / 2 each) of its 64 keys: Br
+// 64 up to Dq + Dv = 256 (D 128: 192), 32 up to 320 (D 160, MLA's 192 /
+// 128: 192), 16 beyond (192 / 192: 208)
+__host__ __device__ constexpr int br_dkdv(int dq, int dv) {
+  return dq + dv <= 256 ? 64 : dq + dv <= 320 ? 32 : 16;
+}
+
+// Blocks on one SM.  ptxas keeps a warpgroup's wgmma in flight only
+// within the register budget a kernel starts with (setmaxnreg does not
+// raise it).  At D 64 a consumer's live set (dkdv: dK, dV, S^T, dP^T, 128
+// floats; dq: 96) fits the 168 registers that two 160-thread blocks leave
+// a thread, so two blocks share an SM and one's exponentials overlap the
+// other's products; elsewhere one block has up to 255.
+__host__ __device__ constexpr int min_blocks(int dq, int dv) {
+  return dq + dv <= 128 ? 2 : 1;
+}
+
+// Shared-memory layout of both kernels, byte offsets from a 1024-aligned
+// base; every tile is in 128-byte-swizzled slabs (hopper.cuh).
 template <int DQ, int DV>
-constexpr size_t dq_smem() {
-  // Q and dO tiles once, then two buffers of K and V tiles
-  return sizeof(bf16) * ((size_t)BQ_DQ * (DQ + DV + 2 * PAD) +
-                         2 * (size_t)BK_DQ * (DQ + DV + 2 * PAD));
+struct Plan {
+  static constexpr int BLOCKS = min_blocks(DQ, DV);
+  // dkdv: K and V of the block's 64 keys once; a ring of (Q, dO) tiles,
+  // each stage's LSE (log2 units) and delta rows and its tile's first
+  // query row and whether it is the walk's last; barriers
+  static constexpr int BR = br_dkdv(DQ, DV);
+  static constexpr uint32_t KV_FIXED =
+      hp::tile_bytes(64, DQ) + hp::tile_bytes(64, DV);
+  static constexpr uint32_t KV_STAGE =
+      hp::tile_bytes(BR, DQ) + hp::tile_bytes(BR, DV);
+  static constexpr uint32_t KV_ROWS = 8 * BR + 8;  // LSE, delta, position
+  static constexpr int KV_STAGES =
+      ring_stages(KV_FIXED, KV_STAGE + KV_ROWS, BLOCKS);
+  static constexpr uint32_t KV_SMEM =
+      ring_smem(KV_FIXED, KV_STAGE + KV_ROWS, KV_STAGES);
+  static constexpr uint32_t KV_K = 0;
+  static constexpr uint32_t KV_V = hp::tile_bytes(64, DQ);
+  static constexpr uint32_t KV_Q = KV_FIXED;  // stage s at + s KV_STAGE
+  static constexpr uint32_t KV_LSE = KV_Q + KV_STAGES * KV_STAGE;
+  static constexpr uint32_t KV_DELTA = KV_LSE + KV_STAGES * BR * 4;
+  static constexpr uint32_t KV_POS = KV_DELTA + KV_STAGES * BR * 4;
+  static constexpr uint32_t KV_BAR = KV_POS + KV_STAGES * 8;
+  // dq: Q and dO of the block's 64 rows once; a ring of (K, V) tiles
+  static constexpr int BC = 64;  // keys per tile of the walk
+  static constexpr uint32_t Q_FIXED =
+      hp::tile_bytes(64, DQ) + hp::tile_bytes(64, DV);
+  static constexpr uint32_t Q_STAGE =
+      hp::tile_bytes(BC, DQ) + hp::tile_bytes(BC, DV);
+  static constexpr int Q_STAGES = ring_stages(Q_FIXED, Q_STAGE, BLOCKS);
+  static constexpr uint32_t Q_SMEM = ring_smem(Q_FIXED, Q_STAGE, Q_STAGES);
+  static constexpr uint32_t Q_Q = 0;
+  static constexpr uint32_t Q_DO = hp::tile_bytes(64, DQ);
+  static constexpr uint32_t Q_K = Q_FIXED;  // stage s at + s Q_STAGE
+  static constexpr uint32_t Q_BAR = Q_K + Q_STAGES * Q_STAGE;
+  static_assert(KV_SMEM * BLOCKS <= SMEM_LIMIT &&
+                    Q_SMEM * BLOCKS <= SMEM_LIMIT,
+                "shared memory");
+};
+
+// The 1024-aligned base of the dynamic shared memory (the launch asks
+// for 1024 bytes of slack).
+__device__ __forceinline__ uint32_t smem_base(unsigned char*& generic) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  generic = smem_raw + (base - raw);
+  return base;
 }
 
-// rows [0, n) of a [*, heads, D] bf16 tensor from position ``pos0`` into
-// shared rows of D + PAD by 16-byte cp.async; zeros past n (the copy
-// reads nothing there)
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int b,
-                                          int s, int pos0, int heads,
-                                          int head, int n) {
-  constexpr int CPR = D / 8;
-  for (int i = threadIdx.x; i < ROWS * CPR; i += THREADS) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const bool ok = r < n;
-    cp_async16(dst + r * (D + PAD) + c,
-               src + row_of(b, s, pos0 + (ok ? r : 0), heads, head) * D + c,
-               ok);
-  }
+// K-major operand: k16 step ``ks`` of a tile of ``rows`` rows in slabs
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int ks) {
+  return hp::smem_desc(tile + (ks / 4) * rows * hp::SLAB_ROW + (ks % 4) * 32,
+                       16, 1024);
 }
 
-// c[16 x 8 n] += A[16 x KD] . B[n x KD]^T for NT n-tiles: A's 16 rows at
-// ``a_rows`` (row stride KD + PAD), B's rows at ``b_rows``; A fragments by
-// ldmatrix, B fragments by ldmatrix (B stored row-major [n][k])
-template <int KD, int NT>
-__device__ __forceinline__ void mma_abt(float (&c)[NT][4], const bf16* a_rows,
-                                        const bf16* b_rows) {
-  constexpr int LD = KD + PAD;
-  const int lane = threadIdx.x & 31;
+// MN-major operand: rows [16 kk, 16 kk + 16) of a tile of ``rows`` rows,
+// every slab of its columns
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int kk) {
+  return hp::smem_desc(tile + kk * 16 * hp::SLAB_ROW, rows * hp::SLAB_ROW,
+                       1024);
+}
+
+// The k16 step ``kk`` of a 64 x N accumulator as the bf16 A operand of the
+// next product (the accumulator's 8-column blocks 2 kk and 2 kk + 1)
+template <int R>
+__device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&x)[R],
+                                     int kk) {
+  a[0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
+  a[1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+  a[2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+  a[3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+}
+
+// P = 2^(S scale2 - lse2) and dS = P (dP - delta) in place over a thread's
+// accumulator elements.  Elements 4 j .. 4 j + 3 lie on two rows and two
+// columns; ``lse2(j)`` and ``delta(j)`` give the pair of values (log2
+// units for the LSE) that they take, paired by column parity (the dkdv
+// layout, queries along columns) or by row (dq).  ``visible(i)`` says
+// whether element i's (query, key) pair is unmasked.  MASKED false is for
+// a tile whose pairs are all visible (every row of it then has a finite
+// LSE): one exponential, no test, per element
+template <bool MASKED, bool BY_COLUMN, int R, typename L, typename D,
+          typename V>
+__device__ __forceinline__ void p_and_ds(float (&s)[R], float (&dp)[R],
+                                         float scale2, L lse2, D delta,
+                                         V visible) {
 #pragma unroll
-  for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+  for (int j = 0; j < R / 4; ++j) {
+    const float2 lj = lse2(j), dj = delta(j);
 #pragma unroll
-  for (int kk = 0; kk < KD / 16; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4(a, a_rows + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, b_rows + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                          kk * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16_16816(c[2 * np], a, bf[0], bf[1]);
-      mma_bf16_16816(c[2 * np + 1], a, bf[2], bf[3]);
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      const bool second = BY_COLUMN ? (e & 1) : (e >> 1);
+      const float l = second ? lj.y : lj.x;
+      const bool ok = !MASKED || (l != -INFINITY && visible(i));
+      const float p = ok ? exp2_approx(fmaf(s[i], scale2, -l)) : 0.f;
+      s[i] = p;
+      dp[i] = p * (dp[i] - (second ? dj.y : dj.x));
     }
   }
 }
 
-// acc[16 x N] += X[16 x 16 KT] . Y[16 KT x N]: X the accumulator-layout
-// tiles ``x`` (KT pairs of 8-column n-tiles, rounded to bf16 as the A
-// operand), Y stored row-major [k][n] at ``y_rows`` (ldmatrix.trans)
-template <int N, int KT>
-__device__ __forceinline__ void mma_xy(float (&acc)[N / 8][4],
-                                       const float (&x)[2 * KT][4],
-                                       const bf16* y_rows) {
-  constexpr int LD = N + PAD;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < N / 16; ++dp) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(
-          bf, y_rows + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                  dp * 16 + (lane >> 4) * 8);
-      mma_bf16_16816(acc[2 * dp], a, bf[0], bf[1]);
-      mma_bf16_16816(acc[2 * dp + 1], a, bf[2], bf[3]);
-    }
-  }
-}
-
-// rows ``row0`` and ``row0 + 8`` of an accumulator (this lane's two rows)
-// to global, times ``mul``, where they are below ``n_valid``
+// this thread's rows of a 64 x N accumulator, times ``mul``, to rows
+// ``row_index(r)`` of a [*, N] bf16 tensor where r < n_valid
 template <int N, typename RowFn>
-__device__ __forceinline__ void store_rows(const float (&acc)[N / 8][4],
-                                           bf16* dst, int row0, int n_valid,
-                                           float mul, RowFn row_index) {
-  const int qc = threadIdx.x & 3;
+__device__ __forceinline__ void store_acc(const float (&acc)[N / 2], bf16* dst,
+                                          int n_valid, float mul,
+                                          RowFn row_index) {
+  const int t = threadIdx.x % WG, lane = t & 31;
+  const int row0 = (t >> 5) * 16 + (lane >> 2), col0 = 2 * (lane & 3);
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int r = row0 + hr * 8;
+    const int r = row0 + 8 * hr;
     if (r < n_valid) {
-      bf16* p = dst + row_index(r) * N;
+      bf16* p = dst + row_index(r) * N + col0;
 #pragma unroll
-      for (int n = 0; n < N / 8; ++n)
-        *reinterpret_cast<uint32_t*>(p + n * 8 + qc * 2) =
-            pack_bf16(acc[n][2 * hr] * mul, acc[n][2 * hr + 1] * mul);
+      for (int j = 0; j < N / 8; ++j)
+        *reinterpret_cast<uint32_t*>(p + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * hr] * mul, acc[4 * j + 2 * hr + 1] * mul);
     }
   }
 }
 
-// dK and dV of one 64-key tile: each warp owns 16 keys and walks every
-// (head of the group, query tile) that sees the tile.  S^T = K.Q^T and
-// dP^T = V.dO^T stay in registers; P^T and dS^T are formed there and fed
-// straight back as the A operands of dV += P^T.dO and dK += dS^T.Q
+// dK and dV of one 64-key tile of one kv head: the block walks every (head
+// of the group, Br-row query tile) that sees one of its keys.  The
+// producer warp streams Q, dO, LSE, delta and each tile's position through
+// the ring; the consumer warpgroup forms S^T = K.Q^T and dP^T = V.dO^T (SS
+// wgmma), P^T and dS^T in its accumulators, and feeds them back as the
+// register A of dV += P^T.dO and dK += dS^T.Q (RS wgmma, Q and dO read
+// MN-major from the same tiles).  The two products of each pair are
+// issued alternately, so that each accumulation chain's latency hides
+// behind the other's.
 template <int DQ, int DV>
-__global__ void __launch_bounds__(THREADS)
-bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(THREADS, Plan<DQ, DV>::BLOCKS)
+bwd_dkdv_wg(const __grid_constant__ CUtensorMap map_q,
+            const __grid_constant__ CUtensorMap map_k,
+            const __grid_constant__ CUtensorMap map_v,
+            const __grid_constant__ CUtensorMap map_do,
             const float* __restrict__ lse, const float* __restrict__ delta,
             bf16* __restrict__ dk, bf16* __restrict__ dv, BwdArgs a) {
-  constexpr int BQ = bq_dkdv<DQ, DV>();
-  constexpr int LDQ = DQ + PAD, LDV = DV + PAD;
-  constexpr int NT = BQ / 8;  // 8-query n-tiles of S^T
-  static_assert(DQ % 16 == 0 && DV % 16 == 0, "tile");
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][LDQ]
-  bf16* vs = ks + BK * LDQ;                      // [BK][LDV]
-  bf16* qs = vs + BK * LDV;                      // [2][BQ][LDQ]
-  bf16* gs = qs + 2 * BQ * LDQ;                  // [2][BQ][LDV]
-  float* lse_s = reinterpret_cast<float*>(gs + 2 * BQ * LDV);  // [2][BQ]
-  float* delta_s = lse_s + 2 * BQ;                             // [2][BQ]
+  using P = Plan<DQ, DV>;
+  constexpr int BR = P::BR, STAGES = P::KV_STAGES;
+  unsigned char* sm;
+  const uint32_t base = smem_base(sm);
+  const uint32_t full = base + P::KV_BAR;  // full[s] at full + 8 s
+  const uint32_t empty = full + 8 * STAGES;
+  const uint32_t kv_bar = empty + 8 * STAGES;
 
   // grid (Hkv, B, key tiles): every group's first key tile, which the
-  // most query tiles see under a causal mask, is launched first
-  const int k0 = blockIdx.z * BK;
+  // most query tiles see under a causal mask, is launched first.  Each
+  // role works out the walk itself, so that no value lives across the
+  // split into producer and consumer (it would spill there)
+  const int k0 = blockIdx.z * 64;
   const int g = blockIdx.x;
   const int b = blockIdx.y;
-  const int n_keys = min(BK, a.skv - k0);
-  const int rep = a.h / a.hkv;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int qr = lane >> 2, qc = lane & 3;
-  const float scale2 = a.scale * LOG2E;
-
-  int i_begin, i_end;
-  query_rows(a, k0, n_keys, i_begin, i_end);
-  const int qtiles = i_end > i_begin ? (i_end - i_begin + BQ - 1) / BQ : 0;
-  const int n_iter = rep * qtiles;
-
-  load_tile<DQ, BK>(ks, k, b, a.skv, k0, a.hkv, g, n_keys);
-  load_tile<DV, BK>(vs, v, b, a.skv, k0, a.hkv, g, n_keys);
-  // the (head, query tile) of step ``it``, and its copy into ``buf``
-  auto tile_of = [&](int it, int& hh, int& i0, int& n_rows) {
-    hh = g * rep + it / qtiles;
-    i0 = i_begin + (it % qtiles) * BQ;
-    n_rows = min(BQ, i_end - i0);
+  auto walk = [&](int& i_begin, int& qtiles) {
+    int i_end;
+    query_rows(a, k0, min(64, a.skv - k0), i_begin, i_end);
+    qtiles = i_end > i_begin ? (i_end - i_begin + BR - 1) / BR : 0;
+    return qtiles * (a.h / a.hkv);  // steps: (head of the group, tile)
   };
-  auto load_q = [&](int it, int buf) {
-    int hh, i0, n_rows;
-    tile_of(it, hh, i0, n_rows);
-    load_tile<DQ, BQ>(qs + buf * BQ * LDQ, q, b, a.sq, i0, a.h, hh, n_rows);
-    load_tile<DV, BQ>(gs + buf * BQ * LDV, dout, b, a.sq, i0, a.h, hh,
-                      n_rows);
-    for (int r = threadIdx.x; r < BQ; r += THREADS) {
-      const bool ok = r < n_rows;
-      const size_t at = ((size_t)b * a.h + hh) * a.sq + i0 + (ok ? r : 0);
-      cp_async4(lse_s + buf * BQ + r, lse + at, ok);
-      cp_async4(delta_s + buf * BQ + r, delta + at, ok);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hp::mbar_init(full + 8 * s, 32);   // the producer warp
+      hp::mbar_init(empty + 8 * s, 4);   // the consumer's warps
     }
+    hp::mbar_init(kv_bar, 1);
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x >= WG) {
+    // ---- producer warp; lane 0 issues the copies ----
+    float* lse_s = reinterpret_cast<float*>(sm + P::KV_LSE);      // [S][BR]
+    float* delta_s = reinterpret_cast<float*>(sm + P::KV_DELTA);  // [S][BR]
+    int* pos_s = reinterpret_cast<int*>(sm + P::KV_POS);          // [S][2]
+    int i_begin, qtiles;
+    const int n_iter = walk(i_begin, qtiles);
+    const int rep = a.h / a.hkv;
+    if (lane == 0) {
+      hp::mbar_arrive_tx(kv_bar, P::KV_FIXED);
+#pragma unroll 1
+      for (int s = 0; s < hp::slabs(DQ); ++s)
+        hp::tma_load_4d(base + P::KV_K + s * 64 * hp::SLAB_ROW, &map_k,
+                        s * hp::SLAB, g, k0, b, kv_bar);
+#pragma unroll 1
+      for (int s = 0; s < hp::slabs(DV); ++s)
+        hp::tma_load_4d(base + P::KV_V + s * 64 * hp::SLAB_ROW, &map_v,
+                        s * hp::SLAB, g, k0, b, kv_bar);
+    }
+#pragma unroll 1
+    for (int it = 0; it < n_iter; ++it) {
+      const int st = it % STAGES;
+      hp::mbar_wait(empty + 8 * st, ((it / STAGES) & 1) ^ 1);
+      const int hh = g * rep + it / qtiles;
+      const int i0 = i_begin + (it % qtiles) * BR;
+      const float* lrow = lse + ((size_t)b * a.h + hh) * a.sq;
+      const float* drow = delta + ((size_t)b * a.h + hh) * a.sq;
+#pragma unroll
+      for (int r0 = 0; r0 < BR; r0 += 32) {
+        const int r = r0 + lane;
+        if (r < BR) {
+          const bool ok = i0 + r < a.sq;
+          lse_s[st * BR + r] = ok ? lrow[i0 + r] * LOG2E : -INFINITY;
+          delta_s[st * BR + r] = ok ? drow[i0 + r] : 0.f;
+        }
+      }
+      if (lane == 0) {
+        const uint32_t q_dst = base + P::KV_Q + st * P::KV_STAGE;
+        const uint32_t g_dst = q_dst + hp::tile_bytes(BR, DQ);
+        pos_s[2 * st] = i0;
+        pos_s[2 * st + 1] = it + 1 == n_iter;
+        hp::mbar_arrive_tx(full + 8 * st, P::KV_STAGE);
+#pragma unroll 1
+        for (int s = 0; s < hp::slabs(DQ); ++s)
+          hp::tma_load_4d(q_dst + s * BR * hp::SLAB_ROW, &map_q,
+                          s * hp::SLAB, hh, i0, b, full + 8 * st);
+#pragma unroll 1
+        for (int s = 0; s < hp::slabs(DV); ++s)
+          hp::tma_load_4d(g_dst + s * BR * hp::SLAB_ROW, &map_do,
+                          s * hp::SLAB, hh, i0, b, full + 8 * st);
+      } else {
+        hp::mbar_arrive(full + 8 * st);  // after this lane's LSE rows
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: keys [k0, k0 + 64); each stage carries its
+  // tile's first query row and whether it is the last, so that the walk's
+  // bounds take no registers here ----
+  const int warp = threadIdx.x >> 5, qr = lane >> 2, qc = lane & 3;
+  const int n_keys = min(64, a.skv - k0);
+  const float scale2 = a.scale * LOG2E;
+  const uint32_t k_tile = base + P::KV_K, v_tile = base + P::KV_V;
+  auto release = [&](int stage) {  // every read of the stage is done
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(empty + 8 * stage);
   };
-  if (n_iter > 0) load_q(0, 0);
-  cp_async_commit();  // group 0: K, V and the first query tile
 
-  float dk_acc[DQ / 8][4], dv_acc[DV / 8][4];
+  float dk_acc[DQ / 2], dv_acc[DV / 2];
 #pragma unroll
-  for (int n = 0; n < DQ / 8; ++n)
-    dk_acc[n][0] = dk_acc[n][1] = dk_acc[n][2] = dk_acc[n][3] = 0.f;
+  for (int i = 0; i < DQ / 2; ++i) dk_acc[i] = 0.f;
 #pragma unroll
-  for (int n = 0; n < DV / 8; ++n)
-    dv_acc[n][0] = dv_acc[n][1] = dv_acc[n][2] = dv_acc[n][3] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) dv_acc[i] = 0.f;
+  float s[BR / 2], dp[BR / 2];  // S^T and dP^T, then P^T and dS^T
+  hp::mbar_wait(kv_bar, 0);
 
-  for (int it = 0; it < n_iter; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_iter) load_q(it + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // everything but the tile just issued has landed
-    __syncthreads();
-    int hh, i0, n_rows;
-    tile_of(it, hh, i0, n_rows);
-    const bf16* qb = qs + buf * BQ * LDQ;
-    const bf16* gb = gs + buf * BQ * LDV;
-    const float* lb = lse_s + buf * BQ;
-    const float* db = delta_s + buf * BQ;
-
-    float s[NT][4], dp[NT][4];
-    mma_abt<DQ, NT>(s, ks + warp * 16 * LDQ, qb);   // S^T = K . Q^T
-    mma_abt<DV, NT>(dp, vs + warp * 16 * LDV, gb);  // dP^T = V . dO^T
+  int i_begin, qtiles;
+  const bool any = walk(i_begin, qtiles) > 0;
+  for (int it = 0; any; ++it) {
+    const int st = it % STAGES;
+    hp::mbar_wait(full + 8 * st, (it / STAGES) & 1);
+    const int2 pos = hp::lds_s32x2(base + P::KV_POS + 8 * st);
+    const int i0 = pos.x;
+    const uint32_t q_tile = base + P::KV_Q + st * P::KV_STAGE;
+    const uint32_t g_tile = q_tile + hp::tile_bytes(BR, DQ);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < (DQ > DV ? DQ : DV) / 16; ++ks) {
+      if (ks < DQ / 16)  // S^T = K . Q^T
+        hp::wgmma_ss<BR>(s, desc_k(k_tile, 64, ks), desc_k(q_tile, BR, ks),
+                         ks > 0);
+      if (ks < DV / 16)  // dP^T = V . dO^T
+        hp::wgmma_ss<BR>(dp, desc_k(v_tile, 64, ks), desc_k(g_tile, BR, ks),
+                         ks > 0);
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(s);
+    hp::fence_regs(dp);
 
     // a tile needs element masks only where it crosses the causal
     // diagonal, the window's edge, or a ragged end; elsewhere every row
-    // sees every key (and so has a finite LSE)
+    // sees every key (and so has a finite LSE).  Element i of S^T: key
+    // 16 warp + qr + 8 (i / 2 % 2), query 8 (i / 4) + 2 qc + i % 2
     const int qlo = a.q_offset + i0;
-    const bool edge = n_rows < BQ || n_keys < BK ||
-                      (a.causal && k0 + BK - 1 > qlo) ||
-                      (a.window > 0 && k0 <= qlo + BQ - 1 - a.window);
+    const int n_rows = a.sq - i0;
+    const bool whole = n_rows >= BR && n_keys >= 64 &&
+                       (!a.causal || k0 + 63 <= qlo) &&
+                       (a.window <= 0 || k0 > qlo + BR - 1 - a.window);
+    const uint32_t lb = base + P::KV_LSE + st * BR * 4;
+    const uint32_t db = base + P::KV_DELTA + st * BR * 4;
+    auto col = [&](int i) { return 8 * (i >> 2) + 2 * qc + (i & 1); };
+    auto lse2 = [&](int j) { return hp::lds_f32x2(lb + 4 * col(4 * j)); };
+    auto dl = [&](int j) { return hp::lds_f32x2(db + 4 * col(4 * j)); };
+    auto visible = [&](int i) {
+      const int kj = 16 * warp + qr + 8 * ((i >> 1) & 1);
+      return col(i) < n_rows && kj < n_keys &&
+             key_visible(a, qlo + col(i), k0 + kj);
+    };
+    if (whole)
+      p_and_ds<false, true>(s, dp, scale2, lse2, dl, visible);
+    else
+      p_and_ds<true, true>(s, dp, scale2, lse2, dl, visible);
+    uint32_t pa[BR / 16][4], da[BR / 16][4];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = n * 8 + qc * 2 + (e & 1);
-        const int kj = warp * 16 + qr + (e >> 1) * 8;
-        const float l = lb[qi];
-        bool ok = true;
-        if (edge)
-          ok = qi < n_rows && kj < n_keys && l != -INFINITY &&
-               key_visible(a, qlo + qi, k0 + kj);
-        const float p = ok ? exp2_approx(fmaf(s[n][e], scale2, -l * LOG2E))
-                           : 0.f;
-        s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - db[qi]);
-      }
+    for (int kk = 0; kk < BR / 16; ++kk) {
+      to_a(pa[kk], s, kk);
+      to_a(da[kk], dp, kk);
     }
-    mma_xy<DV, BQ / 16>(dv_acc, s, gb);   // dV += P^T . dO
-    mma_xy<DQ, BQ / 16>(dk_acc, dp, qb);  // dK += dS^T . Q
-    __syncthreads();  // every warp is done with this buffer
+    hp::fence_regs(dv_acc);
+    hp::fence_regs(dk_acc);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BR / 16; ++kk) {
+      // dV += P^T . dO and dK += dS^T . Q
+      hp::wgmma_rs<DV>(dv_acc, pa[kk], desc_mn(g_tile, BR, kk));
+      hp::wgmma_rs<DQ>(dk_acc, da[kk], desc_mn(q_tile, BR, kk));
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(dv_acc);
+    hp::fence_regs(dk_acc);
+    release(st);
+    if (pos.y) break;  // the walk's last tile
   }
-  cp_async_wait<0>();  // a block with no query tile still waits its copies
 
-  auto key_row = [&](int j) { return row_of(b, a.skv, k0 + j, a.hkv, g); };
-  store_rows<DQ>(dk_acc, dk, warp * 16 + qr, n_keys, a.scale, key_row);
-  store_rows<DV>(dv_acc, dv, warp * 16 + qr, n_keys, 1.f, key_row);
+  auto key_row = [&](int r) { return row_of(b, a.skv, k0 + r, a.hkv, g); };
+  store_acc<DQ>(dk_acc, dk, n_keys, a.scale, key_row);
+  store_acc<DV>(dv_acc, dv, n_keys, 1.f, key_row);
 }
 
-// dQ of one 64-row query tile: each warp owns 16 rows and walks the
-// visible key tiles, K and V double-buffered; S, dP, P and dS stay in
-// registers, dS the A operand of dQ += dS.K
+// dQ of one 64-row query tile of one head, and the rows' delta =
+// rowsum(dO o O), which the dkdv launch that follows reads.  The producer
+// streams the visible K and V tiles through the ring.  S = Q.K^T and dP =
+// dO.V^T (SS wgmma, Q and dO staged once), P and dS in the accumulators,
+// dS the register A of dQ += dS.K (RS, K read MN-major from the tile that
+// fed S).
 template <int DQ, int DV>
-__global__ void __launch_bounds__(THREADS)
-bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
+__global__ void __launch_bounds__(THREADS, Plan<DQ, DV>::BLOCKS)
+bwd_dq_wg(const __grid_constant__ CUtensorMap map_q,
+          const __grid_constant__ CUtensorMap map_k,
+          const __grid_constant__ CUtensorMap map_v,
+          const __grid_constant__ CUtensorMap map_do,
+          const bf16* __restrict__ out, const bf16* __restrict__ dout,
+          const float* __restrict__ lse, float* __restrict__ delta,
           bf16* __restrict__ dq, BwdArgs a) {
-  constexpr int BQ = BQ_DQ, BKT = BK_DQ;
-  constexpr int LDQ = DQ + PAD, LDV = DV + PAD;
-  constexpr int NT = BKT / 8;  // 8-key n-tiles of S
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LDQ]
-  bf16* gs = qs + BQ * LDQ;                      // [BQ][LDV]
-  bf16* ks = gs + BQ * LDV;                      // [2][BKT][LDQ]
-  bf16* vs = ks + 2 * BKT * LDQ;                 // [2][BKT][LDV]
+  using P = Plan<DQ, DV>;
+  constexpr int BC = P::BC, STAGES = P::Q_STAGES;
+  unsigned char* sm;
+  const uint32_t base = smem_base(sm);
+  const uint32_t full = base + P::Q_BAR;
+  const uint32_t empty = full + 8 * STAGES;
+  const uint32_t qo_bar = empty + 8 * STAGES;
 
   // grid (H, B, query tiles), the last query tiles (the longest causal
   // walks) launched first; the heads of one kv group are neighbours and
   // share each K/V tile through L2
-  const int i0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * 64;
   const int hq = blockIdx.x;
   const int b = blockIdx.y;
-  const int g = hq / (a.h / a.hkv);
-  const int n_rows = min(BQ, a.sq - i0);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int qr = lane >> 2, qc = lane & 3;
-  const float scale2 = a.scale * LOG2E;
-
-  int kv_begin, kv_end;
-  key_cols(a, i0, n_rows, kv_begin, kv_end);
-  const int n_tiles =
-      kv_end > kv_begin ? (kv_end - kv_begin + BKT - 1) / BKT : 0;
-
-  load_tile<DQ, BQ>(qs, q, b, a.sq, i0, a.h, hq, n_rows);
-  load_tile<DV, BQ>(gs, dout, b, a.sq, i0, a.h, hq, n_rows);
-  auto load_kv = [&](int t, int buf) {
-    const int kt = kv_begin + t * BKT;
-    const int n = min(BKT, kv_end - kt);
-    load_tile<DQ, BKT>(ks + buf * BKT * LDQ, k, b, a.skv, kt, a.hkv, g, n);
-    load_tile<DV, BKT>(vs + buf * BKT * LDV, v, b, a.skv, kt, a.hkv, g, n);
+  const int n_rows = min(64, a.sq - i0);
+  auto walk = [&](int& kv_begin) {  // each role's own, as in dkdv
+    int kv_end;
+    key_cols(a, i0, n_rows, kv_begin, kv_end);
+    return kv_end > kv_begin ? (kv_end - kv_begin + BC - 1) / BC : 0;
   };
-  if (n_tiles > 0) load_kv(0, 0);
-  cp_async_commit();  // group 0: Q, dO and the first K/V tile
 
-  // this lane's rows: r0 = warp * 16 + qr and r0 + 8
-  const int r0 = warp * 16 + qr;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hp::mbar_init(full + 8 * s, 1);
+      hp::mbar_init(empty + 8 * s, 4);
+    }
+    hp::mbar_init(qo_bar, 1);
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x >= WG) {
+    // ---- producer: one thread issues every copy ----
+    if (threadIdx.x != WG) return;
+    int kv_begin;
+    const int n_tiles = walk(kv_begin);
+    const int g = hq / (a.h / a.hkv);
+    hp::mbar_arrive_tx(qo_bar, P::Q_FIXED);
+#pragma unroll 1
+    for (int s = 0; s < hp::slabs(DQ); ++s)
+      hp::tma_load_4d(base + P::Q_Q + s * 64 * hp::SLAB_ROW, &map_q,
+                      s * hp::SLAB, hq, i0, b, qo_bar);
+#pragma unroll 1
+    for (int s = 0; s < hp::slabs(DV); ++s)
+      hp::tma_load_4d(base + P::Q_DO + s * 64 * hp::SLAB_ROW, &map_do,
+                      s * hp::SLAB, hq, i0, b, qo_bar);
+#pragma unroll 1
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % STAGES;
+      hp::mbar_wait(empty + 8 * st, ((t / STAGES) & 1) ^ 1);
+      const int kt = kv_begin + t * BC;
+      const uint32_t k_dst = base + P::Q_K + st * P::Q_STAGE;
+      const uint32_t v_dst = k_dst + hp::tile_bytes(BC, DQ);
+      hp::mbar_arrive_tx(full + 8 * st, P::Q_STAGE);
+#pragma unroll 1
+      for (int s = 0; s < hp::slabs(DQ); ++s)
+        hp::tma_load_4d(k_dst + s * BC * hp::SLAB_ROW, &map_k, s * hp::SLAB,
+                        g, kt, b, full + 8 * st);
+#pragma unroll 1
+      for (int s = 0; s < hp::slabs(DV); ++s)
+        hp::tma_load_4d(v_dst + s * BC * hp::SLAB_ROW, &map_v, s * hp::SLAB,
+                        g, kt, b, full + 8 * st);
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: query rows [i0, i0 + 64) ----
+  int kv_begin;
+  const int n_tiles = walk(kv_begin);
+  const int warp = threadIdx.x >> 5, qr = lane >> 2, qc = lane & 3;
+  const float scale2 = a.scale * LOG2E;
+  const uint32_t q_tile = base + P::Q_Q, g_tile = base + P::Q_DO;
+  auto release = [&](int stage) {
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(empty + 8 * stage);
+  };
+
+  // this thread's rows, 16 warp + qr and 8 below it: their LSE, and
+  // delta = rowsum(dO o O), each of the row's four threads summing a
+  // quarter of its columns
   float l2[2], dl[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int r = r0 + hr * 8;
-    const size_t at = ((size_t)b * a.h + hq) * a.sq + i0 + min(r, n_rows - 1);
-    l2[hr] = r < n_rows ? lse[at] * LOG2E : -INFINITY;
-    dl[hr] = r < n_rows ? delta[at] : 0.f;
-  }
-
-  float dq_acc[DQ / 8][4];
+    const int r = 16 * warp + qr + 8 * hr;
+    float sum = 0.f;
+    if (r < n_rows) {
+      const size_t at = row_of(b, a.sq, i0 + r, a.h, hq) * DV + qc * (DV / 4);
+      const uint4* o4 = reinterpret_cast<const uint4*>(out + at);
+      const uint4* g4 = reinterpret_cast<const uint4*>(dout + at);
 #pragma unroll
-  for (int n = 0; n < DQ / 8; ++n)
-    dq_acc[n][0] = dq_acc[n][1] = dq_acc[n][2] = dq_acc[n][3] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int kt = kv_begin + t * BKT;
-    const int n_keys = min(BKT, kv_end - kt);
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) load_kv(t + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* kb = ks + buf * BKT * LDQ;
-    const bf16* vb = vs + buf * BKT * LDV;
-
-    float s[NT][4], dp[NT][4];
-    mma_abt<DQ, NT>(s, qs + warp * 16 * LDQ, kb);   // S = Q . K^T
-    mma_abt<DV, NT>(dp, gs + warp * 16 * LDV, vb);  // dP = dO . V^T
-
-    const int qlo = a.q_offset + i0;
-    const bool edge = n_rows < BQ || n_keys < BKT ||
-                      (a.causal && kt + BKT - 1 > qlo) ||
-                      (a.window > 0 && kt <= qlo + BQ - 1 - a.window);
+      for (int c = 0; c < DV / 32; ++c) {
+        const uint4 ov = o4[c], gv = g4[c];
+        const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1;
-        const int kj = n * 8 + qc * 2 + (e & 1);
-        bool ok = true;
-        if (edge)
-          ok = r0 + hr * 8 < n_rows && kj < n_keys && l2[hr] != -INFINITY &&
-               key_visible(a, qlo + r0 + hr * 8, kt + kj);
-        const float p =
-            ok ? exp2_approx(fmaf(s[n][e], scale2, -l2[hr])) : 0.f;
-        dp[n][e] = p * (dp[n][e] - dl[hr]);
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(op[e]);
+          const float2 gf = __bfloat1622float2(gp[e]);
+          sum = fmaf(of.x, gf.x, sum);
+          sum = fmaf(of.y, gf.y, sum);
+        }
       }
     }
-    mma_xy<DQ, BKT / 16>(dq_acc, dp, kb);  // dQ += dS . K
-    __syncthreads();  // every warp is done with this buffer
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const size_t at = ((size_t)b * a.h + hq) * a.sq + i0 + r;
+    l2[hr] = r < n_rows ? lse[at] * LOG2E : -INFINITY;
+    dl[hr] = sum;
+    if (r < n_rows && qc == 0) delta[at] = sum;
   }
-  cp_async_wait<0>();
+  float dq_acc[DQ / 2];
+#pragma unroll
+  for (int i = 0; i < DQ / 2; ++i) dq_acc[i] = 0.f;
+  float s[BC / 2], dp[BC / 2];  // S and dP, then P and dS
+  hp::mbar_wait(qo_bar, 0);
 
-  auto q_row = [&](int i) { return row_of(b, a.sq, i0 + i, a.h, hq); };
-  store_rows<DQ>(dq_acc, dq, r0, n_rows, a.scale, q_row);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % STAGES;
+    hp::mbar_wait(full + 8 * st, (t / STAGES) & 1);
+    const int kt = kv_begin + t * BC;
+    const uint32_t k_tile = base + P::Q_K + st * P::Q_STAGE;
+    const uint32_t v_tile = k_tile + hp::tile_bytes(BC, DQ);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < (DQ > DV ? DQ : DV) / 16; ++ks) {
+      if (ks < DQ / 16)  // S = Q . K^T
+        hp::wgmma_ss<BC>(s, desc_k(q_tile, 64, ks), desc_k(k_tile, BC, ks),
+                         ks > 0);
+      if (ks < DV / 16)  // dP = dO . V^T
+        hp::wgmma_ss<BC>(dp, desc_k(g_tile, 64, ks), desc_k(v_tile, BC, ks),
+                         ks > 0);
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(s);
+    hp::fence_regs(dp);
+
+    // element i of S: row 16 warp + qr + 8 (i / 2 % 2), key
+    // 8 (i / 4) + 2 qc + i % 2
+    const int qlo = a.q_offset + i0;
+    const bool whole = n_rows >= 64 && kt + BC <= a.skv &&
+                       (!a.causal || kt + BC - 1 <= qlo) &&
+                       (a.window <= 0 || kt > qlo + 63 - a.window);
+    auto lse2 = [&](int) { return make_float2(l2[0], l2[1]); };
+    auto delta_of = [&](int) { return make_float2(dl[0], dl[1]); };
+    auto visible = [&](int i) {
+      const int r = 16 * warp + qr + 8 * ((i >> 1) & 1);
+      const int kj = 8 * (i >> 2) + 2 * qc + (i & 1);
+      return r < n_rows && kt + kj < a.skv &&
+             key_visible(a, qlo + r, kt + kj);
+    };
+    if (whole)
+      p_and_ds<false, false>(s, dp, scale2, lse2, delta_of, visible);
+    else
+      p_and_ds<true, false>(s, dp, scale2, lse2, delta_of, visible);
+    uint32_t da[BC / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BC / 16; ++kk) to_a(da[kk], dp, kk);
+    hp::fence_regs(dq_acc);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BC / 16; ++kk)  // dQ += dS . K
+      hp::wgmma_rs<DQ>(dq_acc, da[kk], desc_mn(k_tile, BC, kk));
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(dq_acc);
+    release(st);
+  }
+
+  auto q_row = [&](int r) { return row_of(b, a.sq, i0 + r, a.h, hq); };
+  store_acc<DQ>(dq_acc, dq, n_rows, a.scale, q_row);
 }
 
-}  // namespace tc_body
+// ---- host: tensor maps and the launch -------------------------------------
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled, a driver call, through the runtime's entry-point
+// query (the library links the static runtime, not libcuda); null if the
+// driver lacks it
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a [B, S, heads, D] bf16 tensor whose box is one head's
+// ``rows`` rows by 64 columns (one slab), 128-byte swizzled; rows and
+// columns past the tensor's ends read as zeros.  Returns a cudaError_t.
+int make_map(CUtensorMap* map, const void* ptr, int b, int s, int heads,
+             int d, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)s,
+                              (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)s * heads * d * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)hopper::SLAB, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+}  // namespace wg_body
 
 // ---------------------------------------------------------------------------
 // launch
@@ -705,34 +991,66 @@ int launch_delta(const void* out, const void* dout, float* delta, int b,
   return (int)cudaGetLastError();
 }
 
+// The tensor-core instances, each handed to ``fn`` as Inst<Dq, Dv>{};
+// another (Dq, Dv) is an error, never a silent switch to the other body.
+template <int DQ_, int DV_>
+struct Inst {
+  static constexpr int DQ = DQ_, DV = DV_;
+};
+
+template <typename Fn>
+int dispatch_wg(int dq, int dv, Fn&& fn) {
+  if (dq == 64 && dv == 64) return fn(Inst<64, 64>{});
+  if (dq == 128 && dv == 128) return fn(Inst<128, 128>{});
+  if (dq == 160 && dv == 160) return fn(Inst<160, 160>{});
+  if (dq == 192 && dv == 192) return fn(Inst<192, 192>{});
+  if (dq == 192 && dv == 128) return fn(Inst<192, 128>{});
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int DQ, int DV>
-int launch_tc(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* delta, void* dq, void* dk,
-              void* dv, int b, const BwdArgs& a, cudaStream_t st) {
-  namespace tb = tc_body;
+int launch_wg(const void* q, const void* k, const void* v, const void* out,
+              const void* dout, const float* lse, float* delta, void* dq,
+              void* dk, void* dv, int b, const BwdArgs& a, cudaStream_t st) {
+  namespace wb = wg_body;
+  using P = wb::Plan<DQ, DV>;
   using bf16 = __nv_bfloat16;
-  const size_t s_kv = tb::dkdv_smem<DQ, DV>(), s_q = tb::dq_smem<DQ, DV>();
-  cudaError_t err = allow_smem(tb::bwd_dkdv_tc<DQ, DV>, s_kv);
-  if (err != cudaSuccess) return (int)err;
-  err = allow_smem(tb::bwd_dq_tc<DQ, DV>, s_q);
-  if (err != cudaSuccess) return (int)err;
-  const auto* qb = static_cast<const bf16*>(q);
-  const auto* kb = static_cast<const bf16*>(k);
-  const auto* vb = static_cast<const bf16*>(v);
-  const auto* gb = static_cast<const bf16*>(dout);
-  if (a.skv > 0) {
-    const dim3 grid(a.hkv, b, (a.skv + tb::BK - 1) / tb::BK);
-    tb::bwd_dkdv_tc<DQ, DV><<<grid, tb::THREADS, s_kv, st>>>(
-        qb, kb, vb, gb, lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  if (b == 0 || a.sq == 0 || a.skv == 0) {
+    // nothing to walk (and no tensor map of an empty tensor): every
+    // gradient that has elements is zero
+    cudaMemsetAsync(dq, 0, (size_t)b * a.sq * a.h * DQ * sizeof(bf16), st);
+    cudaMemsetAsync(dk, 0, (size_t)b * a.skv * a.hkv * DQ * sizeof(bf16), st);
+    cudaMemsetAsync(dv, 0, (size_t)b * a.skv * a.hkv * DV * sizeof(bf16), st);
+    return (int)cudaGetLastError();
   }
-  if (a.sq > 0) {
-    const dim3 grid(a.h, b, (a.sq + tb::BQ_DQ - 1) / tb::BQ_DQ);
-    tb::bwd_dq_tc<DQ, DV><<<grid, tb::THREADS, s_q, st>>>(
-        qb, kb, vb, gb, lse, delta, static_cast<bf16*>(dq), a);
-  }
+  // dkdv walks Q / dO in Br-row boxes over K / V staged in 64-row boxes;
+  // dq walks K / V in BC-row boxes over Q / dO staged in 64-row boxes
+  CUtensorMap q_br, do_br, k_bk, v_bk, q_64, do_64, k_bc, v_bc;
+  int err;
+  if ((err = wb::make_map(&q_br, q, b, a.sq, a.h, DQ, P::BR)) ||
+      (err = wb::make_map(&do_br, dout, b, a.sq, a.h, DV, P::BR)) ||
+      (err = wb::make_map(&k_bk, k, b, a.skv, a.hkv, DQ, 64)) ||
+      (err = wb::make_map(&v_bk, v, b, a.skv, a.hkv, DV, 64)) ||
+      (err = wb::make_map(&q_64, q, b, a.sq, a.h, DQ, 64)) ||
+      (err = wb::make_map(&do_64, dout, b, a.sq, a.h, DV, 64)) ||
+      (err = wb::make_map(&k_bc, k, b, a.skv, a.hkv, DQ, P::BC)) ||
+      (err = wb::make_map(&v_bc, v, b, a.skv, a.hkv, DV, P::BC)))
+    return err;
+  cudaError_t e = allow_smem(wb::bwd_dkdv_wg<DQ, DV>, P::KV_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  e = allow_smem(wb::bwd_dq_wg<DQ, DV>, P::Q_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  // dq first: its prologue writes the delta rows that dkdv reads
+  const dim3 q_grid(a.h, b, (a.sq + 63) / 64);
+  wb::bwd_dq_wg<DQ, DV><<<q_grid, wb::THREADS, P::Q_SMEM, st>>>(
+      q_64, k_bc, v_bc, do_64, static_cast<const bf16*>(out),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const dim3 kv_grid(a.hkv, b, (a.skv + 63) / 64);
+  wb::bwd_dkdv_wg<DQ, DV><<<kv_grid, wb::THREADS, P::KV_SMEM, st>>>(
+      q_br, k_bk, v_bk, do_br, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), a);
   return (int)cudaGetLastError();
 }
 
@@ -749,28 +1067,17 @@ int launch(const void* q, const void* k, const void* v, const void* out,
   const BwdArgs a{sq, skv, h, hkv, d, dvd, scale, q_offset, causal, window};
   float* delta_f = static_cast<float*>(delta);
   const float* lse_f = static_cast<const float*>(lse);
-  int err = launch_delta<T>(out, dout, delta_f, b, sq, h, dvd, st);
-  if (err != 0) return err;
   if (tensor_cores) {
     if (!std::is_same<T, __nv_bfloat16>::value)
       return (int)cudaErrorInvalidValue;
-    if (d == 64 && dvd == 64)
-      return launch_tc<64, 64>(q, k, v, dout, lse_f, delta_f, dq, dk, dv, b,
-                               a, st);
-    if (d == 128 && dvd == 128)
-      return launch_tc<128, 128>(q, k, v, dout, lse_f, delta_f, dq, dk, dv,
-                                 b, a, st);
-    if (d == 160 && dvd == 160)
-      return launch_tc<160, 160>(q, k, v, dout, lse_f, delta_f, dq, dk, dv,
-                                 b, a, st);
-    if (d == 192 && dvd == 192)
-      return launch_tc<192, 192>(q, k, v, dout, lse_f, delta_f, dq, dk, dv,
-                                 b, a, st);
-    if (d == 192 && dvd == 128)
-      return launch_tc<192, 128>(q, k, v, dout, lse_f, delta_f, dq, dk, dv,
-                                 b, a, st);
-    return (int)cudaErrorInvalidValue;
+    return dispatch_wg(d, dvd, [&](auto inst) {
+      using I = decltype(inst);
+      return launch_wg<I::DQ, I::DV>(q, k, v, out, dout, lse_f, delta_f, dq,
+                                     dk, dv, b, a, st);
+    });
   }
+  const int err = launch_delta<T>(out, dout, delta_f, b, sq, h, dvd, st);
+  if (err != 0) return err;
   namespace fb = fma_body;
   const size_t s_kv = fb::dkdv_smem(d, dvd), s_q = fb::dq_smem(d, dvd);
   cudaError_t e = allow_smem(fb::bwd_dkdv_fma<T>, s_kv);
@@ -804,7 +1111,7 @@ int launch(const void* q, const void* k, const void* v, const void* out,
 // Dq], v [B, Skv, Hkv, Dv], out and dout [B, Sq, H, Dv], lse [B, H, Sq]
 // f32 from the forward; ``delta`` is [B, H, Sq] f32 scratch; dq, dk and
 // dv are written whole (each element once).  ``tensor_cores`` selects the
-// body (1: bwd_tc, bf16 only).  Each returns cudaGetLastError() after its
+// body (1: bwd_wg, bf16 only).  Each returns cudaGetLastError() after its
 // launches (0 on success).
 extern "C" int flash_prefill_bwd_f32(
     const void* q, const void* k, const void* v, const void* out,
@@ -827,4 +1134,21 @@ extern "C" int flash_prefill_bwd_bf16(
   return repro_torch::launch<__nv_bfloat16>(
       q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, skv, h, hkv, d, dvd,
       scale, q_offset, causal, window, tensor_cores, stream);
+}
+
+// The tiling of the tensor-core body's (dq, dv) instance into out[0..7):
+// the dkdv query tile Br, the dq key tile, the blocks that share an SM,
+// the two rings' stages and the two kernels' dynamic shared memory in
+// bytes.  Returns cudaErrorInvalidValue for a pair without an instance.
+extern "C" int flash_prefill_bwd_plan(int dq, int dv, void* out) {
+  int* o = static_cast<int*>(out);
+  return repro_torch::dispatch_wg(dq, dv, [&](auto inst) {
+    using I = decltype(inst);
+    using P = repro_torch::wg_body::Plan<I::DQ, I::DV>;
+    const int v[7] = {P::BR,        P::BC,       P::BLOCKS,
+                      P::KV_STAGES, P::Q_STAGES, (int)P::KV_SMEM,
+                      (int)P::Q_SMEM};
+    for (int i = 0; i < 7; ++i) o[i] = v[i];
+    return 0;
+  });
 }

@@ -6,16 +6,20 @@ which replaces the Pallas ``_kernel`` of
 ``repro/kernels/chunked_prefill.py``).  The reference has no backward
 kernel -- its ``jax.grad`` differentiates the jnp oracle -- so this is
 the port's own: the FlashAttention-2 backward from the forward's output
-and its per-row LSE, in three launches (``delta = rowsum(dO o O)``, then
-dK/dV per key tile with GQA summed in the block, then dQ per query tile),
-deterministic.  It takes CUDA tensors only; ``kernels/ops.py`` routes a
-CPU graph to the plain ``ref.attention_bwd_ref`` through the same
-``FlashAttention`` function.  Each launch runs one of two bodies, chosen
-by ``bwd_body`` from the dtype and the head dims alone: bf16 at a (Dq,
-Dv) pair of ``TENSOR_CORE_SHAPES`` on tensor cores (WMMA), everything
-else on f32 FMAs.
+and its per-row LSE, deterministic: dK/dV per key tile with GQA summed
+in the block, dQ per query tile, and ``delta = rowsum(dO o O)``.  It
+takes CUDA tensors only; ``kernels/ops.py`` routes a CPU graph to the
+plain ``ref.attention_bwd_ref`` through the same ``FlashAttention``
+function.  Two bodies, chosen by ``bwd_body`` from the dtype and the
+head dims alone: bf16 at a (Dq, Dv) pair of ``TENSOR_CORE_SHAPES`` on
+Hopper's tensor cores (``wgmma`` fed by a TMA producer warp, two
+launches: dq, whose prologue writes delta, then dkdv; its tiling is
+``tc_plan``, each operand's TMA map ``tensor_map``), everything else on
+f32 FMAs (three launches: delta, dkdv, dq).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -26,6 +30,97 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # served families and MLA's Dq 192 / Dv 128
 TENSOR_CORE_SHAPES = ((64, 64), (128, 128), (160, 160), (192, 192),
                       (192, 128))
+# the tensor-core body's blocks: one consumer warpgroup of 64 rows (keys in
+# dkdv, query rows in dq) beside one producer warp; shared-memory tiles are
+# cut into 64-column slabs of 128-byte rows (csrc/hopper.cuh)
+SLAB = 64
+SMEM_LIMIT = 232_448    # dynamic shared memory of one block on the H100
+PLAN_KEYS = ("br", "bc", "blocks", "kv_stages", "q_stages", "smem_dkdv",
+             "smem_dq")
+
+
+def _tile_bytes(rows: int, d: int) -> int:
+    return rows * -(-d // SLAB) * 2 * SLAB
+
+
+def _ring(fixed: int, stage: int, blocks: int) -> tuple[int, int]:
+    """(stages, bytes) of a ring beside ``fixed`` bytes staged once: as
+    many stages, up to 4, as fit ``blocks`` blocks on an SM, with the
+    barriers and 1024 bytes of slack for the swizzle's alignment."""
+    for s in (4, 3, 2):
+        smem = fixed + s * stage + (2 * s + 1) * 8 + 1024
+        if smem * blocks <= SMEM_LIMIT or s == 2:
+            return s, smem
+
+
+def tc_plan(dq: int, dv: int) -> dict:
+    """The tiling of the tensor-core instance ``(dq, dv)``, as
+    ``wg_body::Plan`` in ``csrc/flash_backward.cu`` lays it out (the card
+    reports its own through ``flash_prefill_bwd_plan``): ``br``, the dkdv
+    query tile, keeps dK, dV, S^T and dP^T of the consumer thread within
+    its registers; ``bc`` is the dq key tile; ``blocks`` share an SM (two
+    at D 64, 168 registers a thread; else one, 255); each ring takes as
+    many stages, up to 4, as fit them.  A dkdv stage also holds the tile's
+    LSE and delta rows and its position (8 Br + 8 bytes)."""
+    if (dq, dv) not in TENSOR_CORE_SHAPES:
+        raise ValueError(f"no tensor-core instance at Dq {dq}, Dv {dv}")
+    br = 64 if dq + dv <= 256 else 32 if dq + dv <= 320 else 16
+    bc = 64
+    blocks = 2 if dq + dv <= 128 else 1
+    kv_stages, smem_dkdv = _ring(
+        _tile_bytes(64, dq) + _tile_bytes(64, dv),
+        _tile_bytes(br, dq) + _tile_bytes(br, dv) + 8 * br + 8, blocks)
+    q_stages, smem_dq = _ring(_tile_bytes(64, dq) + _tile_bytes(64, dv),
+                              _tile_bytes(bc, dq) + _tile_bytes(bc, dv),
+                              blocks)
+    return dict(br=br, bc=bc, blocks=blocks, kv_stages=kv_stages,
+                q_stages=q_stages, smem_dkdv=smem_dkdv, smem_dq=smem_dq)
+
+
+def card_plan(dq: int, dv: int) -> dict:
+    """``tc_plan`` as the built library lays the instance out
+    (``flash_prefill_bwd_plan``); builds the library on first use."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    fn = _build.load("flash_backward").flash_prefill_bwd_plan
+    _build.check(fn(dq, dv, ctypes.addressof(out)), "flash_prefill_bwd_plan")
+    return dict(zip(PLAN_KEYS, out))
+
+
+def tensor_map(shape, box_rows: int) -> dict:
+    """The TMA map the tensor-core body encodes for a contiguous bf16
+    tensor of ``shape`` [B, S, heads, D]: its dims innermost first, the
+    byte strides of dims 1-3, and the box, one head's ``box_rows`` rows by
+    one 64-column slab (columns and rows past the ends read as zeros).
+    Raises where TMA cannot describe it: a stride off a 16-byte multiple,
+    or a box of more than 256 rows."""
+    b, s, heads, d = shape
+    strides = (2 * d, 2 * heads * d, 2 * s * heads * d)
+    if any(x % 16 for x in strides) or not 0 < box_rows <= 256:
+        raise ValueError(f"flash_prefill_bwd: no TMA map for {tuple(shape)} "
+                         f"with {box_rows}-row boxes")
+    return dict(dims=(d, heads, s, b), strides=strides,
+                box=(SLAB, 1, box_rows, 1))
+
+
+def tc_refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               out: torch.Tensor, d_out: torch.Tensor) -> str | None:
+    """Why the tensor-core body cannot take these operands, or None: TMA
+    reads q, k, v and d_out from 16-byte-aligned addresses through
+    ``tensor_map``, and the dq launch reads out and d_out 16 bytes at a
+    time."""
+    for n, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                 ("d_out", d_out)):
+        if t.data_ptr() % 16:
+            return f"{n} is not 16-byte aligned"
+    plan = tc_plan(q.shape[-1], v.shape[-1])
+    try:
+        for t, rows in ((q, plan["br"]), (d_out, plan["br"]), (k, 64),
+                        (v, 64), (q, 64), (d_out, 64), (k, plan["bc"]),
+                        (v, plan["bc"])):
+            tensor_map(t.shape, rows)
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 def bwd_body(dtype: torch.dtype, dq: int, dv: int) -> str:
@@ -77,9 +172,10 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "(head_dim <= 256, H % Hkv == 0)")
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
     tc = int(bwd_body(q.dtype, d, dv) == "tensor-core")
-    if tc and any(t.data_ptr() % 16 for t in (q, k, v, d_out)):
-        raise ValueError("flash_prefill_bwd: the tensor-core body needs "
-                         "q/k/v/d_out 16-byte aligned")
+    why = tc_refusal(q, k, v, out, d_out) if tc else None
+    if why:
+        raise ValueError(f"flash_prefill_bwd: the tensor-core body refuses "
+                         f"these operands: {why}")
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dvt = torch.empty_like(v)

@@ -34,6 +34,7 @@ from repro_torch.kernels.paged_attention import (
 )
 from repro_torch.kernels.ssd_scan import ENTRY as SSD_ENTRY
 from repro_torch.kernels.ssd_scan import ssd_body, ssd_chunk_scan
+from repro_torch.kernels import flash_backward as fb
 from repro_torch.kernels.flash_backward import bwd_body, flash_prefill_bwd
 
 torch.set_num_threads(2)
@@ -373,6 +374,95 @@ def test_ssd_body_is_a_function_of_dtype(dtype, body):
     assert ssd_body(dtype) == body
     argtypes = _build.SIGNATURES["ssd_scan"][SSD_ENTRY[body]]
     assert argtypes.index(_build.I) == (9 if body == "fma" else 8)
+
+
+# ---------------------------------------------------------------------------
+# the backward's tensor-core body on the host: its tiling and its TMA maps
+# (the kernel itself is held against its plain version by chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+def _slab_tile(rows, d):
+    return rows * -(-d // 64) * 128     # 64-column slabs of 128-byte rows
+
+
+@pytest.mark.parametrize("dq,dv,br,blocks", [
+    (64, 64, 64, 2),      # TinyLlama: two blocks a SM
+    (128, 128, 64, 1),
+    (160, 160, 32, 1),    # stablelm-12b
+    (192, 192, 16, 1),    # nemotron-4-340b
+    (192, 128, 32, 1),    # MLA (deepseek-v3)
+])
+def test_backward_tile_plan_fits_the_card(dq, dv, br, blocks):
+    """Each tensor-core instance keeps dK, dV, S^T and dP^T of a consumer
+    thread ((dq + dv + 2 br) / 2 floats) within 208 registers, and the
+    rings of the blocks that share an SM within its 232,448 bytes of
+    shared memory; the plan's constants are the source's."""
+    plan = fb.tc_plan(dq, dv)
+    assert (plan["br"], plan["blocks"], plan["bc"]) == (br, blocks, 64)
+    assert (dq + dv + 2 * br) // 2 <= 208
+    for kern in ("dkdv", "dq"):
+        assert plan[f"smem_{kern}"] * plan["blocks"] <= fb.SMEM_LIMIT
+    assert 2 <= plan["kv_stages"] <= 4 and 2 <= plan["q_stages"] <= 4
+    s = plan["q_stages"]
+    assert plan["smem_dq"] == (_slab_tile(64, dq) + _slab_tile(64, dv)
+                               + s * (_slab_tile(64, dq) + _slab_tile(64, dv))
+                               + (2 * s + 1) * 8 + 1024)
+    s = plan["kv_stages"]
+    assert plan["smem_dkdv"] == (_slab_tile(64, dq) + _slab_tile(64, dv)
+                                 + s * (_slab_tile(br, dq) + _slab_tile(br, dv)
+                                        + 8 * br + 8)
+                                 + (2 * s + 1) * 8 + 1024)
+    src = (_build.CSRC / "flash_backward.cu").read_text()
+    assert "return dq + dv <= 256 ? 64 : dq + dv <= 320 ? 32 : 16;" in src
+    assert "constexpr int THREADS = WG + 32;" in src
+
+
+def test_backward_tile_plan_refuses_other_head_dims():
+    """Only the instances the source has get a plan; the wrapper sends
+    every other bf16 pair to the FMA body."""
+    for dq, dv in ((96, 64), (256, 256), (64, 128)):
+        with pytest.raises(ValueError, match="no tensor-core instance"):
+            fb.tc_plan(dq, dv)
+        assert bwd_body(torch.bfloat16, dq, dv) == "fma"
+
+
+@pytest.mark.parametrize("shape,rows,dims,strides", [
+    ((4, 2048, 32, 64), 64, (64, 32, 2048, 4), (128, 4096, 8388608)),
+    ((1, 512, 8, 160), 32, (160, 8, 512, 1), (320, 2560, 1310720)),
+    ((1, 369, 128, 192), 16, (192, 128, 369, 1), (384, 49152, 18137088)),
+])
+def test_backward_tensor_maps(shape, rows, dims, strides):
+    """The 4-D TMA map of a [B, S, heads, D] bf16 tensor: dims innermost
+    first, byte strides of the heads, positions and sequences, and a box of
+    one head's rows by one 64-column slab."""
+    assert fb.tensor_map(shape, rows) == dict(dims=dims, strides=strides,
+                                              box=(64, 1, rows, 1))
+
+
+def test_backward_tensor_map_refusals():
+    """TMA takes strides of 16-byte multiples and boxes of at most 256
+    rows; anything else is refused, never encoded."""
+    with pytest.raises(ValueError, match="no TMA map"):
+        fb.tensor_map((1, 8, 3, 4), 64)        # 8-byte head rows
+    with pytest.raises(ValueError, match="no TMA map"):
+        fb.tensor_map((1, 8, 2, 64), 512)      # a box of 512 rows
+
+
+def test_backward_refuses_misaligned_operands():
+    """The tensor-core body reads q, k, v and d_out by TMA and out and
+    d_out 16 bytes at a time: an operand off a 16-byte boundary is named
+    in the refusal, an aligned set is taken."""
+    def at(offset):
+        n = 2 * 4 * 2 * 64
+        buf = torch.zeros(n + 8, dtype=torch.bfloat16)
+        return buf[offset:offset + n].view(2, 4, 2, 64)
+
+    good = [at(0) for _ in range(5)]
+    assert fb.tc_refusal(*good) is None
+    for i, name in enumerate(("q", "k", "v", "out", "d_out")):
+        ops = list(good)
+        ops[i] = at(1)
+        assert fb.tc_refusal(*ops) == f"{name} is not 16-byte aligned"
 
 
 def _split_plan_replay(q, k_pages, v_pages, lengths, block_tables):

@@ -16,8 +16,12 @@ root runs in a process of its own, in the order given, and prints one
   wave, ``flash_prefill`` causal B4 x S512, each timed by its ``Timer``
   (CUDA-graph replays, L2 flushed before each), with
   ``scaled_dot_product_attention``'s time where it computes the same
-  function; and ``ssd_chunk_scan`` at mamba2-1.3b's prefill shape (B1
-  L384 H64 P64 G1 N128, chunk 128);
+  function; ``ssd_chunk_scan`` at mamba2-1.3b's prefill shape (B1 L384
+  H64 P64 G1 N128, chunk 128); and the bf16 backward of the dense
+  prefill at TinyLlama's training shape (``BWD_CASES``' first, B4 x
+  S2048, H32 Hkv4 D64, causal): ``flash_prefill_bwd`` alone (``Timer``),
+  the forward + backward through ``ops.FlashAttention`` (eager, cold
+  L2), and the backward's split into its launches (one CUPTI trace);
 * full TinyLlama (22 layers, bf16, seeded random weights): the paged
   decode step at batch 4 over 384 cached tokens (``step_breakdown``) and
   one chunked-prefill wave (``prefill_wave``: 4 rows x 256 tokens over a
@@ -46,7 +50,8 @@ HERE = Path(__file__).resolve().parents[1]
 
 AB_CASES = ("bf16 contiguous B4 P8", "bf16 block-table B8 P8",
             "bf16 wave R4 C256", "bf16 causal B4 S512",
-            "bf16 B1 L384 H64 P64 G1 N128 Q128")
+            "bf16 B1 L384 H64 P64 G1 N128 Q128",
+            "bf16 TinyLlama training B4 S2048 H32 Hkv4 D64 causal")
 
 
 def one(root: Path) -> dict:
@@ -69,7 +74,8 @@ def one(root: Path) -> dict:
     timer = cs.Timer(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     row = {"root": str(root), "package": repro_torch.__file__}
-    left = set(AB_CASES)
+    bwd_cases = [c for c in cs.BWD_CASES if f"bf16 {c[0]}" in AB_CASES]
+    left = set(AB_CASES) - {f"bf16 {c[0]}" for c in bwd_cases}
     for name, label, dtype, _, make, runner in cs.kernel_cases(dev):
         args, _, _ = make(gen, dtype)     # every case, to keep the inputs
         if label not in left:
@@ -89,6 +95,35 @@ def one(root: Path) -> dict:
             r["sdpa_ms"] = timer.ms(lib)
         if not left:
             break
+
+    from repro_torch.kernels.chunked_prefill import flash_prefill
+    from repro_torch.kernels.flash_backward import flash_prefill_bwd
+    from repro_torch.kernels.ops import FlashAttention
+    for label, b, sq, skv, h, hkv, dq_, dv_, causal, off, win in bwd_cases:
+        name = f"bf16 {label}"
+        q, k, v, d_out, kw = cs.bwd_inputs(dev, torch.bfloat16, name, b, sq,
+                                           skv, h, hkv, dq_, dv_, causal,
+                                           off, win)
+        out, lse = flash_prefill(q, k, v, return_lse=True, **kw)
+
+        def bwd():
+            return flash_prefill_bwd(q, k, v, out, lse, d_out, **kw)
+
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+        def port_fb():
+            o = FlashAttention.apply(*leaves, causal, off, win, None)
+            return torch.autograd.grad(o, leaves, d_out)
+
+        seen = b * h * cs._visible_pairs(sq, skv, causal, off, win)
+        row[f"flash_prefill_bwd [{name}]"] = {
+            "ms": timer.ms(bwd),
+            "forward_backward_ms": cs.events_ms(port_fb, flush=timer.flush),
+            "launches": cs.backward_split(
+                cs.launch_split(bwd), seen=seen, dq=dq_, dv=dv_,
+                delta_bytes=cs.nbytes(out, d_out) + b * h * sq * 4)}
+        del q, k, v, d_out, out, lse, leaves
+        torch.cuda.empty_cache()
 
     cfg = get_config("skymemory-tinyllama")
     model = Model(cfg, device=dev).init(
