@@ -57,7 +57,17 @@ Phases (each raises on failure; nothing is caught):
    the backward's split into its launches from one CUPTI trace; the
    tensor-core body's tiling as the library reports it against
    ``tc_plan``, and the wgmma, mbarrier and TMA instructions of each of
-   its kernels in the built library (``cuobjdump -sass``);
+   its kernels in the built library (``cuobjdump -sass``).  Then the SSD
+   scan's backward (``phase_ssd_backward``): ``ssd_chunk_scan_bwd`` (dx,
+   ddt, da, dB, dC, d_initial_state) against ``ssd_scan_bwd_ref`` in f32
+   on the same inputs, twice, bitwise equal, at mamba2-1.3b's training
+   shape (B4 L2048 H64 P64 G1 N128, chunk 128), with an initial state and
+   a final-state cotangent, G2, one ragged chunk of 37, chunk 1, P12 N20
+   Q40 G2 H4, zamba2's N 64 and a tail of dt = 0 rows (the padding),
+   bf16 (the tensor-core body) and f32, each with its time, the plain
+   backward's and its bound; at the main case its split into launches
+   (one CUPTI trace); each kernel's ptxas registers and spills and its
+   dynamic shared memory;
 4. model: TinyLlama's widths at 2 layers, f32, seeded: ``forward``,
    ``prefill_chunk_paged`` and ``decode_step_paged`` logits on the card
    against the same on the CPU.  Then mamba2-1.3b's widths at 2 layers,
@@ -85,11 +95,13 @@ Phases (each raises on failure; nothing is caught):
    against the CPU.  Last seamless-m4t-large-v2 at full width, 2
    encoder and 2 decoder layers, f32, 256 frames and a 40-token target:
    the encoder output, ``forward`` logits with the self and cross K/V,
-   and 8 ``decode_step``s against the CPU.  Last training at TinyLlama's
-   widths, 2 layers, f32 (``[train]`` lines): ``train_loss`` and every
-   gradient on ``SyntheticLM`` batches card against CPU, the same under
-   ``remat="full"``, then 3 AdamW steps and the parameters after them;
-   the backward kernel launches once per layer and step;
+   and 8 ``decode_step``s against the CPU.  Last training at full width,
+   f32 (``[train]`` lines): TinyLlama and mamba2-1.3b at 2 layers,
+   zamba2-1.2b at 7 (one attention period, the shared block and the
+   tail): ``train_loss`` and every gradient on ``SyntheticLM`` batches
+   card against CPU, the same under ``remat="full"``, then 3 AdamW steps
+   and the parameters after them; each backward kernel launches once per
+   attention call or SSD layer and step (``train_launches``);
 5. serve: full TinyLlama (22 layers, bf16, seeded random weights) behind
    the paged ``Engine``: 8 requests with a shared 256-token prefix in
    three modes (chunked contiguous pool, stop-the-world admission, a
@@ -194,16 +206,21 @@ Phases (each raises on failure; nothing is caught):
     Then the encoder alone replayed from a CUDA graph with the dense
     prefill's share, a decode step's breakdown against the bytes it
     reads with the paged decode's share, and the peak memory;
-12. train (``[train]`` lines): full TinyLlama (22 layers, bf16
-    parameters, f32 AdamW moments, seeded random weights) trained 30
-    steps through ``train()`` on ``SyntheticLM(vocab 32000, seq 2048,
-    batch 4, seed 0)`` (the batches drawn before the run and timed
+12. train (``[train]`` lines, ``TRAIN_RUNS``): full TinyLlama (22
+    layers), then full mamba2-1.3b (48 SSD layers), each with bf16
+    parameters, f32 AdamW moments and seeded random weights, trained 30
+    steps through ``train()`` on ``SyntheticLM(vocab of the model, seq
+    2048, batch 4, seed 0)`` (the batches drawn before the run and timed
     apart): the dense prefill and its backward must launch 22 times per
-    step, ``ce`` must fall; step 0's gradients bitwise equal over two
+    step (TinyLlama), the SSD scan and its backward 48 (mamba2), nothing
+    else, and ``ce`` must fall; step 0's gradients bitwise equal over two
     runs; a checkpoint round trip bitwise, with equal logits; the median
-    step, tokens/s, model FLOPs and their share of 989 TFLOP/s, K4's
-    forward and backward shares of a traced step, and the peak memory
-    with and without ``remat="full"``.
+    step, tokens/s, model FLOPs and their share of 989 TFLOP/s, K4's and
+    K5's forward and backward shares of a traced step, and the peak
+    memory with and without ``remat="full"``.  Then full zamba2-1.2b
+    trains 10 steps: the SSD scan and its backward 38 times per step,
+    the dense prefill and its backward 6, ``ce`` must fall, the median
+    step printed.
 
 The ``kernels`` line counts each kernel's launches over the main-path
 runs of phases 4 (training) and 5-12, each counted from 0 just before
@@ -605,11 +622,7 @@ def ssd_case(gen, dtype, device, *, b, l, chunk, h=64, p=64, g=1, n=128,
     cm = torch.randn(b, l, g, n, generator=gen, device=device).to(dtype)
     init = (torch.randn(b, h, p, n, generator=gen, device=device)
             if with_init else None)
-    nc = l // chunk
-    tri = chunk * (chunk + 1) // 2
-    warm_chunks = nc if with_init else nc - 1
-    flops = (2 * b * nc * tri * (g * n + h * p)
-             + 2 * b * h * p * n * (warm_chunks * chunk + l))
+    flops = ssd_fwd_flops(b, l, chunk, h, p, g, n, with_init)
     n_bytes = (nbytes(x, dt, a, bm, cm) + (nbytes(init) if with_init else 0)
                + nbytes(x) + b * h * p * n * 4)
     return (x, dt, a, bm, cm, init, chunk), n_bytes, flops
@@ -1124,10 +1137,10 @@ def events_ms(fn, iters: int = 10, flush=None) -> float:
     return statistics.median(times)
 
 
-def _ptxas(logs: dict, pattern: str) -> str:
-    """The ``ptxas`` register and spill lines of the entry whose mangled
-    name holds ``pattern``."""
-    lines = logs.get("flash_backward", "").splitlines()
+def _ptxas(logs: dict, pattern: str, source: str = "flash_backward") -> str:
+    """The ``ptxas`` register and spill lines of the entry of ``source``
+    whose mangled name holds ``pattern``."""
+    lines = logs.get(source, "").splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and pattern in line:
             rest = [l.split("info    :")[-1].strip() for l in lines[i + 1:i + 4]
@@ -1398,6 +1411,187 @@ def phase_backward(device, timer: Timer, build_logs: dict) -> dict:
                               shape=name, body=body)
             del out, lse, got, again, leaves, lt
             torch.cuda.empty_cache()
+    return record
+
+
+# ---------------------------------------------------------------------------
+# phase 3, K5's backward: the gradient of the SSD chunked scan
+# ---------------------------------------------------------------------------
+
+# ``ssd_chunk_scan_bwd`` against ``ssd_scan_bwd_ref`` run in f32 on the same
+# inputs.  Each output is held element by element to atol x (its largest
+# magnitude) + rtol x |want|: the gradients sum long chains of terms that
+# cancel (dseg's reverse cumulative sum, da over every position), so an
+# element near 0 carries the absolute error of its terms, which scales
+# with the tensor, not with the element.  f32: the repo's gradient rtol
+# (tests/test_torch_ssd_grad.py), summation order only.  bf16: dx, dB and
+# dC are rounded to bf16 once (one step is 2^-8 of |want|, and where the
+# two sums straddle a rounding boundary they part by a step, 2^-7); the
+# f32 outputs (ddt, da, d_initial_state) carry the hi/lo split of the f32
+# factors, ~2^-16 of each product
+SSD_BWD_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-3),
+               torch.bfloat16: dict(atol=1e-2, rtol=2e-2)}
+SSD_BWD_F32_OUT_TOL = dict(atol=1e-4, rtol=1e-3)
+SSD_BWD_NAMES = ("dx", "ddt", "da", "dB", "dC", "d_initial_state")
+# (label, B, L, chunk, H, P, G, N, initial state?, d_final?, dt = 0 rows at
+# the end); the first is mamba2-1.3b's training shape, the kernels line's
+# record
+SSD_BWD_CASES = (
+    ("mamba2-1.3b training B4 L2048 H64 P64 G1 N128 Q128", 4, 2048, 128, 64,
+     64, 1, 128, False, False, 0),
+    ("B2 L512 Q128, initial state and d_final", 2, 512, 128, 64, 64, 1, 128,
+     True, True, 0),
+    ("G2 B2 L256 Q64", 2, 256, 64, 64, 64, 2, 128, False, False, 0),
+    ("ragged single chunk L37 Q37", 1, 37, 37, 64, 64, 1, 128, False, False,
+     0),
+    ("chunk 1, L3, initial state and d_final", 1, 3, 1, 64, 64, 1, 128, True,
+     True, 0),
+    ("P12 N20 Q40 G2 H4 B1 L120, initial state and d_final", 1, 120, 40, 4,
+     12, 2, 20, True, True, 0),
+    ("zamba2-1.2b training N64 B4 L2048 Q128", 4, 2048, 128, 64, 64, 1, 64,
+     False, False, 0),
+    ("padding: last 91 of B1 L384 rows dt = 0", 1, 384, 128, 64, 64, 1, 128,
+     False, False, 91),
+)
+
+
+def ssd_bwd_inputs(device, dtype, name, b, l, chunk, h, p, g, n, with_init,
+                   with_dfin, pad):
+    """x, dt, a, B, C (``ssd_case``'s ranges), the initial state, dy ~ N(0,
+    1) and d_final of an ``SSD_BWD_CASES`` entry, from a generator seeded
+    by the case's name; dt (and x) 0 on the last ``pad`` rows, as a
+    prefill pads to a chunk multiple."""
+    gen = torch.Generator(device=device).manual_seed(
+        case_seed("ssd_chunk_scan_bwd", name))
+    (x, dt, a, bm, cm, init, _), _, _ = ssd_case(
+        gen, dtype, device, b=b, l=l, chunk=chunk, h=h, p=p, g=g, n=n,
+        with_init=with_init)
+    dy = torch.randn(b, l, h, p, generator=gen, device=device).to(dtype)
+    dfin = (torch.randn(b, h, p, n, generator=gen, device=device)
+            if with_dfin else None)
+    if pad:
+        dt[:, l - pad:] = 0.0
+        x[:, l - pad:] = 0.0
+    return x, dt, a, bm, cm, init, dy, dfin
+
+
+def ssd_bwd_flops(b, l, chunk, h, p, g, n, with_init, with_dfin) -> int:
+    """The products this run's data needs: per chunk C.B^T once per group
+    and, per head, dy.u^T, M^T.dy, dG.B and dG^T.C over the causal
+    triangle; per head and chunk the state terms B.dS^T, u.dS and dy.S_c
+    where the state or cotangent there is not zero, the cotangent update
+    for every chunk (the last gives d_initial_state) and the state update
+    for every chunk but the last."""
+    nc = l // chunk
+    tri = chunk * (chunk + 1) // 2
+    warm_s = nc if with_init else nc - 1
+    warm_ds = nc if with_dfin else nc - 1
+    state = 2 * chunk * n * p
+    return (b * nc * (2 * tri * n * g + h * 2 * tri * (2 * p + 2 * n))
+            + b * h * state * (warm_s + 2 * warm_ds + nc + nc - 1))
+
+
+def phase_ssd_backward(device, timer: Timer, build_logs: dict) -> dict:
+    """K5's backward on the card: ``ssd_chunk_scan_bwd`` at
+    ``SSD_BWD_CASES``, bf16 and f32, against ``ssd_scan_bwd_ref`` in f32 on
+    the same inputs (``SSD_BWD_TOL``), each case twice, bitwise equal;
+    its time (CUDA-graph replays, cold L2), the plain backward's, its
+    bound, and at the main case its split into launches (one CUPTI
+    trace); each kernel's ptxas registers, shared memory and spills.
+    Returns the main case's bf16 record."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_backward import (
+        bwd_body,
+        card_smem,
+        ssd_chunk_scan_bwd,
+    )
+
+    smem = card_smem(128, 128)
+    for inst in ("ssd_bwd_pass_tc", "ssd_bwd_chunk_tc", "ssd_bwd_pass_fma",
+                 "ssd_bwd_chunk_fma", "ssd_bwd_reduceI13__nv_bfloat16",
+                 "ssd_bwd_reduceIf"):
+        dyn = smem.get(inst[len("ssd_bwd_"):], 0)
+        log(f"[kernel] ssd_chunk_scan_bwd ptxas {inst}: "
+            f"{_ptxas(build_logs, inst, 'ssd_backward')}; dynamic shared "
+            f"memory at chunk 128, N 128: {dyn:,} B")
+    record = None
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for (label, b, l, chunk, h, p, g, n, with_init, with_dfin,
+             pad) in SSD_BWD_CASES:
+            name = f"{tag} {label}"
+            x, dt, a, bm, cm, init, dy, dfin = ssd_bwd_inputs(
+                device, dtype, name, b, l, chunk, h, p, g, n, with_init,
+                with_dfin, pad)
+
+            def bwd():
+                return ssd_chunk_scan_bwd(x, dt, a, bm, cm, dy,
+                                          chunk_size=chunk,
+                                          initial_state=init, d_final=dfin)
+
+            def plain():
+                return ref.ssd_scan_bwd_ref(x, dt, a, bm, cm, init, dy, dfin,
+                                            chunk)
+
+            got, again = bwd(), bwd()
+            torch.cuda.synchronize()
+            if not all(torch.equal(u, v) for u, v in zip(got, again)):
+                raise AssertionError(f"ssd_chunk_scan_bwd [{name}]: two runs "
+                                     "differ")
+            want = ref.ssd_scan_bwd_ref(x.float(), dt, a, bm.float(),
+                                        cm.float(), init, dy.float(), dfin,
+                                        chunk)
+            errs, rel, worst = [], [], 0.0
+            for nm, u, w in zip(SSD_BWD_NAMES, got, want):
+                tol = (SSD_BWD_F32_OUT_TOL
+                       if dtype != torch.float32 and u.dtype == torch.float32
+                       else SSD_BWD_TOL[dtype])
+                w = w.to(u.dtype).float()
+                scale = max(w.abs().max().item(), 1e-30)
+                err = (u.float() - w).abs()
+                ratio = (err / (tol["atol"] * scale
+                                + tol["rtol"] * w.abs())).max().item()
+                if not bool(torch.isfinite(u.float()).all()) or ratio > 1.0:
+                    raise AssertionError(
+                        f"ssd_chunk_scan_bwd [{name}] {nm}: kernel disagrees "
+                        f"with its plain version, max abs err "
+                        f"{err.max().item():.3e} at scale {scale:.3e}, "
+                        f"{ratio:.2f} x the limit {tol}")
+                errs.append(err.max().item())
+                rel.append(err.max().item() / scale)
+                worst = max(worst, ratio)
+            del want, again
+            ms = timer.ms(bwd)
+            plain_ms = timer.ms(plain)
+            flops = ssd_bwd_flops(b, l, chunk, h, p, g, n, with_init,
+                                  with_dfin)
+            n_bytes = (nbytes(x, dt, a, bm, cm, dy) + nbytes(*got)
+                       + (nbytes(init) if with_init else 0)
+                       + (nbytes(dfin) if with_dfin else 0))
+            bms, by = bound_ms(n_bytes, flops, dtype)
+            body = bwd_body(dtype)
+            log(f"[kernel] ssd_chunk_scan_bwd [{name}] body {body}: "
+                f"max abs err / scale "
+                + "/".join(f"{e:.2e}" for e in rel)
+                + f" ({'/'.join(SSD_BWD_NAMES)}; {worst:.2f} x limit); "
+                f"bitwise repeatable; ms {ms:.4f}  plain_ms {plain_ms:.4f}  "
+                f"bound_ms {bms:.5f} ({by}; {flops / 1e9:.2f} GFLOP, "
+                f"{n_bytes / 1e6:.1f} MB)  library_ms null")
+            if record is None:
+                split = launch_split(bwd)
+                log(f"[kernel] ssd_chunk_scan_bwd [{name}] launches, one "
+                    f"CUPTI trace (kernel, ms): "
+                    + (json.dumps([[k[:60], round(v, 5)]
+                                   for k, v in split.items()])
+                       if split else "no device events"))
+                record = dict(max_abs_err=max(errs), ms=ms,
+                              plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                              library_ms=None, shape=name, body=body)
+            del got
+            torch.cuda.empty_cache()
+    log("[kernel] ssd_chunk_scan_bwd: library_ms is null, no PyTorch call "
+        "computes the SSD scan's gradient; max abs err is per output over "
+        "its largest magnitude")
     return record
 
 
@@ -1813,18 +2007,35 @@ def loss_and_grads(model, batch, remat=None):
     return loss.detach(), metrics, grads
 
 
+def train_launches(cfg, steps: int) -> dict:
+    """The kernel launches of ``steps`` training steps of ``cfg``: each
+    attention call runs the dense prefill (with its LSE) and its backward
+    once, each SSD layer the scan and its backward once."""
+    want = dict.fromkeys(KERNELS, 0)
+    if cfg.arch_type in ("ssm", "hybrid"):
+        attn = sum(cfg.is_attn_layer(l) for l in range(cfg.num_layers))
+        want.update(ssd_chunk_scan=cfg.num_layers * steps,
+                    ssd_chunk_scan_bwd=cfg.num_layers * steps,
+                    flash_prefill=attn * steps,
+                    flash_prefill_bwd=attn * steps)
+    else:
+        want.update(flash_prefill=cfg.num_layers * steps,
+                    flash_prefill_bwd=cfg.num_layers * steps)
+    return want
+
+
 def phase_train_model(cfg, device, *, seed=0, batch=2, seq=256,
                       steps=3) -> dict:
-    """Training at full width, 2 layers, f32, card against CPU, on
+    """Training at full width, few layers, f32, card against CPU, on
     ``SyntheticLM`` batches: ``train_loss`` (atol 1e-5) and every
     parameter's gradient (``MODEL_TOL``), then ``steps``
     ``make_train_step`` steps (AdamW, ``TRAIN_OPT``) and the parameters
     after them (``MODEL_TOL``: the most an element can part by on AdamW's
     sign-sensitive first updates, twice the summed learning rates, is
-    below its atol).  The backward kernel must launch once per layer per
-    step; one step's loss and gradients under ``remat="full"`` must equal
-    those without it (bitwise or within 1e-6).  Returns the launch counts
-    of the card's steps."""
+    below its atol).  The backward kernels must launch as
+    ``train_launches`` says; one step's loss and gradients under
+    ``remat="full"`` must equal those without it (bitwise or within
+    1e-6).  Returns the launch counts of the card's steps."""
     from repro_torch.models.model import Model
     from repro_torch.training import (
         AdamWConfig,
@@ -1907,9 +2118,7 @@ def phase_train_model(cfg, device, *, seed=0, batch=2, seq=256,
             raise AssertionError(f"{name} after {steps} steps, {n}: card vs "
                                  f"CPU max abs err {err.max().item():.3e}")
         worst = max(worst, err.max().item())
-    want = dict.fromkeys(KERNELS, 0)
-    want.update(flash_prefill=cfg.num_layers * steps,
-                flash_prefill_bwd=cfg.num_layers * steps)
+    want = train_launches(cfg, steps)
     if counts != want:
         raise AssertionError(f"{name}: {steps} steps launched {counts}, "
                              f"want {want}")
@@ -1920,7 +2129,7 @@ def phase_train_model(cfg, device, *, seed=0, batch=2, seq=256,
 
 
 # ---------------------------------------------------------------------------
-# phase 12: train full TinyLlama
+# phase 12: train full TinyLlama, mamba2-1.3b and zamba2-1.2b
 # ---------------------------------------------------------------------------
 
 class Replay:
@@ -1935,34 +2144,102 @@ class Replay:
         yield from self._batches
 
 
+def ssd_fwd_flops(b, l, chunk, h, p, g, n, with_init=False) -> int:
+    """The forward scan's products (``ssd_case``'s count): C.B^T once per
+    group and chunk, the intra-chunk product per head over the causal
+    triangle, the off-diagonal term where the incoming state is not
+    zero, the state update for every token."""
+    nc = l // chunk
+    tri = chunk * (chunk + 1) // 2
+    warm = nc if with_init else nc - 1
+    return (2 * b * nc * tri * (g * n + h * p)
+            + 2 * b * h * p * n * (warm * chunk + l))
+
+
 def train_flops(cfg, batch: int, seq: int) -> float:
     """Model FLOPs of one training step: 6 per matmul weight and token
     (forward and backward; the embedding table is a gather, the
     unembedding a matmul), and the attention products: 2 in the forward
     and 5 in the backward, 2 x head_dim FLOPs per visible (query, key)
-    pair and head."""
+    pair and head.  An SSD layer's weights are its five input projections
+    and ``out_proj`` (the depthwise convs are left out), and its scan
+    counts the forward's and the backward's products on this data
+    (``ssd_fwd_flops``, ``ssd_bwd_flops``); the hybrid's shared attention
+    block counts once per call."""
     d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    per_layer = d * (h + 2 * hkv) * hd + h * hd * d + 3 * d * cfg.d_ff
-    matmul = cfg.num_layers * per_layer + d * cfg.vocab_size
+    attn_w = d * (h + 2 * hkv) * hd + h * hd * d
     pairs = batch * h * seq * (seq + 1) // 2
-    return 6 * matmul * batch * seq + cfg.num_layers * 14 * hd * pairs
+    if cfg.arch_type not in ("ssm", "hybrid"):
+        per_layer = attn_w + 3 * d * cfg.d_ff
+        matmul = cfg.num_layers * per_layer + d * cfg.vocab_size
+        return 6 * matmul * batch * seq + cfg.num_layers * 14 * hd * pairs
+    di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+    sh, sp, q = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_chunk
+    calls = sum(cfg.is_attn_layer(l) for l in range(cfg.num_layers))
+    per_layer = d * (2 * di + 2 * g * n + sh) + di * d
+    matmul = cfg.num_layers * per_layer + calls * attn_w + d * cfg.vocab_size
+    scan = (ssd_fwd_flops(batch, seq, q, sh, sp, g, n)
+            + ssd_bwd_flops(batch, seq, q, sh, sp, g, n, False, False))
+    return (6 * matmul * batch * seq + cfg.num_layers * scan
+            + calls * 14 * hd * pairs)
 
 
-def phase_train(device, *, steps=30, batch=4, seq=2048) -> dict:
-    """Full TinyLlama (22 layers, bf16 parameters, f32 moments, seeded
-    random weights) trained ``steps`` AdamW steps (``TRAIN_OPT``) through
-    ``train()`` on ``SyntheticLM(vocab 32000, seq 2048, batch 4, seed
-    0)``.  The launch counts are zeroed just before the run and read just
-    after: the dense prefill (with its LSE: every forward runs through
-    ``ops.FlashAttention``) and its backward must launch once per layer
-    per step, nothing else.  The last ``ce`` must be below the first, and
-    every value finite.  Before the run, step 0's gradients twice from
-    the same state must be bitwise equal; after it, a checkpoint round
-    trip must give bitwise-equal parameters and moments and the same
-    logits.  Prints the median step (steps 5 on), tokens/s, model FLOPs
-    and their share of 989 TFLOP/s, K4's forward and backward shares of a
-    traced step, peak memory with and without ``remat="full"``, and the
-    host ms of a batch.  Returns the launch counts of the run."""
+# Phase 12's runs: (arch, steps, full checks).  The full checks (bitwise
+# step-0 gradients, a traced step, peak memory with and without remat, a
+# checkpoint round trip) run for TinyLlama and mamba2-1.3b; zamba2-1.2b
+# trains and is counted.
+TRAIN_RUNS = (("skymemory-tinyllama", 30, True),
+              ("mamba2-1.3b", 30, True),
+              ("zamba2-1.2b", 10, False))
+
+
+def _trace_shares(prof, traced_ms: float) -> dict:
+    """Device ms of the traced step by kernel family: K4's forward
+    (``prefill_*``) and backward (``bwd_*``), K5's forward (``ssd_tc``,
+    the FMA body's two kernels) and backward (``ssd_bwd_*``), each with
+    its share of the busy time."""
+    busy = _busy_ms(prof)
+    fam = dict.fromkeys(("flash_prefill", "flash_prefill_bwd",
+                         "ssd_chunk_scan", "ssd_chunk_scan_bwd"), 0.0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dur = (e.time_range.end - e.time_range.start) / 1e3
+        if "ssd_bwd_" in e.name:
+            fam["ssd_chunk_scan_bwd"] += dur
+        elif any(k in e.name for k in ("ssd_tc", "ssd_scan_kernel",
+                                       "ssd_cb_kernel")):
+            fam["ssd_chunk_scan"] += dur
+        elif "prefill_tc" in e.name or "prefill_fma" in e.name:
+            fam["flash_prefill"] += dur
+        elif "bwd_" in e.name:
+            fam["flash_prefill_bwd"] += dur
+    out = dict(traced_step_ms=traced_ms, device_busy_ms=busy,
+               idle_share=None if not busy else 1 - busy / traced_ms)
+    for k, v in fam.items():
+        out[f"{k}_ms"] = v
+        out[f"{k}_share"] = None if not busy else v / busy
+    out["top_device_kernels"] = _top_kernels(prof, 1, k=8)
+    return out
+
+
+def phase_train(device, arch: str, *, steps=30, batch=4, seq=2048,
+                full=True) -> dict:
+    """Full ``arch`` (bf16 parameters, f32 AdamW moments, seeded random
+    weights) trained ``steps`` AdamW steps (``TRAIN_OPT``)
+    through ``train()`` on ``SyntheticLM(vocab of the model, seq 2048,
+    batch 4, seed 0)``.  The launch counts are zeroed just before the run
+    and read just after and must be ``train_launches``' (every forward
+    goes through ``ops.FlashAttention`` and ``ops.SSDScan``), nothing
+    else.  The last ``ce`` must be below the first, and every value
+    finite.  Prints the median step (steps 5 on), tokens/s, model FLOPs
+    and their share of 989 TFLOP/s.  With ``full``: before the run, step
+    0's gradients twice from the same state must be bitwise equal; after
+    it, a traced step (K4's and K5's forward and backward shares), the
+    peak memory of a forward and backward with and without
+    ``remat="full"``, and a checkpoint round trip that must give
+    bitwise-equal parameters and moments and the same logits.  Returns
+    the launch counts of the run."""
     import shutil
 
     from repro_torch.configs import get_config
@@ -1980,7 +2257,7 @@ def phase_train(device, *, steps=30, batch=4, seq=2048) -> dict:
     from repro_torch.training.loop import to_device, trainable
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = get_config("skymemory-tinyllama")
+    cfg = get_config(arch)
     name = cfg.name
     held = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
@@ -1993,19 +2270,20 @@ def phase_train(device, *, steps=30, batch=4, seq=2048) -> dict:
     batches = [next(it) for _ in range(steps)]
     host_ms = (time.perf_counter() - t0) / steps * 1e3
     log(f"[train] {name}: {n_params:,} parameters ({cfg.dtype}), AdamW "
-        f"moments float32, {TRAIN_OPT}; SyntheticLM B{batch} x S{seq}: "
-        f"{host_ms:.1f} host ms per batch (drawn before the run)")
+        f"moments float32, {TRAIN_OPT}; SyntheticLM "
+        f"B{batch} x S{seq}: {host_ms:.1f} host ms per batch (drawn before "
+        f"the run)")
 
-    # step 0 twice from the same state: bitwise-equal gradients
-    b0 = to_device(batches[0], device)
-    _, _, g1 = loss_and_grads(model, b0)
-    _, _, g2 = loss_and_grads(model, b0)
-    same = all(torch.equal(g1[n], g2[n]) for n in g1)
-    if not same:
-        raise AssertionError(f"{name}: step 0's gradients differ between "
-                             "two runs")
-    log(f"[train] {name}: step 0's gradients bitwise equal over two runs")
-    del g1, g2
+    if full:
+        # step 0 twice from the same state: bitwise-equal gradients
+        b0 = to_device(batches[0], device)
+        _, _, g1 = loss_and_grads(model, b0)
+        _, _, g2 = loss_and_grads(model, b0)
+        if not all(torch.equal(g1[n], g2[n]) for n in g1):
+            raise AssertionError(f"{name}: step 0's gradients differ between "
+                                 "two runs")
+        log(f"[train] {name}: step 0's gradients bitwise equal over two runs")
+        del g1, g2, b0
 
     tcfg = TrainConfig(opt=AdamWConfig(**TRAIN_OPT), log_every=1)
     sync(device)
@@ -2021,9 +2299,7 @@ def phase_train(device, *, steps=30, batch=4, seq=2048) -> dict:
     if not hist[-1]["ce"] < hist[0]["ce"]:
         raise AssertionError(f"{name}: ce {hist[0]['ce']} -> "
                              f"{hist[-1]['ce']} did not fall")
-    want = dict.fromkeys(KERNELS, 0)
-    want.update(flash_prefill=cfg.num_layers * steps,
-                flash_prefill_bwd=cfg.num_layers * steps)
+    want = train_launches(cfg, steps)
     if counts != want:
         raise AssertionError(f"{name}: {steps} steps launched {counts}, "
                              f"want {want}")
@@ -2042,8 +2318,11 @@ def phase_train(device, *, steps=30, batch=4, seq=2048) -> dict:
                host_ms_per_batch=host_ms, peak_memory_gb=peak_train,
                held_at_start_gb=held / 1e9, launches=counts)
     log(f"[train] run {json.dumps(row)}")
+    if not full:
+        del model, state, params
+        return counts
 
-    # one more step, traced: K4's forward and backward shares
+    # one more step, traced: the kernels' shares
     step_fn = make_train_step(model, tcfg)
     bt = to_device(batches[-1], device)
     sync(device)
@@ -2053,39 +2332,25 @@ def phase_train(device, *, steps=30, batch=4, seq=2048) -> dict:
         step_fn(state, bt)
         sync(device)
         traced_ms = (time.perf_counter() - t0) * 1e3
-    busy = _busy_ms(prof)
-    fwd = bwd = 0.0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            dur = (e.time_range.end - e.time_range.start) / 1e3
-            if "prefill_tc" in e.name or "prefill_fma" in e.name:
-                fwd += dur
-            elif "bwd_" in e.name:
-                bwd += dur
-    trace = dict(traced_step_ms=traced_ms, device_busy_ms=busy,
-                 flash_prefill_ms=fwd, flash_prefill_bwd_ms=bwd,
-                 flash_prefill_share=None if not busy else fwd / busy,
-                 flash_prefill_bwd_share=None if not busy else bwd / busy,
-                 idle_share=None if not busy else 1 - busy / traced_ms,
-                 top_device_kernels=_top_kernels(prof, 1, k=8))
-    log(f"[train] traced step {json.dumps(trace)}")
-    if busy is None:
-        log("[train] the profiler trace holds no device events: K4's shares "
-            "not measured")
+    trace = _trace_shares(prof, traced_ms)
+    log(f"[train] {name} traced step {json.dumps(trace)}")
+    if trace["device_busy_ms"] is None:
+        log("[train] the profiler trace holds no device events: the "
+            "kernels' shares not measured")
 
     # peak memory of one step's forward and backward, with and without
     # full recomputation
     peaks = {}
-    for remat in (None, "full"):
+    for r in (None, "full"):
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
-        loss_and_grads(model, bt, remat=remat)
+        loss_and_grads(model, bt, remat=r)
         sync(device)
-        peaks[str(remat)] = (torch.cuda.max_memory_allocated(device)
-                             - base) / 1e9
-    log(f"[train] peak memory of a forward and backward above the weights "
-        f"and moments: {json.dumps(peaks)} GB (remat None, full)")
+        peaks[str(r)] = (torch.cuda.max_memory_allocated(device)
+                         - base) / 1e9
+    log(f"[train] {name}: peak memory of a forward and backward above the "
+        f"weights and moments: {json.dumps(peaks)} GB (remat None, full)")
 
     # checkpoint round trip
     ckpt = ROOT / "build" / "train_checkpoint"
@@ -2146,11 +2411,11 @@ def make_requests(n: int = 8, max_new: int = 32):
     return reqs
 
 
-# the serving kernels, and every kernel (training adds the dense
-# prefill's backward)
+# the serving kernels, and every kernel (training adds the backwards of
+# the dense prefill and of the SSD scan)
 SERVE_KERNELS = ("paged_decode", "chunked_prefill_paged", "flash_prefill",
                  "ssd_chunk_scan")
-KERNELS = SERVE_KERNELS + ("flash_prefill_bwd",)
+KERNELS = SERVE_KERNELS + ("flash_prefill_bwd", "ssd_chunk_scan_bwd")
 
 
 def kernel_fns():
@@ -2160,13 +2425,15 @@ def kernel_fns():
     )
     from repro_torch.kernels.flash_backward import flash_prefill_bwd
     from repro_torch.kernels.paged_attention import paged_decode
+    from repro_torch.kernels.ssd_backward import ssd_chunk_scan_bwd
     from repro_torch.kernels.ssd_scan import ssd_chunk_scan
 
     return {"paged_decode": paged_decode,
             "chunked_prefill_paged": chunked_prefill_paged,
             "flash_prefill": flash_prefill,
             "ssd_chunk_scan": ssd_chunk_scan,
-            "flash_prefill_bwd": flash_prefill_bwd}
+            "flash_prefill_bwd": flash_prefill_bwd,
+            "ssd_chunk_scan_bwd": ssd_chunk_scan_bwd}
 
 
 def zero_launches() -> dict:
@@ -4113,6 +4380,11 @@ def main() -> int:
     records["flash_prefill_bwd"] = phase_backward(device, timer, build_logs)
     torch.cuda.empty_cache()
     log(f"[phase] kernels, backward {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    records["ssd_chunk_scan_bwd"] = phase_ssd_backward(device, timer,
+                                                       build_logs)
+    torch.cuda.empty_cache()
+    log(f"[phase] kernels, SSD backward {time.perf_counter() - t0:.1f} s")
 
     tiny = get_config("skymemory-tinyllama")
     mamba = get_config("mamba2-1.3b")
@@ -4145,10 +4417,14 @@ def main() -> int:
     # seamless-m4t at full width, 2 encoder and 2 decoder layers
     phase_encdec_model(get_config("seamless-m4t-large-v2").replace(
         num_layers=2, num_encoder_layers=2, dtype="float32"), device)
-    # training at TinyLlama's widths, 2 layers: the backward's first
-    # main-path run
-    train_model_counts = phase_train_model(
-        tiny.replace(num_layers=2, dtype="float32"), device)
+    # training at full width, card against CPU: TinyLlama and mamba2-1.3b
+    # at 2 layers, zamba2-1.2b at one attention period (6 SSD layers, the
+    # shared block, a 1-layer tail): the backwards' first main-path runs
+    train_model_counts = [
+        phase_train_model(c.replace(num_layers=layers, dtype="float32"),
+                          device)
+        for c, layers in ((tiny, 2), (mamba, 2),
+                          (get_config("zamba2-1.2b"), 7))]
     torch.cuda.empty_cache()
     log(f"[phase] model {time.perf_counter() - t0:.1f} s")
 
@@ -4185,13 +4461,18 @@ def main() -> int:
     log(f"[phase] seamless {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    train_counts = phase_train(device)
-    log(f"[phase] train {time.perf_counter() - t0:.1f} s")
+    train_counts = []
+    for arch, steps, full in TRAIN_RUNS:
+        t0 = time.perf_counter()
+        train_counts.append(phase_train(device, arch, steps=steps,
+                                        full=full))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[phase] train {arch} {time.perf_counter() - t0:.1f} s")
     # launches over every phase's main-path runs, each counted from 0
     for phase in (*fabric_counts.values(), cluster_counts, family_counts,
                   hybrid_counts, mla_counts, seamless_counts,
-                  train_model_counts, train_counts):
+                  *train_model_counts, *train_counts):
         for k in KERNELS:
             counts[k] += phase[k]
 
@@ -4209,6 +4490,10 @@ def main() -> int:
             "src/repro_torch/kernels/csrc/flash_backward.cu",
             "the gradient of src/repro/kernels/chunked_prefill.py:28 (no "
             "backward kernel in the reference)"),
+        "ssd_chunk_scan_bwd": (
+            "src/repro_torch/kernels/csrc/ssd_backward.cu",
+            "the gradient of src/repro/kernels/ssd_scan.py:24 (no backward "
+            "kernel in the reference)"),
     }
     kernels = []
     for k in KERNELS:

@@ -1,1 +1,2 @@
-"""Attention kernels: hand-written CUDA for Hopper and their plain PyTorch versions."""
+"""The hand-written CUDA kernels for Hopper (attention, the SSD scan and
+their backwards) and their plain PyTorch versions."""

@@ -70,6 +70,11 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "ssd_scan_f32": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
         "ssd_scan_bf16": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
     },
+    "ssd_backward": {
+        **{f"ssd_scan_bwd_{t}": (P,) * 15 + (I,) * 7 + (P,)
+           for t in ("f32", "bf16")},
+        "ssd_scan_bwd_smem": (I, I, P),
+    },
 }
 
 

@@ -9,7 +9,10 @@ Training: when grad is enabled and q, k or v requires it,
 ``flash_attention`` goes through ``FlashAttention``, whose forward keeps
 the LSE and whose backward is the hand-written kernel on the card
 (``kernels/flash_backward.py``) and the plain ``ref.attention_bwd_ref``
-on the CPU.  The other kernels have no backward and refuse a graph.
+on the CPU.  Likewise ``ssd_scan`` goes through ``SSDScan``, whose
+backward is ``kernels/ssd_backward.py`` on the card and the plain
+``ref.ssd_scan_bwd_ref`` on the CPU.  The decode and the paged prefill
+have no backward and refuse a graph, and so do the raw kernel wrappers.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from repro_torch.kernels.chunked_prefill import (
 from repro_torch.kernels.chunked_prefill import flash_prefill
 from repro_torch.kernels.flash_backward import flash_prefill_bwd
 from repro_torch.kernels.paged_attention import paged_decode
+from repro_torch.kernels.ssd_backward import ssd_chunk_scan_bwd
 from repro_torch.kernels.ssd_scan import ssd_chunk_scan
 
 
@@ -123,15 +127,62 @@ def chunked_prefill_paged(q, k_pool, v_pool, lengths, block_tables,
         softmax_scale=softmax_scale)
 
 
-def ssd_scan(x, dt, a, b_mat, c_mat, *, chunk_size: int = 64,
-             initial_state=None):
-    """Mamba-2 SSD chunked scan ([B,L,H,P] -> y, final_state)."""
+def _ssd_forward(x, dt, a, b_mat, c_mat, chunk_size, initial_state):
     if _on_cpu(x):
         return ref.ssd_scan_ref(x, dt, a, b_mat, c_mat,
                                 chunk_size=chunk_size,
                                 initial_state=initial_state)
     return ssd_chunk_scan(x, dt, a, b_mat, c_mat, chunk_size=chunk_size,
                           initial_state=initial_state)
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD chunked scan with its gradient.  The forward saves x, dt,
+    a, B, C and the initial state; the backward recomputes the chunk
+    states from them (``ssd_chunk_scan_bwd`` on the card,
+    ``ref.ssd_scan_bwd_ref`` on the CPU: the device alone decides).  A
+    cotangent that is not given (the final state unused) counts as
+    zeros."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_mat, c_mat, initial_state, chunk_size):
+        ctx.set_materialize_grads(False)
+        y, final = _ssd_forward(x, dt, a, b_mat, c_mat, chunk_size,
+                                initial_state)
+        ctx.save_for_backward(x, dt, a, b_mat, c_mat, initial_state)
+        ctx.chunk_size = chunk_size
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, d_final):
+        x, dt, a, b_mat, c_mat, initial_state = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if d_final is not None:
+            d_final = d_final.float().contiguous()
+        if _on_cpu(x):
+            grads = ref.ssd_scan_bwd_ref(x, dt, a, b_mat, c_mat,
+                                         initial_state, dy, d_final,
+                                         ctx.chunk_size)
+        else:
+            grads = ssd_chunk_scan_bwd(
+                x, dt, a, b_mat, c_mat, dy.to(x.dtype),
+                chunk_size=ctx.chunk_size, initial_state=initial_state,
+                d_final=d_final)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+def ssd_scan(x, dt, a, b_mat, c_mat, *, chunk_size: int = 64,
+             initial_state=None):
+    """Mamba-2 SSD chunked scan ([B,L,H,P] -> y, final_state).  With
+    grad enabled and an input that requires it, the call goes through
+    ``SSDScan``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, a, b_mat, c_mat, initial_state)):
+        return SSDScan.apply(x, dt, a, b_mat, c_mat, initial_state,
+                             chunk_size)
+    return _ssd_forward(x, dt, a, b_mat, c_mat, chunk_size, initial_state)
 
 
 # the single-token recurrence is plain PyTorch on every device, as the

@@ -388,6 +388,118 @@ def ssd_scan_ref(
     return y.to(x.dtype), s
 
 
+def ssd_scan_bwd_ref(
+    x: torch.Tensor,       # [B, L, H, P]
+    dt: torch.Tensor,      # [B, L, H] f32
+    a: torch.Tensor,       # [H] f32
+    b_mat: torch.Tensor,   # [B, L, G, N]
+    c_mat: torch.Tensor,   # [B, L, G, N]
+    initial_state: torch.Tensor | None,   # [B, H, P, N] f32 or None
+    dy: torch.Tensor,      # [B, L, H, P] the cotangent of y
+    d_final: torch.Tensor | None,         # [B, H, P, N] f32 or None
+    chunk_size: int,
+) -> tuple[torch.Tensor, ...]:
+    """``(dx, ddt, da, dB, dC, d_initial_state)`` of ``ssd_scan_ref`` by
+    the chunked reverse scan, in f32, in the steps the backward kernel
+    takes (``csrc/ssd_backward.cu``).  Per chunk, with ``u = dt x``,
+    ``G_qt = C_q.B_t``, ``L_qt = exp(seg_q - seg_t)`` for ``t <= q`` (0
+    elsewhere, by selection), ``S_c`` the state entering the chunk and
+    ``dS_{c+1}`` the cotangent leaving it:
+
+    - the state pass: ``S_c`` for every chunk, forward;
+    - the cotangent pass: ``dS_c = e^{total} dS_{c+1} + sum_q e^{seg_q}
+      dy_q C_q^T`` backward from ``d_final`` (zeros when None);
+      ``d_initial_state = dS_0``;
+    - within each chunk: ``du_t = sum_{q>=t} G_qt L_qt dy_q +
+      e^{total-seg_t} dS_{c+1} B_t``; ``dG = L o (dy.u^T)``; ``dC_q =
+      sum_t dG_qt B_t + e^{seg_q} S_c^T dy_q``; ``dB_t = sum_q dG_qt C_q
+      + e^{total-seg_t} dS_{c+1}^T u_t``; ``dseg`` from ``L`` (``W = G o
+      dG``: row sums in, column sums out), from ``e^{seg_q}`` (``C_q .
+      dC_state_q``), from ``e^{total-seg_t}`` (``-u_t . du_state_t``),
+      and ``dtotal = e^{total} <dS_{c+1}, S_c> + sum_t u_t . du_state_t``
+      on the chunk's last position; ``d(a dt)`` is the within-chunk
+      reverse cumulative sum of ``dseg``;
+    - ``dx = dt du``, ``ddt = x . du + a d(a dt)``, ``da = sum d(a dt)
+      dt``; dB and dC summed over the ``H / G`` heads of a group.
+
+    dx, dB and dC come out in their input's dtype, the rest in f32."""
+    bsz, seqlen, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    assert seqlen % chunk_size == 0, "pad sequence to a chunk multiple"
+    nc, q_len, rep = seqlen // chunk_size, chunk_size, h // g
+    dev = x.device
+
+    def to_chunks(t):
+        return t.float().reshape((bsz, nc, q_len) + tuple(t.shape[2:]))
+
+    xc, dtc, dyc = to_chunks(x), to_chunks(dt), to_chunks(dy)
+    bc = to_chunks(torch.repeat_interleave(b_mat, rep, dim=2))
+    cc = to_chunks(torch.repeat_interleave(c_mat, rep, dim=2))
+    af = a.float()
+    uc = xc * dtc[..., None]                                 # [B,C,Q,H,P]
+    seg = torch.cumsum(af * dtc, dim=2)                      # [B,C,Q,H]
+    total = seg[:, :, -1]                                    # [B,C,H]
+    eseg = torch.exp(seg)
+    wdec = torch.exp(total[:, :, None] - seg)                # e^{total-seg}
+
+    # the state pass: S_c entering each chunk
+    own = torch.einsum("bcthn,bcthp->bchpn", bc * wdec[..., None], uc)
+    s = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=dev)
+         if initial_state is None else initial_state.float())
+    s_in = []
+    for c in range(nc):
+        s_in.append(s)
+        s = s * torch.exp(total[:, c])[..., None, None] + own[:, c]
+    s_in = torch.stack(s_in, 1)                              # [B,C,H,P,N]
+
+    # the cotangent pass: dS_{c+1} leaving each chunk
+    ds = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=dev)
+          if d_final is None else d_final.float())
+    ds_out = [None] * nc
+    for c in reversed(range(nc)):
+        ds_out[c] = ds
+        ds = (ds * torch.exp(total[:, c])[..., None, None]
+              + torch.einsum("bqhp,bqhn->bhpn",
+                             dyc[:, c] * eseg[:, c, ..., None], cc[:, c]))
+    d_init = ds
+    ds_out = torch.stack(ds_out, 1)                          # [B,C,H,P,N]
+
+    # within each chunk; [q, t] pairs, masked by selection: exp(seg_q -
+    # seg_t) overflows above the diagonal, and inf * 0 is NaN
+    causal = torch.tril(torch.ones(q_len, q_len, dtype=torch.bool,
+                                   device=dev))[:, :, None]
+    rel = seg[:, :, :, None, :] - seg[:, :, None, :, :]      # [B,C,Q,T,H]
+    lmat = torch.where(causal, torch.exp(torch.where(causal, rel, 0.0)),
+                       0.0)
+    gmat = torch.einsum("bcqhn,bcthn->bcqth", cc, bc)
+    dmat = torch.einsum("bcqhp,bcthp->bcqth", dyc, uc)
+    dg = lmat * dmat
+    w = gmat * dg
+    du_state = wdec[..., None] * torch.einsum("bcthn,bchpn->bcthp", bc,
+                                              ds_out)
+    du = torch.einsum("bcqth,bcqhp->bcthp", gmat * lmat, dyc) + du_state
+    dc_state = eseg[..., None] * torch.einsum("bcqhp,bchpn->bcqhn", dyc,
+                                              s_in)
+    dc_h = torch.einsum("bcqth,bcthn->bcqhn", dg, bc) + dc_state
+    db_h = (torch.einsum("bcqth,bcqhn->bcthn", dg, cc)
+            + wdec[..., None] * torch.einsum("bcthp,bchpn->bcthn", uc,
+                                             ds_out))
+    u_du_state = (uc * du_state).sum(-1)                     # [B,C,Q,H]
+    dseg = (w.sum(3) - w.sum(2) + (cc * dc_state).sum(-1) - u_du_state)
+    dtotal = (torch.exp(total) * (ds_out * s_in).sum((-1, -2))
+              + u_du_state.sum(2))
+    dseg[:, :, -1] += dtotal
+    dld = torch.flip(torch.cumsum(torch.flip(dseg, [2]), 2), [2])
+
+    dx = (du * dtc[..., None]).reshape(bsz, seqlen, h, p)
+    ddt = ((xc * du).sum(-1) + dld * af).reshape(bsz, seqlen, h)
+    da = (dld * dtc).sum((0, 1, 2))
+    db = db_h.reshape(bsz, seqlen, g, rep, n).sum(3)
+    dc = dc_h.reshape(bsz, seqlen, g, rep, n).sum(3)
+    return (dx.to(x.dtype), ddt, da, db.to(b_mat.dtype), dc.to(c_mat.dtype),
+            d_init)
+
+
 def ssd_decode_step_ref(
     x: torch.Tensor,       # [B, H, P] one token
     dt: torch.Tensor,      # [B, H] f32

@@ -30,24 +30,37 @@ def ssd_body(dtype: torch.dtype) -> str:
     return "tensor-core" if dtype == torch.bfloat16 else "fma"
 
 
-def _check_inputs(tensors: dict) -> None:
+def _check_inputs(tensors: dict, what: str = "ssd_chunk_scan") -> None:
+    """``_check_devices``, then ``_check_dtypes``; ``what`` names the
+    caller."""
+    _check_devices(tensors, what)
+    _check_dtypes(tensors, what)
+
+
+def _check_devices(tensors: dict, what: str) -> None:
+    """Every tensor given is on the card and contiguous."""
     for name, t in tensors.items():
         if t is None:
             continue
         if not t.is_cuda:
-            raise ValueError(f"ssd_chunk_scan: {name} must be a CUDA tensor")
+            raise ValueError(f"{what}: {name} must be a CUDA tensor")
         if not t.is_contiguous():
-            raise ValueError(f"ssd_chunk_scan: {name} must be contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _check_dtypes(tensors: dict, what: str) -> None:
+    """x, B and C share one of ``_DTYPES``; dt, a and the states
+    (``initial_state``, and the backward's ``d_final``) are f32."""
     x, b_mat, c_mat = tensors["x"], tensors["b_mat"], tensors["c_mat"]
     if x.dtype not in _DTYPES or b_mat.dtype != x.dtype \
             or c_mat.dtype != x.dtype:
-        raise TypeError(f"ssd_chunk_scan: x/B/C must share one of "
+        raise TypeError(f"{what}: x/B/C must share one of "
                         f"{list(_DTYPES)}, got {x.dtype}/{b_mat.dtype}/"
                         f"{c_mat.dtype}")
-    for name in ("dt", "a", "initial_state"):
-        t = tensors[name]
+    for name in ("dt", "a", "initial_state", "d_final"):
+        t = tensors.get(name)
         if t is not None and t.dtype != torch.float32:
-            raise TypeError(f"ssd_chunk_scan: {name} must be float32")
+            raise TypeError(f"{what}: {name} must be float32")
 
 
 def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -60,9 +73,9 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     Returns ``(y [B, L, H, P] in x's dtype, final_state [B, H, P, N]
     f32)``, the contract of ``ref.ssd_scan_ref``.  ``L`` must be a
     multiple of ``chunk_size`` (1 to 128), ``N`` at most 128.  Launches
-    on the current stream without synchronising.  It has no backward
-    yet and refuses a graph (``_build.refuse_grad``): SSM and hybrid
-    training runs on the CPU's plain scan until it has one."""
+    on the current stream without synchronising.  Called directly it
+    refuses a graph (``_build.refuse_grad``): training reaches it through
+    ``ops.SSDScan``, whose backward is ``ssd_backward.ssd_chunk_scan_bwd``."""
     _build.refuse_grad("ssd_chunk_scan", x, dt, a, b_mat, c_mat,
                        initial_state)
     _check_inputs({"x": x, "dt": dt, "a": a, "b_mat": b_mat,

@@ -45,6 +45,10 @@ class SyntheticLM:
         self._succ = rng.integers(0, v, size=(v, 4))
         self._zipf_p = 1.0 / np.arange(1, v + 1)
         self._zipf_p /= self._zipf_p.sum()
+        # ``rng.choice(v, p=p)`` draws one uniform and searches this CDF;
+        # built once here, not on every draw (O(vocab) each)
+        self._zipf_cdf = self._zipf_p.cumsum()
+        self._zipf_cdf /= self._zipf_cdf[-1]
 
     def _stream(self, rng: np.random.Generator, n: int) -> np.ndarray:
         out = np.empty(n, dtype=np.int32)
@@ -54,7 +58,8 @@ class SyntheticLM:
             if rng.random() < 0.8:  # follow bigram structure
                 tok = int(self._succ[tok, rng.integers(0, 4)])
             else:
-                tok = int(rng.choice(self.cfg.vocab_size, p=self._zipf_p))
+                tok = int(self._zipf_cdf.searchsorted(rng.random(),
+                                                      side="right"))
         return out
 
     def batches(self) -> Iterator[dict]:

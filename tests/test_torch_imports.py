@@ -76,7 +76,8 @@ def test_importing_every_module_loads_no_jax_or_repro():
               "configs.granite_moe_3b_a800m",
               "configs.stablelm_12b", "configs.nemotron_4_340b",
               "configs.llava_next_34b", "configs.internlm2_1_8b",
-              "configs.yi_9b", "kernels.flash_backward", "training",
+              "configs.yi_9b", "kernels.flash_backward",
+              "kernels.ssd_backward", "training",
               "training.optimizer", "training.data", "training.checkpoint",
               "training.loop", "launch.train"):
         assert f"repro_torch.{m}" in mods

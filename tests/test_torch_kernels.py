@@ -34,6 +34,7 @@ from repro_torch.kernels.paged_attention import (
 )
 from repro_torch.kernels.ssd_scan import ENTRY as SSD_ENTRY
 from repro_torch.kernels.ssd_scan import ssd_body, ssd_chunk_scan
+from repro_torch.kernels import ssd_backward as sb
 from repro_torch.kernels import flash_backward as fb
 from repro_torch.kernels.flash_backward import bwd_body, flash_prefill_bwd
 
@@ -363,6 +364,76 @@ def test_build_names_every_source_and_entry_point():
 def test_prefill_body_is_a_function_of_dtype_and_head_dims(dtype, dq, dv,
                                                            body):
     assert prefill_body(dtype, dq, dv) == body
+
+
+def _ssd_bwd_args(b=1, l=8, h=2, p=4, g=1, n=16, dtype=torch.float32):
+    x = torch.zeros(b, l, h, p, dtype=dtype)
+    bc = torch.zeros(b, l, g, n, dtype=dtype)
+    return [x, torch.zeros(b, l, h), torch.zeros(h), bc, bc, x.clone()]
+
+
+@pytest.mark.parametrize("change,error,match", [
+    ({}, ValueError, "CUDA"),                          # CPU tensors
+    ({"chunk_size": 3}, ValueError, "bad shapes"),     # L % chunk != 0
+    ({"l": 0}, ValueError, "bad shapes"),              # an empty sequence
+    ({"b": 0}, ValueError, "bad shapes"),              # an empty batch
+    ({"chunk_size": 256, "l": 256}, ValueError, "bad shapes"),
+    ({"n": 160}, ValueError, "bad shapes"),            # N above 128
+    ({"h": 3, "g": 2}, ValueError, "bad shapes"),      # H % G != 0
+    ({"dy": "short"}, ValueError, "bad shapes"),
+    ({"d_final": "wrong"}, ValueError, "bad shapes"),
+    ({"dtype": torch.float16}, TypeError, "x/B/C"),
+    ({"dt": torch.bfloat16}, TypeError, "dt must be float32"),
+    ({"d_final": torch.bfloat16}, TypeError, "d_final must be float32"),
+    ({"dy": torch.bfloat16}, TypeError, "dy must be"),
+])
+def test_ssd_backward_refuses_before_any_launch(change, error, match):
+    """``ssd_chunk_scan_bwd`` checks shapes, dtypes and devices before it
+    allocates or launches anything: each bad call raises, and its launch
+    count stays 0."""
+    kw = {k: change[k] for k in ("b", "l", "h", "p", "g", "n", "dtype")
+          if k in change}
+    x, dt, a, bm, cm, dy = _ssd_bwd_args(**kw)
+    dfin = None
+    if change.get("dt") is torch.bfloat16:
+        dt = dt.to(torch.bfloat16)
+    if change.get("dy") == "short":
+        dy = dy[:, :-1]
+    elif change.get("dy") is torch.bfloat16:
+        dy = dy.to(torch.bfloat16)
+    if change.get("d_final") == "wrong":
+        dfin = torch.zeros(1, 2, 4, 8)
+    elif change.get("d_final") is torch.bfloat16:
+        dfin = torch.zeros(1, 2, 4, 16, dtype=torch.bfloat16)
+    with pytest.raises(error, match=match):
+        sb.ssd_chunk_scan_bwd(x, dt, a, bm, cm, dy,
+                              chunk_size=change.get("chunk_size", 4),
+                              d_final=dfin)
+    assert sb.ssd_chunk_scan_bwd.launches == 0
+
+
+def test_ssd_backward_body_and_scratch():
+    """The backward's body is chosen by dtype alone, as the forward's;
+    its C entry points take 15 pointers, 7 sizes and the stream (and its
+    shared-memory report two sizes and an output pointer); its
+    scratch is the two state arrays, the dB and dC partials per tile of
+    64 (bf16) or 32 (f32) state rows, the ddt and the da partials."""
+    assert sb.bwd_body(torch.bfloat16) == ssd_body(torch.bfloat16)
+    assert sb.bwd_body(torch.float32) == ssd_body(torch.float32)
+    for entry in sb.ENTRY.values():
+        argtypes = _build.SIGNATURES["ssd_backward"][entry]
+        assert argtypes == (_build.P,) * 15 + (_build.I,) * 7 + (_build.P,)
+    assert _build.SIGNATURES["ssd_backward"]["ssd_scan_bwd_smem"] == (
+        _build.I, _build.I, _build.P)
+    # mamba2-1.3b's training shape: one 64-row tile in bf16, two in f32
+    b, l, h, p, n, q = 4, 2048, 64, 64, 128, 128
+    states = 2 * b * (l // q) * h * p * n
+    assert sb.scratch_floats(b, l, h, p, n, q, "tensor-core") == (
+        states + 2 * b * l * h * n + b * l * h + h * b * (l // q))
+    assert sb.scratch_floats(b, l, h, p, n, q, "fma") == (
+        states + 2 * b * l * h * 2 * n + b * l * h * 2 + h * b * (l // q) * 2)
+    assert sb.scratch_floats(1, 37, 4, 12, 20, 37, "tensor-core") == (
+        2 * 4 * 12 * 20 + 2 * 37 * 4 * 20 + 37 * 4 + 4)
 
 
 @pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "tensor-core"),

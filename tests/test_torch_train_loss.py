@@ -118,12 +118,19 @@ def test_mtp_head_takes_part_in_the_loss():
     assert grads["mtp.blocks.0.attn.wq_a"].abs().sum() > 0
 
 
-@pytest.mark.parametrize("remat", ["full", "dots", "dots_no_batch"])
-def test_remat_gives_the_same_loss_and_gradients(remat):
+@pytest.mark.parametrize("arch,remat", [
+    pytest.param("skymemory-tinyllama", "full", id="full"),
+    pytest.param("skymemory-tinyllama", "dots", id="dots"),
+    pytest.param("skymemory-tinyllama", "dots_no_batch", id="dots_no_batch"),
+    pytest.param("mamba2-1.3b", "full", id="mamba2-1.3b-full"),
+])
+def test_remat_gives_the_same_loss_and_gradients(arch, remat):
     """Recomputing each block in the backward changes nothing: the loss
     and every gradient equal those without it, as
-    ``tests/test_training.py`` requires of the reference."""
-    _, _, tm = _pair("skymemory-tinyllama")
+    ``tests/test_training.py`` requires of the reference.  mamba2's SSD
+    layers run the scan through ``ops.SSDScan`` twice under
+    ``remat="full"``."""
+    _, _, tm = _pair(arch)
     batch = _batch(tm.cfg, 32)
     l0, _, g0 = _port_loss_and_grads(tm, batch)
     g0 = {n: g.clone() for n, g in g0.items()}
