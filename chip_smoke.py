@@ -64,10 +64,13 @@ Phases (each raises on failure; nothing is caught):
    shape (B4 L2048 H64 P64 G1 N128, chunk 128), with an initial state and
    a final-state cotangent, G2, one ragged chunk of 37, chunk 1, P12 N20
    Q40 G2 H4, zamba2's N 64 and a tail of dt = 0 rows (the padding),
-   bf16 (the tensor-core body) and f32, each with its time, the plain
-   backward's and its bound; at the main case its split into launches
-   (one CUPTI trace); each kernel's ptxas registers and spills and its
-   dynamic shared memory;
+   bf16 (the tensor-core body, wgmma) and f32 (3xTF32 mma.sync), each
+   with its time beside the card's name and power limit, the plain
+   backward's and its bound in bytes and in operations; at the main
+   case of each body its split into launches (one CUPTI trace); the
+   library's plan (shared memory, cluster size) against the host's, each
+   kernel's ptxas registers, spills (none allowed) and dynamic shared
+   memory, and its wgmma, mbarrier and TMA instruction counts;
 4. model: TinyLlama's widths at 2 layers, f32, seeded: ``forward``,
    ``prefill_chunk_paged`` and ``decode_step_paged`` logits on the card
    against the same on the CPU.  Then mamba2-1.3b's widths at 2 layers,
@@ -1173,7 +1176,9 @@ def sass_counts(lib: Path, patterns: tuple) -> dict:
             at = next((name.index(p) for p in patterns if p in name), None)
             cur = None
             if at is not None:   # the instance ends where its args do
-                cur = name[at:name.index("EE", at) + 1]
+                end = name.find("EE", at)
+                cur = name[at:end + 1] if end >= 0 else next(
+                    p for p in patterns if p in name)
                 counts[cur] = dict.fromkeys(SASS_OPS, 0)
         elif cur is not None:
             for op in SASS_OPS:
@@ -1182,10 +1187,13 @@ def sass_counts(lib: Path, patterns: tuple) -> dict:
     return counts
 
 
-def launch_split(fn, iters: int = 5) -> dict:
+def launch_split(fn, iters: int = 5, flush=None) -> dict:
     """Device ms per call of each kernel that ``fn`` launches, from one
     ``torch.profiler`` (CUPTI) trace of ``iters`` calls, longest first;
-    empty when the trace holds no device events."""
+    empty when the trace holds no device events.  With ``flush`` (the
+    ``Timer``'s buffer) it is rewritten before each call, so that every
+    call starts with a cold L2 as the ``Timer``'s replays do; its own
+    kernel is left out of the split."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1193,11 +1201,14 @@ def launch_split(fn, iters: int = 5) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
     tot = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not (flush is not None and "FillFunctor" in e.name)):
             tot[e.name] = tot.get(e.name, 0.0) + (e.time_range.end
                                                  - e.time_range.start)
     return {n: t / 1e3 / iters
@@ -1476,49 +1487,111 @@ def ssd_bwd_inputs(device, dtype, name, b, l, chunk, h, p, g, n, with_init,
 
 
 def ssd_bwd_flops(b, l, chunk, h, p, g, n, with_init, with_dfin) -> int:
-    """The products this run's data needs: per chunk C.B^T once per group
-    and, per head, dy.u^T, M^T.dy, dG.B and dG^T.C over the causal
-    triangle; per head and chunk the state terms B.dS^T, u.dS and dy.S_c
-    where the state or cotangent there is not zero, the cotangent update
-    for every chunk (the last gives d_initial_state) and the state update
-    for every chunk but the last."""
+    """The least products this run's data needs: per chunk and group C.B^T
+    once, and dG.B and dG^T.C once with dG summed over the group's heads;
+    per head dy.u^T and M^T.dy over the causal triangle; per head and
+    chunk the state terms B.dS^T, u.dS and dy.S_c where the state or
+    cotangent there is not zero, the cotangent update for every chunk (the
+    last gives d_initial_state) and the state update for every chunk but
+    the last."""
     nc = l // chunk
     tri = chunk * (chunk + 1) // 2
     warm_s = nc if with_init else nc - 1
     warm_ds = nc if with_dfin else nc - 1
     state = 2 * chunk * n * p
-    return (b * nc * (2 * tri * n * g + h * 2 * tri * (2 * p + 2 * n))
+    return (b * nc * (3 * 2 * tri * n * g + h * 2 * tri * 2 * p)
             + b * h * state * (warm_s + 2 * warm_ds + nc + nc - 1))
 
 
-def phase_ssd_backward(device, timer: Timer, build_logs: dict) -> dict:
+# the kernels of csrc/ssd_backward.cu, in launch order per body
+
+
+
+def _spills(line: str) -> int:
+    """Spill bytes (stores + loads) in a ``_ptxas`` line; -1 if absent."""
+    import re
+    got = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+    return sum(int(v) for v in got) if got else -1
+
+
+def check_ssd_bwd_plan(build_logs: dict) -> None:
+    """The built library's plan against ``ssd_backward``'s host-side
+    mirror (the tensor-core chunk CTAs' shared memory at every N, the
+    cluster size from H / G), each kernel's registers, shared memory and
+    spills (0 spills, at most 232,448 bytes), and the SASS counts that
+    show wgmma (HGMMA), mbarriers (SYNCS) and TMA (UTMALDG)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_backward as sb
+
+    for n in (20, 64, 128):
+        for rep in (64, 32, 2):
+            plan = sb.card_plan(128, n, rep)
+            ar = sb.arrangement(rep, n)
+            if (plan["chunk_tc"] != sb.chunk_smem(n)
+                    or plan["pass_tc"] != sb.pass_smem(n)
+                    or plan["cluster_dbc"] != ar["dbc"][0]
+                    or plan["cluster_dx"] != ar["dx"][0]
+                    or max(plan.values()) > sb.SMEM_LIMIT):
+                raise AssertionError(f"ssd_chunk_scan_bwd plan N {n} H/G "
+                                     f"{rep}: library {plan}, host "
+                                     f"{sb.chunk_smem(n)} / {ar}")
+    plan = sb.card_plan(128, 128, 64)
+    log(f"[kernel] ssd_chunk_scan_bwd plan at chunk 128, N 128, H/G 64 "
+        f"(dynamic shared memory in bytes, cluster sizes): {plan}")
+    dyn = {"ssd_bwd_pass_wgILi1": plan["pass_tc"],
+           "ssd_bwd_pass_wgILi2": plan["pass_tc"],
+           "ssd_bwd_pass_fma": plan["pass_f32"],
+           "ssd_bwd_dbc_tc": plan["chunk_tc"], "ssd_bwd_dx_tcILi1": plan[
+               "chunk_tc"], "ssd_bwd_dx_tcILi2": plan["chunk_tc"],
+           "ssd_bwd_dbc_f32": plan["dbc_f32"],
+           "ssd_bwd_dx_f32": plan["dx_f32"], "ssd_bwd_decays": 0}
+    sass = sass_counts(_build.library_path("ssd_backward"),
+                       tuple(dyn))
+    for inst, smem in dyn.items():
+        line = _ptxas(build_logs, inst, "ssd_backward")
+        ops = next((v for k, v in sass.items() if k.startswith(inst)), {})
+        log(f"[kernel] ssd_chunk_scan_bwd ptxas {inst}: {line}; dynamic "
+            f"shared memory {smem:,} B; SASS {ops}")
+        if _spills(line) > 0:
+            raise AssertionError(f"ssd_chunk_scan_bwd: {inst} spills: "
+                                 f"{line}")
+
+
+def ssd_bwd_split(split: dict, flops: float, n_bytes: float) -> list:
+    """``launch_split`` of one backward as [kernel, ms, share of the
+    call's bound products and bytes per ms]."""
+    rows = []
+    for name, ms in split.items():
+        short = next((k for k in ("ssd_bwd_decays", "ssd_bwd_pass",
+                                  "ssd_bwd_dbc", "ssd_bwd_dx")
+                      if k in name), name[:60])
+        rows.append([short, round(ms, 5),
+                     f"{flops / ms / 1e9:.1f} TFLOP/s, "
+                     f"{n_bytes / ms / 1e6:.1f} GB/s of the call's bound"])
+    return rows
+
+
+def phase_ssd_backward(device, timer: Timer, build_logs: dict,
+                       card: str) -> dict:
     """K5's backward on the card: ``ssd_chunk_scan_bwd`` at
     ``SSD_BWD_CASES``, bf16 and f32, against ``ssd_scan_bwd_ref`` in f32 on
     the same inputs (``SSD_BWD_TOL``), each case twice, bitwise equal;
-    its time (CUDA-graph replays, cold L2), the plain backward's, its
-    bound, and at the main case its split into launches (one CUPTI
-    trace); each kernel's ptxas registers, shared memory and spills.
-    Returns the main case's bf16 record."""
+    its time (CUDA-graph replays, cold L2) beside ``card`` (the card's
+    name and power limit), the plain backward's, its bound in bytes and
+    in operations, and at the main case of each body its split into
+    launches (one CUPTI trace with L2 warm, one with it flushed before
+    each call as the replays do); each kernel's ptxas registers, shared
+    memory, spills and SASS counts (``check_ssd_bwd_plan``).  Returns the
+    main case's bf16 record."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd_backward import (
-        bwd_body,
-        card_smem,
-        ssd_chunk_scan_bwd,
-    )
+    from repro_torch.kernels.ssd_backward import bwd_body, ssd_chunk_scan_bwd
 
-    smem = card_smem(128, 128)
-    for inst in ("ssd_bwd_pass_tc", "ssd_bwd_chunk_tc", "ssd_bwd_pass_fma",
-                 "ssd_bwd_chunk_fma", "ssd_bwd_reduceI13__nv_bfloat16",
-                 "ssd_bwd_reduceIf"):
-        dyn = smem.get(inst[len("ssd_bwd_"):], 0)
-        log(f"[kernel] ssd_chunk_scan_bwd ptxas {inst}: "
-            f"{_ptxas(build_logs, inst, 'ssd_backward')}; dynamic shared "
-            f"memory at chunk 128, N 128: {dyn:,} B")
+    check_ssd_bwd_plan(build_logs)
     record = None
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
-        for (label, b, l, chunk, h, p, g, n, with_init, with_dfin,
-             pad) in SSD_BWD_CASES:
+        for ci, (label, b, l, chunk, h, p, g, n, with_init, with_dfin,
+                 pad) in enumerate(SSD_BWD_CASES):
             name = f"{tag} {label}"
             x, dt, a, bm, cm, init, dy, dfin = ssd_bwd_inputs(
                 device, dtype, name, b, l, chunk, h, p, g, n, with_init,
@@ -1569,21 +1642,26 @@ def phase_ssd_backward(device, timer: Timer, build_logs: dict) -> dict:
                        + (nbytes(init) if with_init else 0)
                        + (nbytes(dfin) if with_dfin else 0))
             bms, by = bound_ms(n_bytes, flops, dtype)
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS[dtype] * 1e3
             body = bwd_body(dtype)
             log(f"[kernel] ssd_chunk_scan_bwd [{name}] body {body}: "
                 f"max abs err / scale "
                 + "/".join(f"{e:.2e}" for e in rel)
                 + f" ({'/'.join(SSD_BWD_NAMES)}; {worst:.2f} x limit); "
                 f"bitwise repeatable; ms {ms:.4f}  plain_ms {plain_ms:.4f}  "
-                f"bound_ms {bms:.5f} ({by}; {flops / 1e9:.2f} GFLOP, "
-                f"{n_bytes / 1e6:.1f} MB)  library_ms null")
+                f"bound_ms {bms:.5f} ({by}; bytes {n_bytes / 1e6:.1f} MB "
+                f"{t_bytes:.5f} ms, operations {flops / 1e9:.2f} GFLOP "
+                f"{t_ops:.5f} ms)  library_ms null  on {card}")
+            if ci == 0:
+                for temp, flush in (("warm", None), ("cold", timer.flush)):
+                    split = launch_split(bwd, flush=flush)
+                    log(f"[kernel] ssd_chunk_scan_bwd [{name}] launches, one "
+                        f"CUPTI trace, L2 {temp} (kernel, ms, rate) on "
+                        f"{card}: "
+                        + (json.dumps(ssd_bwd_split(split, flops, n_bytes))
+                           if split else "no device events"))
             if record is None:
-                split = launch_split(bwd)
-                log(f"[kernel] ssd_chunk_scan_bwd [{name}] launches, one "
-                    f"CUPTI trace (kernel, ms): "
-                    + (json.dumps([[k[:60], round(v, 5)]
-                                   for k, v in split.items()])
-                       if split else "no device events"))
                 record = dict(max_abs_err=max(errs), ms=ms,
                               plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                               library_ms=None, shape=name, body=body)
@@ -4382,7 +4460,7 @@ def main() -> int:
     log(f"[phase] kernels, backward {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     records["ssd_chunk_scan_bwd"] = phase_ssd_backward(device, timer,
-                                                       build_logs)
+                                                       build_logs, smi)
     torch.cuda.empty_cache()
     log(f"[phase] kernels, SSD backward {time.perf_counter() - t0:.1f} s")
 

@@ -73,7 +73,7 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
     "ssd_backward": {
         **{f"ssd_scan_bwd_{t}": (P,) * 15 + (I,) * 7 + (P,)
            for t in ("f32", "bf16")},
-        "ssd_scan_bwd_smem": (I, I, P),
+        "ssd_scan_bwd_plan": (I, I, I, P),
     },
 }
 

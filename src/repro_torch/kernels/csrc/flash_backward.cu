@@ -927,56 +927,10 @@ bwd_dq_wg(const __grid_constant__ CUtensorMap map_q,
   store_acc<DQ>(dq_acc, dq, n_rows, a.scale, q_row);
 }
 
-// ---- host: tensor maps and the launch -------------------------------------
-
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// cuTensorMapEncodeTiled, a driver call, through the runtime's entry-point
-// query (the library links the static runtime, not libcuda); null if the
-// driver lacks it
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The map of a [B, S, heads, D] bf16 tensor whose box is one head's
-// ``rows`` rows by 64 columns (one slab), 128-byte swizzled; rows and
-// columns past the tensor's ends read as zeros.  Returns a cudaError_t.
-int make_map(CUtensorMap* map, const void* ptr, int b, int s, int heads,
-             int d, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)s,
-                              (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
-                                 (cuuint64_t)s * heads * d * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)hopper::SLAB, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 }  // namespace wg_body
 
 // ---------------------------------------------------------------------------
-// launch
+// launch (tensor maps: hopper::make_map)
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -1027,14 +981,14 @@ int launch_wg(const void* q, const void* k, const void* v, const void* out,
   // dq walks K / V in BC-row boxes over Q / dO staged in 64-row boxes
   CUtensorMap q_br, do_br, k_bk, v_bk, q_64, do_64, k_bc, v_bc;
   int err;
-  if ((err = wb::make_map(&q_br, q, b, a.sq, a.h, DQ, P::BR)) ||
-      (err = wb::make_map(&do_br, dout, b, a.sq, a.h, DV, P::BR)) ||
-      (err = wb::make_map(&k_bk, k, b, a.skv, a.hkv, DQ, 64)) ||
-      (err = wb::make_map(&v_bk, v, b, a.skv, a.hkv, DV, 64)) ||
-      (err = wb::make_map(&q_64, q, b, a.sq, a.h, DQ, 64)) ||
-      (err = wb::make_map(&do_64, dout, b, a.sq, a.h, DV, 64)) ||
-      (err = wb::make_map(&k_bc, k, b, a.skv, a.hkv, DQ, P::BC)) ||
-      (err = wb::make_map(&v_bc, v, b, a.skv, a.hkv, DV, P::BC)))
+  if ((err = hopper::make_map(&q_br, q, b, a.sq, a.h, DQ, P::BR)) ||
+      (err = hopper::make_map(&do_br, dout, b, a.sq, a.h, DV, P::BR)) ||
+      (err = hopper::make_map(&k_bk, k, b, a.skv, a.hkv, DQ, 64)) ||
+      (err = hopper::make_map(&v_bk, v, b, a.skv, a.hkv, DV, 64)) ||
+      (err = hopper::make_map(&q_64, q, b, a.sq, a.h, DQ, 64)) ||
+      (err = hopper::make_map(&do_64, dout, b, a.sq, a.h, DV, 64)) ||
+      (err = hopper::make_map(&k_bc, k, b, a.skv, a.hkv, DQ, P::BC)) ||
+      (err = hopper::make_map(&v_bc, v, b, a.skv, a.hkv, DV, P::BC)))
     return err;
   cudaError_t e = allow_smem(wb::bwd_dkdv_wg<DQ, DV>, P::KV_SMEM);
   if (e != cudaSuccess) return (int)e;

@@ -915,7 +915,8 @@ bool bad_shape(int seqlen, int h, int g, int n, int chunk) {
 // initial state).  ``cb`` (f32 only) is scratch of B * G * L *
 // key_cols(chunk) floats (key_cols rounds the chunk up to a multiple of
 // 32).  Each returns cudaGetLastError() after its launches (0 on
-// success), or cudaErrorInvalidValue for a shape it does not take.
+// success), or cudaErrorInvalidValue for a shape it does not take (an
+// empty batch or sequence among them: the final state would stay unset).
 extern "C" int ssd_scan_f32(const void* x, const void* dt, const void* a,
                             const void* bm, const void* cm, const void* init,
                             void* cb, void* y, void* fin, int b, int seqlen,
@@ -923,7 +924,7 @@ extern "C" int ssd_scan_f32(const void* x, const void* dt, const void* a,
                             void* stream) {
   using namespace repro_torch;
   if (bad_shape(seqlen, h, g, n, chunk)) return (int)cudaErrorInvalidValue;
-  if (seqlen == 0 || b == 0) return (int)cudaSuccess;
+  if (seqlen < 1 || b < 1) return (int)cudaErrorInvalidValue;
   return launch_fma(
       static_cast<const float*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(a), static_cast<const float*>(bm),
@@ -939,7 +940,7 @@ extern "C" int ssd_scan_bf16(const void* x, const void* dt, const void* a,
                              int p, int g, int n, int chunk, void* stream) {
   using namespace repro_torch;
   if (bad_shape(seqlen, h, g, n, chunk)) return (int)cudaErrorInvalidValue;
-  if (seqlen == 0 || b == 0) return (int)cudaSuccess;
+  if (seqlen < 1 || b < 1) return (int)cudaErrorInvalidValue;
   return launch_tc(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(a), static_cast<const __nv_bfloat16*>(bm),

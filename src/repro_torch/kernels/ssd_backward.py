@@ -4,14 +4,17 @@
 ``ssd_chunk_scan_bwd`` computes the gradient of ``ssd_chunk_scan`` (K5,
 which replaces the Pallas ``_kernel`` of ``repro/kernels/ssd_scan.py``).
 The reference has no backward kernel -- its ``jax.grad`` differentiates
-the jnp scan -- so this is the port's own, deterministic: three launches
-(the state and cotangent passes, every chunk's partials, their fixed-order
-reduction), no float atomics.  It takes CUDA tensors only;
-``kernels/ops.py`` routes a CPU graph to the plain
-``ref.ssd_scan_bwd_ref`` through the same ``SSDScan`` function.  Two
-bodies, chosen by ``bwd_body`` from the dtype alone: bf16 on tensor
-cores (``mma.sync``, the f32 factors split into bf16 hi + lo), f32 on
-FMAs.
+the jnp scan -- so this is the port's own, deterministic, in four
+launches: each chunk's decays; the state and cotangent passes; dB and dC,
+where a cluster of CTAs owns a (sequence, chunk, group), splits its heads
+and sums its CTAs' accumulators through distributed shared memory in a
+fixed rank order; dx, ddt and da on clusters of head slices.  No float
+atomics, and no per-head partial of dB or dC goes through device memory.
+It takes CUDA tensors only; ``kernels/ops.py`` routes a CPU graph to the
+plain ``ref.ssd_scan_bwd_ref`` through the same ``SSDScan`` function.
+Two bodies, chosen by ``bwd_body`` from the dtype alone: bf16 on
+``wgmma`` fed by TMA (the f32 factors split into bf16 hi + lo), f32 on
+``mma.sync`` in TF32 with every operand split hi + lo (three products).
 """
 from __future__ import annotations
 
@@ -27,42 +30,132 @@ from repro_torch.kernels.ssd_scan import (
     _check_dtypes,
 )
 
-ENTRY = {"tensor-core": "ssd_scan_bwd_bf16", "fma": "ssd_scan_bwd_f32"}
-# state rows of a chunk block (csrc/ssd_backward.cu tc_body::PT and
-# fma_body::PT): the dB, dC, ddt and da partials are per tile of them
-TILE = {"tensor-core": 64, "fma": 32}
+ENTRY = {"tensor-core": "ssd_scan_bwd_bf16", "tf32x3": "ssd_scan_bwd_f32"}
+MAX_HEAD_DIM = 64   # P: one 64-column slab of state rows per head
+# csrc/ssd_backward.cu: decays of one (sequence, chunk, head) -- dt, seg,
+# e^seg, e^{total-seg} over the 128-row chunk tile -- and its C . dC_state
+# per 64-column slab of N, then the slabs' partials of <dS_{c+1}, S_c>
+# (and two floats of padding)
+DECAY_FLOATS = 4 * MAX_CHUNK
+CDOT_FLOATS = 2 * MAX_CHUNK + 4
+SMEM_LIMIT = 232_448   # bytes of shared memory an H100 block may use
 
 
 def bwd_body(dtype: torch.dtype) -> str:
-    """Which body of ``csrc/ssd_backward.cu`` a call runs: ``"tensor-core"``
-    for bf16, ``"fma"`` for f32, as the forward chooses (``ssd_body``)."""
-    return "tensor-core" if dtype == torch.bfloat16 else "fma"
+    """Which body of ``csrc/ssd_backward.cu`` a call runs:
+    ``"tensor-core"`` (``wgmma``) for bf16, ``"tf32x3"`` (``mma.sync`` in
+    TF32, three products per split pair) for f32."""
+    return "tensor-core" if dtype == torch.bfloat16 else "tf32x3"
 
 
-SMEM_KEYS = ("pass_tc", "chunk_tc", "pass_fma", "chunk_fma")
+def cluster_size(heads_per_group: int, most: int = 8) -> int:
+    """The slices of one group's heads that a cluster's CTAs walk: the
+    largest power of two up to ``most`` that divides them (csrc
+    ``cluster_size``)."""
+    cs = most
+    while heads_per_group % cs:
+        cs //= 2
+    return cs
 
 
-def card_smem(chunk: int, n: int) -> dict:
-    """Each kernel's dynamic shared memory in bytes at ``(chunk, n)``, as
-    the built library sizes it (``ssd_scan_bwd_smem``); builds the library
-    on first use."""
-    out = (ctypes.c_int * len(SMEM_KEYS))()
-    fn = _build.load("ssd_backward").ssd_scan_bwd_smem
-    _build.check(fn(chunk, n, ctypes.addressof(out)), "ssd_scan_bwd_smem")
-    return dict(zip(SMEM_KEYS, out))
+def arrangement(heads_per_group: int, n: int, units: int = 1 << 20) -> dict:
+    """Each chunk launch's arrangement (csrc ``arrange_dbc``,
+    ``arrange_dx``) as (CTAs of a cluster, head slices of a group per
+    64-column slab of N, heads of a CTA), for ``units`` = B * L / chunk *
+    G.  dB and dC: a cluster holds every slab's slices, up to 8 CTAs;
+    while that launch would hold fewer than two CTAs per SM, one cluster
+    per slab of up to 8 slices.  dx: clusters of up to 8 slices, and more
+    slices while the launch would hold fewer than two CTAs per SM."""
+    ns = -(-n // 64)
+    cs = cluster_size(heads_per_group)
+    joint = cluster_size(heads_per_group, 8 // ns)
+    dbc = ((joint * ns, joint, heads_per_group // joint)
+           if units * 2 * ns * joint >= 2 * 132
+           else (cs, cs, heads_per_group // cs))
+    s = cs
+    while heads_per_group % (2 * s) == 0 and units * s < 2 * 132:
+        s *= 2
+    return {"dbc": dbc, "dx": (cs, s, heads_per_group // s)}
+
+
+def slot_floats(n: int) -> int:
+    """f32 of one (sequence, chunk, head) state slot: the bf16 body's image
+    (hi and lo planes of 64 state rows by ``ceil(N / 64)`` 128-byte
+    slabs), which also holds the f32 body's [P][N]."""
+    return -(-n // 64) * 2 * 64 * 128 // 4
+
+
+def tma_dims(b: int, seqlen: int, heads: int, d: int) -> tuple:
+    """The 4-D tensor map of a [B, L, heads, D] bf16 tensor as the chunk
+    launches encode it (``hopper::make_map``): dims innermost first, the
+    byte strides of the outer three, and the box (one 64-column slab of
+    one head's 128 chunk rows)."""
+    return ((d, heads, seqlen, b), (2 * d, 2 * heads * d, 2 * seqlen * heads * d),
+            (64, 1, MAX_CHUNK, 1))
+
+
+def uses_tma(p: int, n: int) -> bool:
+    """Whether the bf16 body's producer loads x, dy, B and C by TMA: every
+    stride a whole number of 16-byte pieces and one slab per head; else
+    it copies the same tiles (pointers 16-byte aligned as well on the
+    card)."""
+    return p == MAX_HEAD_DIM and n % 64 == 0
+
+
+PLAN_KEYS = ("pass_tc", "pass_f32", "chunk_tc", "dbc_f32", "dx_f32",
+             "cluster_dbc", "cluster_dx")
+
+
+def card_plan(chunk: int, n: int, heads_per_group: int) -> dict:
+    """The built library's plan at ``(chunk, n, heads_per_group)``
+    (``ssd_scan_bwd_plan``): each kernel's dynamic shared memory in bytes
+    and the two chunk launches' cluster sizes; builds the library on
+    first use."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    fn = _build.load("ssd_backward").ssd_scan_bwd_plan
+    _build.check(fn(chunk, n, heads_per_group, ctypes.addressof(out)),
+                 "ssd_scan_bwd_plan")
+    return dict(zip(PLAN_KEYS, out))
+
+
+def chunk_smem(n: int) -> int:
+    """Dynamic shared memory of a tensor-core chunk CTA (csrc ``Lay``): B
+    and C [128][N] in slabs, two stages of {x, dy [128][64], four 64 x 64
+    state slabs (the dx launch's whole image; dC's slab of S_c and of
+    dS_{c+1}, each hi and lo), the decays, C . dC_state per slab, the
+    head's partial vectors} each rounded to 1 KB, five barriers and the 1
+    KB alignment slack."""
+    ns = -(-n // 64)
+    tile = MAX_CHUNK * ns * 128
+    stage = 2 * MAX_CHUNK * 128 + 4 * 64 * 128 + 4 * (
+        DECAY_FLOATS + CDOT_FLOATS + 3 * MAX_CHUNK + 8 * MAX_CHUNK) + 64
+    stage = -(-stage // 1024) * 1024
+    return 2 * tile + 2 * stage + 8 * 5 + 1024
+
+
+def pass_smem(n: int) -> int:
+    """Dynamic shared memory of a tensor-core pass CTA (csrc ``PassLay``):
+    two stages of {B or C [128][N], x or dy of two heads [2][128][64],
+    their decays} each rounded to 1 KB, each head's outgoing state image
+    (two bf16 planes of 64 rows by ``ceil(N / 64)`` slabs), four barriers
+    and the 1 KB alignment slack."""
+    ns = -(-n // 64)
+    stage = MAX_CHUNK * ns * 128 + 2 * MAX_CHUNK * 128 + 2 * 4 * DECAY_FLOATS
+    stage = -(-stage // 1024) * 1024
+    return 2 * stage + 2 * 2 * ns * 64 * 128 + 8 * 4 + 1024
 
 
 def scratch_floats(b: int, seqlen: int, h: int, p: int, n: int, chunk: int,
                    body: str) -> int:
     """f32 scratch of one call, in the order the C entry point lays it
-    out: the states entering and the cotangents leaving every chunk [B,
-    L / chunk, H, P, N] each, the dB and dC partials [B, L, H, npt, N]
-    each, the ddt partials [B, L, H, npt] and the da partials [H, B * L /
-    chunk * npt], with npt the number of ``TILE`` row tiles of P."""
-    nc = seqlen // chunk
-    npt = -(-p // TILE[body])
-    return (2 * b * nc * h * p * n + 2 * b * seqlen * h * npt * n
-            + b * seqlen * h * npt + h * b * nc * npt)
+    out: the state slots entering and the cotangent slots leaving every
+    (sequence, chunk, head) (``slot_floats``), the decays and C . dC_state
+    of each, the da partials [H, B * L / chunk], and the count of dx CTAs
+    done (with padding, 4 floats).  The same for both bodies; no term
+    holds a per-position copy of N for each head."""
+    del p, body
+    bch = b * (seqlen // chunk) * h
+    return bch * (2 * slot_floats(n) + DECAY_FLOATS + CDOT_FLOATS) + bch + 4
 
 
 def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -85,7 +178,7 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     g, n = b_mat.shape[2], b_mat.shape[3]
     if (dt.shape != (bsz, seqlen, h) or a.shape != (h,)
             or b_mat.shape != (bsz, seqlen, g, n) or c_mat.shape != b_mat.shape
-            or h % g or not 1 <= n <= MAX_STATE
+            or h % g or not 1 <= n <= MAX_STATE or not 1 <= p <= MAX_HEAD_DIM
             or not 1 <= chunk_size <= MAX_CHUNK or seqlen % chunk_size
             or bsz < 1 or seqlen < 1 or dy.shape != x.shape
             or any(t is not None and t.shape != (bsz, h, p, n)
@@ -95,7 +188,8 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             f"{tuple(dt.shape)} a {tuple(a.shape)} B {tuple(b_mat.shape)} "
             f"C {tuple(c_mat.shape)} dy {tuple(dy.shape)} chunk {chunk_size} "
             f"(B, L >= 1, L % chunk == 0, chunk <= {MAX_CHUNK}, "
-            f"N <= {MAX_STATE}, H % G == 0; states [B, H, P, N])")
+            f"N <= {MAX_STATE}, P <= {MAX_HEAD_DIM}, H % G == 0; states "
+            f"[B, H, P, N])")
     _check_dtypes(tensors, "ssd_chunk_scan_bwd")
     if dy.dtype != x.dtype:
         raise TypeError(f"ssd_chunk_scan_bwd: dy must be {x.dtype}, got "

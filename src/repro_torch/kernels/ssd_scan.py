@@ -72,27 +72,31 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
     Returns ``(y [B, L, H, P] in x's dtype, final_state [B, H, P, N]
     f32)``, the contract of ``ref.ssd_scan_ref``.  ``L`` must be a
-    multiple of ``chunk_size`` (1 to 128), ``N`` at most 128.  Launches
+    multiple of ``chunk_size`` (1 to 128), ``N`` at most 128, ``B`` and
+    ``L`` at least 1; shapes are checked before devices and dtypes, so an
+    empty call is refused on every device.  Launches
     on the current stream without synchronising.  Called directly it
     refuses a graph (``_build.refuse_grad``): training reaches it through
     ``ops.SSDScan``, whose backward is ``ssd_backward.ssd_chunk_scan_bwd``."""
     _build.refuse_grad("ssd_chunk_scan", x, dt, a, b_mat, c_mat,
                        initial_state)
-    _check_inputs({"x": x, "dt": dt, "a": a, "b_mat": b_mat,
-                   "c_mat": c_mat, "initial_state": initial_state})
     bsz, seqlen, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
     if (dt.shape != (bsz, seqlen, h) or a.shape != (h,)
             or b_mat.shape != (bsz, seqlen, g, n) or c_mat.shape != b_mat.shape
             or h % g or not 1 <= n <= MAX_STATE
             or not 1 <= chunk_size <= MAX_CHUNK or seqlen % chunk_size
+            or bsz < 1 or seqlen < 1
             or (initial_state is not None
                 and initial_state.shape != (bsz, h, p, n))):
         raise ValueError(
             f"ssd_chunk_scan: bad shapes x {tuple(x.shape)} dt "
             f"{tuple(dt.shape)} a {tuple(a.shape)} B {tuple(b_mat.shape)} "
-            f"C {tuple(c_mat.shape)} chunk {chunk_size} (L % chunk == 0, "
-            f"chunk <= {MAX_CHUNK}, N <= {MAX_STATE}, H % G == 0)")
+            f"C {tuple(c_mat.shape)} chunk {chunk_size} (B, L >= 1, "
+            f"L % chunk == 0, chunk <= {MAX_CHUNK}, N <= {MAX_STATE}, "
+            f"H % G == 0)")
+    _check_inputs({"x": x, "dt": dt, "a": a, "b_mat": b_mat,
+                   "c_mat": c_mat, "initial_state": initial_state})
     y = torch.empty_like(x)
     final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     ptrs = [x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),

@@ -379,6 +379,7 @@ def _ssd_bwd_args(b=1, l=8, h=2, p=4, g=1, n=16, dtype=torch.float32):
     ({"b": 0}, ValueError, "bad shapes"),              # an empty batch
     ({"chunk_size": 256, "l": 256}, ValueError, "bad shapes"),
     ({"n": 160}, ValueError, "bad shapes"),            # N above 128
+    ({"p": 96}, ValueError, "bad shapes"),             # P above one slab
     ({"h": 3, "g": 2}, ValueError, "bad shapes"),      # H % G != 0
     ({"dy": "short"}, ValueError, "bad shapes"),
     ({"d_final": "wrong"}, ValueError, "bad shapes"),
@@ -413,27 +414,113 @@ def test_ssd_backward_refuses_before_any_launch(change, error, match):
 
 
 def test_ssd_backward_body_and_scratch():
-    """The backward's body is chosen by dtype alone, as the forward's;
-    its C entry points take 15 pointers, 7 sizes and the stream (and its
-    shared-memory report two sizes and an output pointer); its
-    scratch is the two state arrays, the dB and dC partials per tile of
-    64 (bf16) or 32 (f32) state rows, the ddt and the da partials."""
-    assert sb.bwd_body(torch.bfloat16) == ssd_body(torch.bfloat16)
-    assert sb.bwd_body(torch.float32) == ssd_body(torch.float32)
+    """The backward's body is chosen by dtype alone (bf16 on wgmma, f32
+    on 3xTF32 mma.sync); its C entry points take 15 pointers, 7 sizes
+    and the stream (and its plan three sizes and an output pointer); its
+    scratch is the state and cotangent slots of each (sequence, chunk,
+    head), their decays and C . dC_state, and the da partials: no term
+    holds a per-position copy of N for each head (no [B, L, H, ., N]
+    partials of dB and dC)."""
+    assert sb.bwd_body(torch.bfloat16) == "tensor-core"
+    assert sb.bwd_body(torch.float32) == "tf32x3"
+    assert set(sb.ENTRY) == {"tensor-core", "tf32x3"}
     for entry in sb.ENTRY.values():
         argtypes = _build.SIGNATURES["ssd_backward"][entry]
         assert argtypes == (_build.P,) * 15 + (_build.I,) * 7 + (_build.P,)
-    assert _build.SIGNATURES["ssd_backward"]["ssd_scan_bwd_smem"] == (
-        _build.I, _build.I, _build.P)
-    # mamba2-1.3b's training shape: one 64-row tile in bf16, two in f32
+    assert _build.SIGNATURES["ssd_backward"]["ssd_scan_bwd_plan"] == (
+        _build.I, _build.I, _build.I, _build.P)
+    # mamba2-1.3b's training shape: a slot of two bf16 planes of 64 x 128
     b, l, h, p, n, q = 4, 2048, 64, 64, 128, 128
-    states = 2 * b * (l // q) * h * p * n
-    assert sb.scratch_floats(b, l, h, p, n, q, "tensor-core") == (
-        states + 2 * b * l * h * n + b * l * h + h * b * (l // q))
-    assert sb.scratch_floats(b, l, h, p, n, q, "fma") == (
-        states + 2 * b * l * h * 2 * n + b * l * h * 2 + h * b * (l // q) * 2)
+    bch = b * (l // q) * h
+    assert sb.slot_floats(n) == 2 * 64 * 128 // 2 == p * n
+    want = bch * (2 * p * n + 4 * 128 + 2 * 128 + 4) + bch + 4
+    for body in sb.ENTRY:
+        assert sb.scratch_floats(b, l, h, p, n, q, body) == want
+    # 0.28 GB in all at mamba2's training shape
+    assert 4 * want < 0.29e9
+    # the slots are the floor (the states in HBM); beyond them the
+    # scratch grows with B L H (decays, C . dC_state), never with N
+    for n_ in (20, 64, 100, 128):
+        rest = (sb.scratch_floats(b, l, h, p, n_, q, "tensor-core")
+                - 2 * bch * sb.slot_floats(n_))
+        assert rest == bch * (4 * 128 + 2 * 128 + 4 + 1) + 4
+    # an f32 [P][N] state fits the bf16 image's slot at every N
+    for n_ in range(1, 129):
+        assert 64 * n_ <= sb.slot_floats(n_)
     assert sb.scratch_floats(1, 37, 4, 12, 20, 37, "tensor-core") == (
-        2 * 4 * 12 * 20 + 2 * 37 * 4 * 20 + 37 * 4 + 4)
+        4 * (2 * 2 * 64 * 64 // 2 + 4 * 128 + 2 * 128 + 4) + 4 + 4)
+
+
+@pytest.mark.parametrize("rep,cs", [(64, 8), (32, 8), (8, 8), (4, 4),
+                                    (2, 2), (1, 1), (3, 1), (12, 4),
+                                    (24, 8), (6, 2)])
+def test_ssd_backward_cluster_size(rep, cs):
+    """A cluster splits one group's heads among its CTAs: the largest
+    power of two up to 8 (the portable cluster size) that divides H / G,
+    so every CTA walks the same number of heads, in a fixed order.  The
+    dB / dC launch also splits N's 64-column slabs among its CTAs."""
+    assert sb.cluster_size(rep) == cs
+    assert rep % cs == 0 and cs <= 8 and cs & (cs - 1) == 0
+    for units in (1, 3, 16, 64, 4096):
+        ar = sb.arrangement(rep, 128, units)
+        ctas, slices, heads = ar["dbc"]
+        # a cluster: every slab's slices, or one slab's (few chunks)
+        assert ctas in (slices, 2 * slices) and ctas <= 8
+        assert slices * heads == rep and 64 // slices % 4 == 0
+        assert ar == sb.arrangement(rep, 20, units) or ctas == 2 * slices
+        ctas, slices, heads = ar["dx"]
+        assert ctas == cs and slices % cs == 0 and slices * heads == rep
+        # few chunks: more slices, down to one head a CTA
+        assert slices == rep or units * slices >= 264 or rep // slices % 2
+
+
+def test_ssd_backward_tensor_maps():
+    """The bf16 body loads x and dy [B, L, H, P] and B and C [B, L, G,
+    N] by TMA only where every stride is a whole number of 16 bytes and a
+    head's row is one 64-column slab; the maps' dims run innermost first,
+    their boxes are one slab of one head's 128 chunk rows."""
+    dims, strides, box = sb.tma_dims(4, 2048, 64, 64)
+    assert dims == (64, 64, 2048, 4)
+    assert strides == (128, 64 * 128, 2048 * 64 * 128)
+    assert box == (64, 1, 128, 1)
+    assert all(s % 16 == 0 for s in strides)
+    assert 64 * 2 == 128                       # one box row: a 128 B slab
+    dims, strides, box = sb.tma_dims(4, 2048, 1, 128)   # B, C at G1 N128
+    assert dims == (128, 1, 2048, 4) and strides[0] == 256
+    assert sb.uses_tma(64, 128) and sb.uses_tma(64, 64)
+    # P12 N20: strides of 24 and 40 bytes, which TMA refuses: copies
+    assert not sb.uses_tma(12, 20)
+    assert not sb.uses_tma(64, 20) and not sb.uses_tma(32, 128)
+    assert 12 * 2 % 16 and 20 * 2 % 16
+
+
+@pytest.mark.parametrize("n", [1, 20, 64, 65, 100, 128])
+def test_ssd_backward_shared_memory_fits(n):
+    """Every chunk CTA of the tensor-core body fits the H100's 232,448
+    bytes of shared memory at every N (and so every chunk: the tiles hold
+    128 rows whatever the chunk), with its f32 reduction buffer of one
+    slab, [128][68], inside the two stages it reuses; so does every pass
+    CTA."""
+    smem = sb.chunk_smem(n)
+    assert smem <= sb.SMEM_LIMIT and sb.pass_smem(n) <= sb.SMEM_LIMIT
+    ns = -(-n // 64)
+    stages = smem - 1024 - 40 - 2 * 128 * ns * 128
+    assert 4 * 128 * 68 <= stages
+    assert sb.chunk_smem(128) == 216_104
+
+
+def test_ssd_scan_refuses_an_empty_call_before_any_launch():
+    """The forward's empty-shape repair: an empty batch or sequence is a
+    bad shape, refused on the CPU before any device check, allocation or
+    launch (the kernel used to return without writing the final state)."""
+    before = ssd_chunk_scan.launches
+    for bsz, l in ((0, 4), (1, 0), (0, 0)):
+        x = torch.zeros(bsz, l, 2, 8)
+        bc = torch.zeros(bsz, l, 1, 16)
+        with pytest.raises(ValueError, match="bad shapes"):
+            ssd_chunk_scan(x, torch.zeros(bsz, l, 2), torch.zeros(2), bc, bc,
+                           chunk_size=4)
+    assert ssd_chunk_scan.launches == before == 0
 
 
 @pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "tensor-core"),

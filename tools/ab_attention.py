@@ -22,6 +22,10 @@ root runs in a process of its own, in the order given, and prints one
   S2048, H32 Hkv4 D64, causal): ``flash_prefill_bwd`` alone (``Timer``),
   the forward + backward through ``ops.FlashAttention`` (eager, cold
   L2), and the backward's split into its launches (one CUPTI trace);
+  and the bf16 backward of the SSD scan at mamba2-1.3b's training shape
+  (``SSD_BWD_CASES``' first, B4 L2048 H64 P64 G1 N128, chunk 128):
+  ``ssd_chunk_scan_bwd`` alone (``Timer``) and its split into launches
+  (one CUPTI trace with L2 warm, one with it flushed before each call);
 * full TinyLlama (22 layers, bf16, seeded random weights): the paged
   decode step at batch 4 over 384 cached tokens (``step_breakdown``) and
   one chunked-prefill wave (``prefill_wave``: 4 rows x 256 tokens over a
@@ -51,7 +55,8 @@ HERE = Path(__file__).resolve().parents[1]
 AB_CASES = ("bf16 contiguous B4 P8", "bf16 block-table B8 P8",
             "bf16 wave R4 C256", "bf16 causal B4 S512",
             "bf16 B1 L384 H64 P64 G1 N128 Q128",
-            "bf16 TinyLlama training B4 S2048 H32 Hkv4 D64 causal")
+            "bf16 TinyLlama training B4 S2048 H32 Hkv4 D64 causal",
+            "bf16 mamba2-1.3b training B4 L2048 H64 P64 G1 N128 Q128")
 
 
 def one(root: Path) -> dict:
@@ -75,7 +80,9 @@ def one(root: Path) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     row = {"root": str(root), "package": repro_torch.__file__}
     bwd_cases = [c for c in cs.BWD_CASES if f"bf16 {c[0]}" in AB_CASES]
-    left = set(AB_CASES) - {f"bf16 {c[0]}" for c in bwd_cases}
+    ssd_cases = [c for c in cs.SSD_BWD_CASES if f"bf16 {c[0]}" in AB_CASES]
+    left = (set(AB_CASES) - {f"bf16 {c[0]}" for c in bwd_cases}
+            - {f"bf16 {c[0]}" for c in ssd_cases})
     for name, label, dtype, _, make, runner in cs.kernel_cases(dev):
         args, _, _ = make(gen, dtype)     # every case, to keep the inputs
         if label not in left:
@@ -123,6 +130,26 @@ def one(root: Path) -> dict:
                 cs.launch_split(bwd), seen=seen, dq=dq_, dv=dv_,
                 delta_bytes=cs.nbytes(out, d_out) + b * h * sq * 4)}
         del q, k, v, d_out, out, lse, leaves
+        torch.cuda.empty_cache()
+
+    from repro_torch.kernels.ssd_backward import ssd_chunk_scan_bwd
+    for label, b, l, chunk, h, p, g, n, with_init, with_dfin, pad in ssd_cases:
+        name = f"bf16 {label}"
+        x, dt, a, bm, cm, init, dy, dfin = cs.ssd_bwd_inputs(
+            dev, torch.bfloat16, name, b, l, chunk, h, p, g, n, with_init,
+            with_dfin, pad)
+
+        def ssd_bwd():
+            return ssd_chunk_scan_bwd(x, dt, a, bm, cm, dy, chunk_size=chunk,
+                                      initial_state=init, d_final=dfin)
+
+        row[f"ssd_chunk_scan_bwd [{name}]"] = {
+            "ms": timer.ms(ssd_bwd),
+            **{key: [[k[:60], round(v, 5)]
+                     for k, v in cs.launch_split(ssd_bwd, flush=fl).items()]
+               for key, fl in (("launches", None),
+                               ("launches_cold_l2", timer.flush))}}
+        del x, dt, a, bm, cm, init, dy, dfin
         torch.cuda.empty_cache()
 
     cfg = get_config("skymemory-tinyllama")
