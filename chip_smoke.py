@@ -225,8 +225,29 @@ Phases (each raises on failure; nothing is caught):
     the dense prefill and its backward 6, ``ce`` must fall, the median
     step printed.
 
+13. what a user runs (``[launch]``, ``[sim]``, ``[torus]`` and
+    ``[example]`` lines): ``repro_torch.launch.serve.main`` at its
+    defaults (the card, the 19x5 fabric) for full TinyLlama (bf16) and
+    full mamba2-1.3b, 3 rounds of 16 new tokens each: round 0 restores
+    nothing, every later round whole 128-token blocks, and the fabric
+    hits blocks; each round's wall time, TTFT and cached tokens print,
+    and how many later rounds' tokens equal round 0's.  Then TinyLlama
+    with ``--no-cache``: no round restores a token.  The ported
+    simulator's Fig-16 sweep and Figs 1-2 grid on the host against the
+    paper's claims (rotation+hop lowest everywhere, 80-95% less latency
+    from 9 to 81 servers at 550 km, latency growing with altitude and
+    falling with satellites a plane).  A one-rank NCCL process group over
+    a ``FileStore``: one layer's paged K pool of TinyLlama laid out by
+    ``kvc_sharding`` on a 1x1 mesh and shifted by ``migrate_shards``,
+    which must give the pool back (the ring of one position).  Last
+    ``examples/torch_serve_skymemory.py --full --requests 8 --max-new
+    16`` in this process (two full TinyLlama replicas over one
+    constellation), which must hit blocks; where the run has used so
+    much of its time that the full width would not end by 1100 s, at the
+    example's reduced default width, named on its line.
+
 The ``kernels`` line counts each kernel's launches over the main-path
-runs of phases 4 (training) and 5-12, each counted from 0 just before
+runs of phases 4 (training) and 5-13, each counted from 0 just before
 it.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
@@ -4433,6 +4454,345 @@ def phase_seamless(device, *, batch=4, s_src=500, prompt_len=32,
 
 
 # ---------------------------------------------------------------------------
+# phase 13: what a user runs -- the serving launcher, the paper's
+# simulator, the torus exchange and the scale-out example
+# ---------------------------------------------------------------------------
+
+# each model the launcher serves, and the kernels its path must launch
+LAUNCH_PATHS = {"skymemory-tinyllama": ("paged_decode",
+                                        "chunked_prefill_paged",
+                                        "flash_prefill"),
+                "mamba2-1.3b": ("ssd_chunk_scan",)}
+# an allowance for the full-width example (3.4-4.2 s on an H100 at 700 W
+# over three runs, 3.6 s in a process of its own), and the run time by
+# which it must end: where the allowance does not fit, the example runs
+# at its reduced default width, and its line says so
+EXAMPLE_FULL_S = 15.0
+EXAMPLE_BY_S = 1100.0
+
+
+def launch_run(argv: list, tag: str) -> tuple:
+    """``repro_torch.launch.serve.main(argv)`` on the card as one
+    main-path run; prints each round.  Returns what it served and the
+    launch counts."""
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    served, counts = counted(lambda: serve.main(argv))
+    dt = time.perf_counter() - t0
+    res = served.results
+    for i, r in enumerate(res):
+        log(f"[launch] {tag} round {i}: wall {r.wall_time_s:.4f} s, ttft "
+            f"{r.ttft_s:.4f} s, cached {r.cached_tokens}/{r.prompt_tokens} "
+            f"tok, {len(r.token_ids)} new")
+    same = sum(r.token_ids == res[0].token_ids for r in res[1:])
+    log(f"[launch] {tag}: {same}/{len(res) - 1} later rounds' tokens equal "
+        f"round 0's; {dt:.1f} s with the model's init; launches {counts}")
+    return served, counts
+
+
+def restore_witness(served, argv: list) -> dict:
+    """Where a warm launcher round serves other tokens than the cold one,
+    whether the restore is at fault.  A fresh engine without the fabric
+    serves the cold round again on the same model (its tokens must equal
+    round 0's) and keeps the prompt's K/V in its slot 0 pages (the only
+    slot one request at a time takes).  The block read back from the
+    fabric must be, bitwise, page 0 of the launcher's pool after its last
+    (warm) round, and must sit closer to the cold page 0, layer by layer,
+    than a wrong restore would: the cold page of the next layer, or the
+    cold positions shifted by one.  The prompt's positions past the block
+    are compared too (the warm round prefills them as a chunk of their
+    own, the cold round in one chunk with the block), and the first
+    position where the two pools differ is named.  Then, at the first
+    token the last round served otherwise, the two candidates' logits in
+    a full forward and in one resumed from the restored block: a near tie
+    there is what rounding flips."""
+    from repro_torch.core import chain_hashes
+    from repro_torch.launch import serve
+    from repro_torch.serving import Request, SamplingParams
+
+    eng, kvc, res = served.engine, served.kvc, served.results
+    model, bs = eng.model, eng.block_size
+    args = serve.parse_args(argv)
+    prompt = args.prompt * 4
+    toks = eng.tokenizer.encode(prompt)
+    n = len(toks)
+    pages = -(-(n + args.max_new) // bs)
+    diffs = _first_diff([r.token_ids for r in res[1:]],
+                        [res[0].token_ids] * (len(res) - 1))
+    # the launcher's pool holds its last round: the prompt, and the new
+    # tokens fed back before the first that differs from round 0's, hold
+    # the same tokens in both pools
+    j = diffs[-1]
+    same = n + (len(res[0].token_ids) - 1 if j is None else j)
+    payload = kvc.get_block(chain_hashes(toks, bs)[0])
+    k_r, v_r = (t.cpu().float() for t in
+                eng.adapter.payload_to_pages(payload, bs, bs))
+    k_w, v_w = (t.float() for t in eng.cache.export_pages(0, pages))
+    if not (torch.equal(k_r, k_w[:, :1]) and torch.equal(v_r, v_w[:, :1])):
+        raise AssertionError("the warm pool's page 0 is not the block the "
+                             "fabric holds")
+    cold_eng, _ = serve.build_engine(
+        model, serve.parse_args([*argv, "--no-cache"]))
+    sp = SamplingParams(temperature=args.temperature,
+                        max_new_tokens=args.max_new)
+    cold = cold_eng.generate([Request(prompt=prompt, sampling=sp)])[0]
+    if cold.token_ids != res[0].token_ids:
+        raise AssertionError("a second cold engine served other tokens "
+                             "than round 0")
+    k_c, v_c = (t.float() for t in cold_eng.cache.export_pages(0, pages))
+    del cold_eng
+
+    def per_layer(a, b):
+        return (a - b).abs().flatten(1).amax(1)
+
+    def rounded(x, digits=5):
+        return [round(float(v), digits) for v in x]
+
+    row = {"first_diff": diffs}
+    for name, got, warm, cold_pages in (("k", k_r, k_w, k_c),
+                                        ("v", v_r, v_w, v_c)):
+        want = cold_pages[:, :1]
+        d = per_layer(got, want)
+        layer = per_layer(got[:-1], want[1:])
+        shift = per_layer(got[:, :, 1:], want[:, :, :-1])
+        scale = want.abs().flatten(1).amax(1)
+        suffix = per_layer(warm.flatten(1, 2)[:, bs:n],
+                           cold_pages.flatten(1, 2)[:, bs:n])
+        row[name] = dict(
+            restored_max_abs_diff=rounded(d),
+            layer_max_abs=rounded(scale, 3),
+            rel_restored_max=float((d / scale).max()),
+            rel_next_layer_min=float((layer / scale[1:]).min()),
+            rel_shift_min=float((shift / scale).min()),
+            suffix_max_abs_diff=rounded(suffix),
+            first_differing_position=next(
+                (i for i, x in enumerate(
+                    (warm.flatten(1, 2)[:, :same]
+                     - cold_pages.flatten(1, 2)[:, :same]).abs()
+                    .amax((0, 2, 3))) if x > 0), None))
+        r = row[name]
+        if not 4 * r["rel_restored_max"] < min(r["rel_next_layer_min"],
+                                               r["rel_shift_min"]):
+            raise AssertionError(f"restored {name} is no closer to the cold "
+                                 f"page than a wrong layer or offset: {r}")
+        log(f"[launch] witness {name}: restored block vs the cold round's "
+            f"page 0, max abs diff per layer {r['restored_max_abs_diff']} "
+            f"of per-layer max |{name}| {r['layer_max_abs']}; relative: "
+            f"restored <= {r['rel_restored_max']:.5f}, next layer >= "
+            f"{r['rel_next_layer_min']:.3f}, shifted by one >= "
+            f"{r['rel_shift_min']:.3f}; positions {bs}-{n - 1}, warm pool "
+            f"vs cold, max abs diff per layer {r['suffix_max_abs_diff']}; "
+            f"the first of positions 0-{same - 1} where the pools differ: "
+            f"{r['first_differing_position']}")
+    if j is not None:
+        c, w = res[0].token_ids[j], res[-1].token_ids[j]
+        ctx = torch.as_tensor(toks + res[0].token_ids[:j], dtype=torch.int32,
+                              device=model.device)[None]
+        with torch.no_grad():
+            full = model.forward(ctx)[0][0, -1]
+            resumed = model.forward(
+                ctx[:, bs:], q_offset=bs,
+                prefix_state=eng.adapter.payload_to_state(payload))[0][0, -1]
+        for tag, lg in (("full", full.float()), ("resumed", resumed.float())):
+            top = torch.topk(lg, 2)
+            row[tag] = dict(
+                cold_token=c, warm_token=w,
+                cold_minus_warm=float(lg[c] - lg[w]),
+                top2=[int(i) for i in top.indices],
+                top2_gap=float(top.values[0] - top.values[1]),
+                logit_max_abs=float(lg.abs().max()))
+        log(f"[launch] witness at new token {j} (cold {c}, warm {w}): full "
+            f"{model.cfg.dtype} forward {json.dumps(row['full'])}; resumed "
+            f"from the restored block {json.dumps(row['resumed'])}")
+    return row
+
+
+def phase_launch() -> dict:
+    """``python -m repro_torch.launch.serve`` as a user runs it on the card
+    (default device, full width, bf16, 19x5 fabric): full TinyLlama and
+    full mamba2-1.3b 3 rounds each, then TinyLlama with ``--no-cache``.
+    Round 0 is cold, every later round restores whole 128-token blocks
+    from the fabric; without the cache no round restores anything."""
+    total = {k: 0 for k in KERNELS}
+    for arch, path in LAUNCH_PATHS.items():
+        argv = ["--arch", arch, "--repeat", "3", "--max-new", "16"]
+        served, counts = launch_run(argv, arch)
+        cached = [r.cached_tokens for r in served.results]
+        if cached[0] != 0 or any(c <= 0 or c % 128 for c in cached[1:]):
+            raise AssertionError(f"{arch}: cached tokens per round {cached}")
+        st = served.kvc.stats
+        log(f"[launch] {arch}: fabric hits {st.block_hits}, sets "
+            f"{st.blocks_set}, messages {served.kvc.transport.stats.messages}")
+        if st.block_hits <= 0:
+            raise AssertionError(f"{arch}: no block hit")
+        _require_launched(counts, path)
+        if served.engine.paged:
+            restore_witness(served, argv)
+        add_counts(total, counts)
+        del served
+        gc.collect()
+        torch.cuda.empty_cache()
+    served, counts = launch_run(
+        ["--repeat", "3", "--max-new", "16", "--no-cache"],
+        "skymemory-tinyllama --no-cache")
+    if served.kvc is not None or any(r.cached_tokens
+                                     for r in served.results):
+        raise AssertionError("--no-cache restored tokens")
+    _require_launched(counts, ("paged_decode", "chunked_prefill_paged"))
+    add_counts(total, counts)
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_sim() -> None:
+    """The ported simulator on the host against the paper's claims, as
+    ``tests/test_simulator.py`` holds the reference's: rotation+hop lowest
+    at every altitude and server count of the Fig-16 sweep, ~90% less
+    latency from 9 to 81 servers, latency growing with altitude; Figs 1-2's
+    one-hop latency falling with M and growing with h, and ~50+
+    satellites a plane reaching the SSD-HDD band."""
+    from repro_torch.core.simulator import (
+        MEMORY_HIERARCHY_S,
+        intra_plane_latency_s,
+        isl_latency_grid,
+        memory_tier_for_latency,
+        required_sats_per_plane_for,
+        sweep,
+    )
+
+    t0 = time.perf_counter()
+    rows = sweep()
+    grid = isl_latency_grid()
+    dt = time.perf_counter() - t0
+    by = {}
+    for r in rows:
+        by.setdefault((r.num_servers, r.altitude_km), {})[r.strategy] = (
+            r.worst_latency_s)
+    losses = [k for k, v in by.items()
+              if v["rotation_hop"] > min(v["rotation"], v["hop"])]
+    if len(rows) != 48 or losses:
+        raise AssertionError(f"rotation+hop not lowest at {losses}")
+    alts = sorted({h for _, h in by})
+    cut = {h: 1.0 - by[(81, h)]["rotation_hop"] / by[(9, h)]["rotation_hop"]
+           for h in alts}
+    if not 0.80 <= cut[550.0] <= 0.95:
+        raise AssertionError(f"9 -> 81 servers cut {cut[550.0]:.3f}")
+    rh81 = [by[(81, h)]["rotation_hop"] for h in alts]
+    if rh81 != sorted(rh81) or len(set(rh81)) != len(rh81):
+        raise AssertionError(f"latency does not grow with altitude: {rh81}")
+    lat = {(m, h): v for m, h, v in grid}
+    ms, hs = sorted({m for m, _ in lat}), sorted({h for _, h in lat})
+    if not all(lat[(a, h)] > lat[(b, h)] for h in hs
+               for a, b in zip(ms, ms[1:])) or not all(
+            lat[(m, a)] < lat[(m, b)] for m in ms for a, b in zip(hs, hs[1:])):
+        raise AssertionError("Figs 1-2: latency not monotone in M and h")
+    m = required_sats_per_plane_for(2e-3, altitude_km=550.0)
+    if not (40 <= m <= 110
+            and intra_plane_latency_s(m, 550.0) <= MEMORY_HIERARCHY_S["HDD"][0]):
+        raise AssertionError(f"{m} sats a plane for 2 ms")
+    log(f"[sim] Fig 16: rotation+hop lowest at all {len(by)} (servers, "
+        f"altitude) points; 9 -> 81 servers cut its latency "
+        + ", ".join(f"{c * 100:.1f}% at {h:.0f} km" for h, c in cut.items())
+        + "; at 81 servers "
+        + ", ".join(f"{v * 1e3:.1f} ms" for v in rh81) + " over "
+        + ", ".join(f"{h:.0f}" for h in alts) + " km")
+    log(f"[sim] Figs 1-2: one intra-plane hop {lat[(10, 550)] * 1e3:.2f} ms "
+        f"at M 10, {lat[(100, 550)] * 1e3:.3f} ms at M 100 (550 km, "
+        f"{memory_tier_for_latency(lat[(100, 550)])}); {m} satellites a "
+        f"plane reach 2 ms; {len(rows)} sweep points and {len(grid)} grid "
+        f"points in {dt:.3f} s on the host")
+
+
+def phase_torus(device) -> None:
+    """The torus exchange on the card: a one-rank NCCL process group over
+    a ``FileStore``, a 1x1 (data, model) mesh, one layer's paged K pool of
+    full TinyLlama (64 blocks of 128 tokens, 4 KV heads of 64, bf16) laid
+    out by ``kvc_sharding`` and shifted by ``migrate_shards``: the ring of
+    one position is the identity."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.core.tpu_cache import (
+        device_grid_for_mesh,
+        kvc_sharding,
+        migrate_shards,
+    )
+
+    store = ROOT / "build" / "torus_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1, device_id=device,
+                            timeout=timedelta(seconds=120))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        placements = kvc_sharding(mesh)
+        pool = torch.randn(64, 128, 4, 64, device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(0)).to(torch.bfloat16)
+        x = distribute_tensor(pool, mesh, placements)
+        for shift in (1, -1):
+            sync(device)
+            t1 = time.perf_counter()
+            y = migrate_shards(x, mesh, axis="data", shift=shift)
+            sync(device)
+            ms = (time.perf_counter() - t1) * 1e3
+            if (not torch.equal(y.full_tensor(), pool)
+                    or y.to_local().data_ptr() == x.to_local().data_ptr()):
+                raise AssertionError(f"shift {shift}: not the identity")
+            log(f"[torus] migrate_shards shift {shift}: the identity, "
+                f"{ms:.3f} ms on the host clock")
+        log(f"[torus] backend {dist.get_backend()} (NCCL "
+            f"{'.'.join(map(str, torch.cuda.nccl.version()))}), world size "
+            f"{dist.get_world_size()}, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
+            f"{device_grid_for_mesh(mesh)}, placements {placements}, local "
+            f"shard {tuple(x.to_local().shape)} of {tuple(pool.shape)}")
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    log(f"[torus] {time.perf_counter() - t0:.1f} s with the group's set-up")
+
+
+def phase_example(t_all: float) -> dict:
+    """``examples/torch_serve_skymemory.py --full --requests 8 --max-new
+    16`` in this process: two full TinyLlama replicas over one clocked
+    19x5 constellation.  Returns its launch counts."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_skymemory", ROOT / "examples" / "torch_serve_skymemory.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    argv = ["--requests", "8", "--max-new", "16"]
+    left = EXAMPLE_BY_S - (time.perf_counter() - t_all)
+    width = "full width (--full)"
+    if left >= EXAMPLE_FULL_S:
+        argv.insert(0, "--full")
+    else:
+        width = (f"CUT to its reduced default width: {left:.0f} s left "
+                 f"before {EXAMPLE_BY_S:.0f} s, the full run's allowance "
+                 f"{EXAMPLE_FULL_S:.0f} s")
+    t0 = time.perf_counter()
+    fabric, counts = counted(lambda: example.main(argv))
+    log(f"[example] torch_serve_skymemory.py {' '.join(argv)}: {width}; "
+        f"block hits {fabric['block_hits']}, sets {fabric['blocks_set']}, "
+        f"prefix hit rate {fabric['prefix_hit_rate']:.3f}; "
+        f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+    if fabric["block_hits"] <= 0:
+        raise AssertionError("the example hit no block")
+    _require_launched(counts, LAUNCH_PATHS["skymemory-tinyllama"])
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4547,10 +4907,27 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         log(f"[phase] train {arch} {time.perf_counter() - t0:.1f} s")
+    t_user = t0 = time.perf_counter()
+    launch_counts = phase_launch()
+    log(f"[phase] launch {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_sim()
+    log(f"[phase] sim {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_torus(device)
+    log(f"[phase] torus {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    example_counts = phase_example(t_all)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[phase] example {time.perf_counter() - t0:.1f} s")
+    log(f"[phase] launch, sim, torus and example "
+        f"{time.perf_counter() - t_user:.1f} s")
     # launches over every phase's main-path runs, each counted from 0
     for phase in (*fabric_counts.values(), cluster_counts, family_counts,
                   hybrid_counts, mla_counts, seamless_counts,
-                  *train_model_counts, *train_counts):
+                  *train_model_counts, *train_counts, launch_counts,
+                  example_counts):
         for k in KERNELS:
             counts[k] += phase[k]
 

@@ -3,8 +3,10 @@ constellation geometry, server placement, rotation migration, the
 striped directory, per-satellite stores, the radix index, the Set/Get
 KVC protocol with its ``KVCManager``, the KVC payload format and its
 codecs, the eviction policies, and the fault model (``FaultPlan``,
-``FaultInjector``).  Numpy and plain Python.  The simulator and the TPU
-torus cache are not ported here."""
+``FaultInjector``), the paper's latency simulator (Figs 1, 2, 16 and
+Table 1), and the placement math on a device torus with its shard
+migration (``tpu_cache``).  Numpy and plain Python; ``tpu_cache``'s two
+``torch.distributed`` functions import torch when called."""
 from repro_torch.core.chunking import (
     PayloadCodec,
     arrays_to_bytes,
@@ -55,4 +57,14 @@ from repro_torch.core.protocol import (
     TransportStats,
 )
 from repro_torch.core.radix import BlockMeta, RadixBlockIndex
+from repro_torch.core.simulator import (
+    MEMORY_HIERARCHY_S,
+    SimConfig,
+    SimResult,
+    intra_plane_latency_s,
+    isl_latency_grid,
+    sweep,
+    worst_case_latency,
+)
 from repro_torch.core.store import SatelliteStore
+from repro_torch.core.tpu_cache import LinkModel, TorusGrid, gather_cost_s, migrate_shards

@@ -316,6 +316,7 @@ class EngineCluster:
         *,
         parallel: bool = True,
         slos: dict[str, SLO] | None = None,
+        default_slo: SLO | None = None,
         admission: AdmissionController | None = None,
         release_mode: str = "per_request",
         pump_steps_per_s: float = 200.0,
@@ -371,7 +372,8 @@ class EngineCluster:
             span = injector.plan.churn_span
             if span is not None:
                 phases = FaultPhases(*span)
-        tracker = SLOTracker(slos, window_s=slo_window_s, phases=phases)
+        tracker = SLOTracker(slos, default=default_slo,
+                             window_s=slo_window_s, phases=phases)
         records: list[StreamRecord] = []
         deferred: list[RouteDecision] = []
         self.decisions = []

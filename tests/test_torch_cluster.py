@@ -346,6 +346,10 @@ STREAMS = {
     "rotation": dict(n=6, rate=50.0, cluster={"rotate_every_s": 0.05}),
     "admission": dict(n=16, rate=50.0, cluster={"payload_codec": "int8"},
                       admission=30, pump_steps_per_s=50.0),
+    # every tenant without an SLO of its own (here all) is judged by
+    # ``default_slo``, one that no request meets
+    "default_slo": dict(n=6, rate=50.0, cluster={},
+                        default_slo=dict(ttft_s=0.0, itl_p95_s=0.0)),
     "chaos": dict(n=8, rate=4.0, replication=2,
                   cluster={"rotate_every_s": 0.4, "payload_codec": "int8"},
                   arc=dict(seed=5, n_sat_kills=2, n_link_cuts=1)),
@@ -370,6 +374,8 @@ def test_serve_stream_deterministic_matches_reference(tiny, case):
         if "admission" in c:
             kw["admission"] = mod.AdmissionController(
                 capacity_tokens=c["admission"], protect_priority=1)
+        if "default_slo" in c:
+            kw["default_slo"] = mod.SLO(**c["default_slo"])
         if "arc" in c:
             core = J if mod is JS else T
             span = arrs[-1].t_s
@@ -396,6 +402,8 @@ def test_serve_stream_deterministic_matches_reference(tiny, case):
         shed = got.shed()
         assert shed and all(r.arrival.request.priority == 0 for r in shed)
         assert got.slo["per_tenant"]["pro"]["shed"] == 0
+    if case == "default_slo":
+        assert got.slo["attained"] == 0 < got.slo["completed"]
     if case == "chaos":
         assert got.faults["sat_kills"] >= 2 and got.faults["sat_heals"] >= 2
         assert {w["phase"] for w in got.slo["windows"]} == {

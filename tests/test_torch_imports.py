@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports JAX or anything of ``repro``, and the default
+"""The port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and no ``examples/torch_*.py`` imports JAX or anything
+of ``repro``, and the default
 device of the entry points (``"cuda"``) raises where there is no card
 instead of running on the CPU."""
 import ast
@@ -32,7 +33,8 @@ def _forbidden(name: str) -> bool:
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("torch_*.py")),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import_statements(path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -54,10 +56,14 @@ def test_no_forbidden_import_statements(path):
 
 def test_importing_every_module_loads_no_jax_or_repro():
     mods = _modules()
+    examples = sorted(str(f) for f in (ROOT / "examples").glob("torch_*.py"))
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for i, path in enumerate({examples!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(len(sys.modules))\n"
@@ -70,6 +76,9 @@ def test_importing_every_module_loads_no_jax_or_repro():
     assert "repro_torch.serving.engine" in mods
     assert "repro_torch.kernels._build" in mods
     assert "repro_torch.core.protocol" in mods
+    assert [Path(e).name for e in examples] == [
+        "torch_constellation_sim.py", "torch_quickstart.py",
+        "torch_serve_skymemory.py", "torch_train_small.py"]
     for m in ("core.faults", "serving.cluster", "serving.router",
               "serving.slo", "serving.traffic", "serving.worker",
               "models.moe", "models.mla", "configs.deepseek_v3_671b",
@@ -79,7 +88,8 @@ def test_importing_every_module_loads_no_jax_or_repro():
               "configs.yi_9b", "kernels.flash_backward",
               "kernels.ssd_backward", "training",
               "training.optimizer", "training.data", "training.checkpoint",
-              "training.loop", "launch.train"):
+              "training.loop", "launch.train", "launch.serve",
+              "core.simulator", "core.tpu_cache"):
         assert f"repro_torch.{m}" in mods
 
 
@@ -90,7 +100,9 @@ def test_importing_every_module_loads_no_jax_or_repro():
       "spread_anchors")),
     ("repro_torch.core",
      ("FaultPlan", "FaultInjector", "plan_survivable_kills", "PayloadCodec",
-      "encode_arrays", "make_delta_payload")),
+      "encode_arrays", "make_delta_payload", "sweep", "SimConfig",
+      "MEMORY_HIERARCHY_S", "TorusGrid", "LinkModel", "gather_cost_s",
+      "migrate_shards")),
 ])
 def test_package_exports_load_no_jax_or_repro(package, names):
     """The scale-out names come through the packages' own ``__init__``
@@ -117,7 +129,8 @@ def test_fabric_imports_no_torch():
     code = (
         "import sys\n"
         "import repro_torch.core, repro_torch.core.eviction\n"
-        "import repro_torch.core.faults\n"
+        "import repro_torch.core.faults, repro_torch.core.simulator\n"
+        "import repro_torch.core.tpu_cache\n"
         "bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {FORBIDDEN + ('torch',)!r})\n"
         "assert not bad, bad\n"
