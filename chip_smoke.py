@@ -217,7 +217,9 @@ Phases (each raises on failure; nothing is caught):
     apart): the dense prefill and its backward must launch 22 times per
     step (TinyLlama), the SSD scan and its backward 48 (mamba2), nothing
     else, and ``ce`` must fall; step 0's gradients bitwise equal over two
-    runs; a checkpoint round trip bitwise, with equal logits; the median
+    runs; a checkpoint round trip bitwise, with equal logits (TinyLlama's
+    with its AdamW moments, mamba2-1.3b's of the parameters alone,
+    ``CHECKPOINT_RUNS``); the median
     step, tokens/s, model FLOPs and their share of 989 TFLOP/s, K4's and
     K5's forward and backward shares of a traced step, and the peak
     memory with and without ``remat="full"``.  Then full zamba2-1.2b
@@ -245,9 +247,27 @@ Phases (each raises on failure; nothing is caught):
     constellation), which must hit blocks; where the run has used so
     much of its time that the full width would not end by 1100 s, at the
     example's reduced default width, named on its line.
+14. sharded training (``[mesh]`` lines): a ``(1, 1)`` ``("data",
+    "model")`` ``DeviceMesh`` over the one-rank NCCL group phase 13
+    started (kept open, so NCCL's set-up is paid once).  Full TinyLlama
+    and full mamba2-1.3b (bf16 parameters, f32 moments, seeded weights,
+    phase 12's ``SyntheticLM`` B4 x S2048 batches) each take
+    ``MESH_STEPS`` AdamW steps through ``train()`` without rules, then
+    from the same weights through ``train(..., rules=make_rules(...))``
+    with ``zero1``: parameters, moments and batch are ``DTensor``s and
+    the kernels run inside the layers' ``local_map``.  Every step's
+    loss prints both ways; losses and every parameter after the last
+    step must be bitwise equal or, where not, within the bf16 limit
+    (``MESH_PARAM_TOL``) with the first place they part named (forward,
+    gradients or update); the sharded run must launch the
+    dense prefill and its backward 22 times a step (TinyLlama), the SSD
+    scan and its backward 48 (mamba2), nothing else; the step ms of both
+    print.  Then ``repro_torch.launch.train.main`` with ``--mesh --arch
+    skymemory-tinyllama --tiny --steps 5`` and without ``--mesh``: the
+    loss lines must be equal.
 
 The ``kernels`` line counts each kernel's launches over the main-path
-runs of phases 4 (training) and 5-13, each counted from 0 just before
+runs of phases 4 (training) and 5-14, each counted from 0 just before
 it.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
@@ -2290,6 +2310,11 @@ def train_flops(cfg, batch: int, seq: int) -> float:
 TRAIN_RUNS = (("skymemory-tinyllama", 30, True),
               ("mamba2-1.3b", 30, True),
               ("zamba2-1.2b", 10, False))
+# The checkpoint round trip's models, each with whether its AdamW moments
+# go too.  mamba2-1.3b's moments (~11.6 GB of the ~14.5 GB of npz, 70 s of
+# I/O on a slow host) stay out: its parameters hold the SSM family's names
+# through save and load, and TinyLlama's moments the moments' code.
+CHECKPOINT_RUNS = {"skymemory-tinyllama": True, "mamba2-1.3b": False}
 
 
 def _trace_shares(prof, traced_ms: float) -> dict:
@@ -2450,16 +2475,17 @@ def phase_train(device, arch: str, *, steps=30, batch=4, seq=2048,
                          - base) / 1e9
     log(f"[train] {name}: peak memory of a forward and backward above the "
         f"weights and moments: {json.dumps(peaks)} GB (remat None, full)")
-
     # checkpoint round trip
+    moments = CHECKPOINT_RUNS[arch]
     ckpt = ROOT / "build" / "train_checkpoint"
     t0 = time.perf_counter()
     done = int(state["step"])          # the run's steps and the traced one
-    save_checkpoint(str(ckpt), model, state, step=done,
+    save_checkpoint(str(ckpt), model, state if moments else None, step=done,
                     metadata={"arch": name})
     save_s = time.perf_counter() - t0
     other = _build_model(cfg, device, 1, tag="train")
-    other_state = init_opt_state(dict(other.named_parameters()))
+    other_state = (init_opt_state(dict(other.named_parameters()))
+                   if moments else None)
     t0 = time.perf_counter()
     _, other_state, meta = load_checkpoint(str(ckpt), other, other_state)
     load_s = time.perf_counter() - t0
@@ -2468,11 +2494,16 @@ def phase_train(device, arch: str, *, steps=30, batch=4, seq=2048,
                               other.named_parameters()):
         if not torch.equal(p, q):
             raise AssertionError(f"{name}: checkpoint changed {n}")
-    for part in ("m", "v"):
-        for n in state[part]:
-            if not torch.equal(state[part][n], other_state[part][n]):
-                raise AssertionError(f"{name}: checkpoint changed {part} {n}")
-    if int(other_state["step"]) != done or meta["step"] != done:
+    if moments:
+        for part in ("m", "v"):
+            for n in state[part]:
+                if not torch.equal(state[part][n], other_state[part][n]):
+                    raise AssertionError(f"{name}: checkpoint changed "
+                                         f"{part} {n}")
+        if int(other_state["step"]) != done:
+            raise AssertionError(f"{name}: checkpoint step "
+                                 f"{int(other_state['step'])}")
+    if meta["step"] != done:
         raise AssertionError(f"{name}: checkpoint step {meta}")
     probe = torch.from_numpy(batches[0]["tokens"][:1, :256]).to(device)
     with torch.no_grad():
@@ -2481,8 +2512,9 @@ def phase_train(device, arch: str, *, steps=30, batch=4, seq=2048,
     if not torch.equal(a, b_):
         raise AssertionError(f"{name}: the reloaded model's logits differ, "
                              f"max {(a - b_).abs().max().item():.3e}")
-    log(f"[train] {name}: checkpoint round trip bitwise (parameters, "
-        f"moments, step {meta['step']}), reloaded logits equal; save "
+    what = "parameters, moments" if moments else "parameters"
+    log(f"[train] {name}: checkpoint round trip bitwise ({what}, "
+        f"step {meta['step']}), reloaded logits equal; save "
         f"{save_s:.1f} s, load {load_s:.1f} s")
     del model, other, state, other_state, params
     return counts
@@ -4706,14 +4738,38 @@ def phase_sim() -> None:
         f"points in {dt:.3f} s on the host")
 
 
+def start_world(device) -> Path:
+    """A one-rank NCCL process group over a ``FileStore``, for phases 13
+    and 14 (its set-up paid once); returns the store's path."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    store = ROOT / "build" / "torus_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1, device_id=device,
+                            timeout=timedelta(seconds=120))
+    log(f"[torus] NCCL group of one rank: {time.perf_counter() - t0:.1f} s "
+        f"to start")
+    return store
+
+
+def close_world(store: Path) -> None:
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    store.unlink(missing_ok=True)
+
+
 def phase_torus(device) -> None:
-    """The torus exchange on the card: a one-rank NCCL process group over
-    a ``FileStore``, a 1x1 (data, model) mesh, one layer's paged K pool of
+    """The torus exchange on the card, in the one-rank NCCL group of
+    ``start_world``: a 1x1 (data, model) mesh, one layer's paged K pool of
     full TinyLlama (64 blocks of 128 tokens, 4 KV heads of 64, bf16) laid
     out by ``kvc_sharding`` and shifted by ``migrate_shards``: the ring of
     one position is the identity."""
-    from datetime import timedelta
-
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import distribute_tensor
@@ -4724,41 +4780,31 @@ def phase_torus(device) -> None:
         migrate_shards,
     )
 
-    store = ROOT / "build" / "torus_store"
-    store.parent.mkdir(parents=True, exist_ok=True)
-    store.unlink(missing_ok=True)
     t0 = time.perf_counter()
-    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
-                            rank=0, world_size=1, device_id=device,
-                            timeout=timedelta(seconds=120))
-    try:
-        mesh = init_device_mesh("cuda", (1, 1),
-                                mesh_dim_names=("data", "model"))
-        placements = kvc_sharding(mesh)
-        pool = torch.randn(64, 128, 4, 64, device=device,
-                           generator=torch.Generator(device=device)
-                           .manual_seed(0)).to(torch.bfloat16)
-        x = distribute_tensor(pool, mesh, placements)
-        for shift in (1, -1):
-            sync(device)
-            t1 = time.perf_counter()
-            y = migrate_shards(x, mesh, axis="data", shift=shift)
-            sync(device)
-            ms = (time.perf_counter() - t1) * 1e3
-            if (not torch.equal(y.full_tensor(), pool)
-                    or y.to_local().data_ptr() == x.to_local().data_ptr()):
-                raise AssertionError(f"shift {shift}: not the identity")
-            log(f"[torus] migrate_shards shift {shift}: the identity, "
-                f"{ms:.3f} ms on the host clock")
-        log(f"[torus] backend {dist.get_backend()} (NCCL "
-            f"{'.'.join(map(str, torch.cuda.nccl.version()))}), world size "
-            f"{dist.get_world_size()}, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
-            f"{device_grid_for_mesh(mesh)}, placements {placements}, local "
-            f"shard {tuple(x.to_local().shape)} of {tuple(pool.shape)}")
-    finally:
-        dist.destroy_process_group()
-        store.unlink(missing_ok=True)
-    log(f"[torus] {time.perf_counter() - t0:.1f} s with the group's set-up")
+    mesh = init_device_mesh("cuda", (1, 1),
+                            mesh_dim_names=("data", "model"))
+    placements = kvc_sharding(mesh)
+    pool = torch.randn(64, 128, 4, 64, device=device,
+                       generator=torch.Generator(device=device)
+                       .manual_seed(0)).to(torch.bfloat16)
+    x = distribute_tensor(pool, mesh, placements)
+    for shift in (1, -1):
+        sync(device)
+        t1 = time.perf_counter()
+        y = migrate_shards(x, mesh, axis="data", shift=shift)
+        sync(device)
+        ms = (time.perf_counter() - t1) * 1e3
+        if (not torch.equal(y.full_tensor(), pool)
+                or y.to_local().data_ptr() == x.to_local().data_ptr()):
+            raise AssertionError(f"shift {shift}: not the identity")
+        log(f"[torus] migrate_shards shift {shift}: the identity, "
+            f"{ms:.3f} ms on the host clock")
+    log(f"[torus] backend {dist.get_backend()} (NCCL "
+        f"{'.'.join(map(str, torch.cuda.nccl.version()))}), world size "
+        f"{dist.get_world_size()}, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
+        f"{device_grid_for_mesh(mesh)}, placements {placements}, local "
+        f"shard {tuple(x.to_local().shape)} of {tuple(pool.shape)}")
+    log(f"[torus] {time.perf_counter() - t0:.1f} s")
 
 
 def phase_example(t_all: float) -> dict:
@@ -4790,6 +4836,182 @@ def phase_example(t_all: float) -> dict:
         raise AssertionError("the example hit no block")
     _require_launched(counts, LAUNCH_PATHS["skymemory-tinyllama"])
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 14: sharded training on a (1, 1) mesh, and the launcher's --mesh
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 3
+MESH_RUNS = ("skymemory-tinyllama", "mamba2-1.3b")
+# two bf16 steps of a weight, and twice the learning rates' sum: AdamW's
+# first updates of a near-zero gradient part two correct runs by up to
+# the learning rate a step
+MESH_PARAM_TOL = dict(rtol=2 ** -7)
+
+
+def _mesh_run(cfg, device, batches, rules, tcfg) -> tuple:
+    """``MESH_STEPS`` steps of full ``cfg`` from seed 0's weights through
+    ``train()`` (with ``rules``: sharded); returns the history, the final
+    whole parameters (on the card, compared there) and the launch
+    counts."""
+    from repro_torch.training import train
+
+    model = _build_model(cfg, device, 0, tag="mesh")
+    sync(device)
+    (model, state, hist), counts = counted(
+        lambda: train(model, Replay(batches), tcfg, num_steps=MESH_STEPS,
+                      rules=rules))
+    sync(device)
+    from repro_torch.distributed.sharding import whole
+
+    params = {n: whole(p).detach() for n, p in model.named_parameters()}
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return hist, params, counts
+
+
+def _first_difference(cfg, device, batch, rules) -> str:
+    """Where a sharded step first leaves the unsharded one: the loss of
+    one forward, else the gradients (the layers named), else the AdamW
+    update."""
+    from repro_torch.distributed.sharding import use_rules, whole
+    from repro_torch.training import TrainConfig
+    from repro_torch.training.loop import make_train_step, shard_batch
+
+    got = {}
+    for tag, r in (("plain", None), ("mesh", rules)):
+        model = _build_model(cfg, device, 0, tag="mesh")
+        make_train_step(model, TrainConfig(), r)   # distributes, grads on
+        with use_rules(r):
+            loss, _ = model.train_loss(shard_batch(batch, r))
+            loss.backward()
+        got[tag] = (whole(loss).detach().cpu(),
+                    {n: whole(p.grad).detach().cpu()
+                     for n, p in model.named_parameters()})
+        del model
+        torch.cuda.empty_cache()
+    if not torch.equal(got["plain"][0], got["mesh"][0]):
+        return "the forward (step 0's loss)"
+    bad = [n for n in got["plain"][1]
+           if not torch.equal(got["plain"][1][n], got["mesh"][1][n])]
+    if bad:
+        return f"the backward: gradients of {bad[:6]} ({len(bad)} tensors)"
+    return "the AdamW update (equal step-0 gradients)"
+
+
+def phase_mesh(device) -> dict:
+    """Phase 14 (see the module's docstring).  Returns the sharded runs'
+    and the launcher's launch counts."""
+    import contextlib
+    import io
+    import re
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_rules
+    from repro_torch.training import (
+        AdamWConfig,
+        DataConfig,
+        SyntheticLM,
+        TrainConfig,
+    )
+    from repro_torch.training.optimizer import lr_at
+
+    mesh = init_device_mesh(device.type, (1, 1),
+                            mesh_dim_names=("data", "model"))
+    total = dict.fromkeys(KERNELS, 0)
+    opt = AdamWConfig(**TRAIN_OPT)
+    lr_sum = sum(float(lr_at(opt, s)) for s in range(1, MESH_STEPS + 1))
+    for arch in MESH_RUNS:
+        t_model = time.perf_counter()
+        cfg = get_config(arch)
+        rules = make_rules(mesh, cfg, InputShape("train", 2048, 4, "train"))
+        it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=2048,
+                                    batch_size=4, seed=0)).batches()
+        batches = [next(it) for _ in range(MESH_STEPS)]
+        runs = {}
+        for tag, r, zero1 in (("unsharded", None, False),
+                              ("sharded", rules, True)):
+            tcfg = TrainConfig(opt=opt, log_every=1, zero1=zero1)
+            runs[tag] = _mesh_run(cfg, device, batches, r, tcfg)
+        (h0, p0, _), (h1, p1, counts) = runs["unsharded"], runs["sharded"]
+        want = train_launches(cfg, MESH_STEPS)
+        if counts != want:
+            raise AssertionError(f"{cfg.name}: the sharded run launched "
+                                 f"{counts}, want {want}")
+        add_counts(total, counts)
+        loss0 = [h["loss"] for h in h0]
+        loss1 = [h["loss"] for h in h1]
+        differ = [n for n in p0 if not torch.equal(p0[n], p1[n])]
+        bitwise = loss0 == loss1 and not differ
+        worst, where = 0.0, None
+        for n in differ:
+            d = (p1[n].float() - p0[n].float()).abs()
+            lim = MESH_PARAM_TOL["rtol"] * p0[n].float().abs() + 2 * lr_sum
+            x = (d / lim).max().item()
+            if x > worst:
+                worst, where = x, n
+
+        def step_ms(hist):
+            ends = [h["elapsed_s"] for h in hist]
+            return [(b - a) * 1e3 for a, b in zip([0.0] + ends, ends)]
+
+        ms0, ms1 = step_ms(h0), step_ms(h1)
+        row = dict(model=cfg.name, mesh=[1, 1], zero1=True,
+                   steps=MESH_STEPS, batch=4, seq=2048,
+                   loss_unsharded=loss0, loss_sharded=loss1,
+                   bitwise_equal=bitwise,
+                   max_param_diff_over_bf16_limit=worst,
+                   step_ms_unsharded=ms0, step_ms_sharded=ms1,
+                   step_ms_unsharded_1_on=statistics.mean(ms0[1:]),
+                   step_ms_sharded_1_on=statistics.mean(ms1[1:]),
+                   launches=counts)
+        log(f"[mesh] run {json.dumps(row)}")
+        if not bitwise:
+            op = _first_difference(cfg, device,
+                                   {k: torch.from_numpy(np.asarray(v)).to(
+                                       device) for k, v in batches[0].items()},
+                                   rules)
+            log(f"[mesh] {cfg.name}: the sharded run is not bitwise the "
+                f"unsharded one: largest parameter difference "
+                f"{worst:.3f} x the bf16 limit (at {where}); it first "
+                f"differs in {op}")
+            if worst > 1.0 or not np.allclose(loss0, loss1, rtol=2 ** -7):
+                raise AssertionError(f"{cfg.name}: sharded and unsharded "
+                                     f"runs part beyond the bf16 limit")
+        else:
+            log(f"[mesh] {cfg.name}: {MESH_STEPS} sharded steps bitwise "
+                f"the unsharded ones (losses and every parameter); "
+                f"launches {counts}; {time.perf_counter() - t_model:.1f} s "
+                f"with the builds and batches")
+        del runs, p0, p1
+        torch.cuda.empty_cache()
+
+    t_launch = time.perf_counter()
+    argv = ["--arch", "skymemory-tinyllama", "--tiny", "--steps", "5",
+            "--device", device.type]
+    lines = {}
+    for extra in ([], ["--mesh"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, counts = counted(lambda: launch_train.main(argv + extra))
+        add_counts(total, counts)
+        lines[bool(extra)] = [re.sub(r" \(\d+s\)$", "", ln)
+                              for ln in buf.getvalue().splitlines()
+                              if ln.startswith("step ")]
+    if not lines[False] or lines[True] != lines[False]:
+        raise AssertionError(f"launch.train --mesh printed {lines[True]}, "
+                             f"without it {lines[False]}")
+    log(f"[mesh] launch.train {' '.join(argv)} --mesh: its {len(lines[True])} "
+        f"loss lines equal those without --mesh (world size "
+        f"{dist.get_world_size()}, group kept): {lines[True][-1]}; both "
+        f"runs {time.perf_counter() - t_launch:.1f} s")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -4914,20 +5136,29 @@ def main() -> int:
     phase_sim()
     log(f"[phase] sim {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_torus(device)
-    log(f"[phase] torus {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    example_counts = phase_example(t_all)
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"[phase] example {time.perf_counter() - t0:.1f} s")
-    log(f"[phase] launch, sim, torus and example "
-        f"{time.perf_counter() - t_user:.1f} s")
+    store = start_world(device)
+    try:
+        phase_torus(device)
+        log(f"[phase] torus {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        example_counts = phase_example(t_all)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[phase] example {time.perf_counter() - t0:.1f} s")
+        log(f"[phase] launch, sim, torus and example "
+            f"{time.perf_counter() - t_user:.1f} s")
+        t0 = time.perf_counter()
+        mesh_counts = phase_mesh(device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[phase] mesh {time.perf_counter() - t0:.1f} s")
+    finally:
+        close_world(store)
     # launches over every phase's main-path runs, each counted from 0
     for phase in (*fabric_counts.values(), cluster_counts, family_counts,
                   hybrid_counts, mla_counts, seamless_counts,
                   *train_model_counts, *train_counts, launch_counts,
-                  example_counts):
+                  example_counts, mesh_counts):
         for k in KERNELS:
             counts[k] += phase[k]
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
 
 ARCH_IDS = [
     "llava-next-34b",        # VLM: patch embeddings before the tokens
@@ -75,4 +75,5 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, **kw)
 
 
-__all__ = ["ARCH_IDS", "get_config", "list_configs", "smoke_config"]
+__all__ = ["ARCH_IDS", "INPUT_SHAPES", "InputShape", "ModelConfig",
+           "get_config", "list_configs", "smoke_config"]

@@ -124,17 +124,31 @@ def named_to_numpy(model: Model, tensors: dict[str, torch.Tensor]) -> dict:
 
 
 @torch.no_grad()
+def copy_whole_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy the whole tensor ``src`` (the same on every rank) into
+    ``dst``; a ``DTensor`` ``dst`` keeps its own shard of it."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if not isinstance(dst, DTensor):
+        dst.copy_(src)
+        return
+    part = distribute_tensor(src.to(dst.to_local().device), dst.device_mesh,
+                             list(dst.placements), src_data_rank=None)
+    dst.to_local().copy_(part.to_local())
+
+
+@torch.no_grad()
 def fill_from_numpy(model: Model, tree: dict) -> Model:
-    """Copy the weights of ``tree`` into ``model`` in place; raises on a
-    subtree the model has no place for and on a shape that differs from
-    the model's."""
+    """Copy the weights of ``tree`` into ``model`` in place (a sharded
+    parameter keeps its own shard); raises on a subtree the model has no
+    place for and on a shape that differs from the model's."""
     arrays = named_from_numpy(model, tree)
     for name, param in model.named_parameters():
         t = _tensor(arrays[name], param.dtype)
         if tuple(t.shape) != tuple(param.shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != "
                              f"{tuple(param.shape)}")
-        param.copy_(t)
+        copy_whole_into(param, t)
     return model
 
 

@@ -3,7 +3,8 @@
 Every entry point takes an explicit ``device`` that defaults to
 ``"cuda"``.  Asking for CUDA where there is none raises: the port never
 drops to the CPU on its own.  Callers that want the CPU (the tests) pass
-``device="cpu"``.
+``device="cpu"``.  ``"meta"`` builds a model of shapes alone, with no
+storage: the sharding specs of a full-size model are read from one.
 """
 from __future__ import annotations
 
@@ -19,6 +20,6 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
                 "plain PyTorch path on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

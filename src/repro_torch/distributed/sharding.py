@@ -1,0 +1,335 @@
+"""Sharding rules: logical activation and parameter axes -> mesh axes, the
+port's ``repro/distributed/sharding.py`` over ``torch.distributed``.
+
+Mesh layout: ``(data, model)`` on one host or ``(pod, data, model)``
+across pods.  Batch rides (pod, data); heads, FFN, experts and vocab ride
+``model``; with ``fsdp`` a second parameter axis rides data.
+
+A spec is a tuple with one entry per tensor dim, as the reference's
+``PartitionSpec``: None, a mesh axis name, or a tuple of names (the dim
+split over several axes, the first the major one).  Specs are computed
+from the mesh's axis names and sizes alone (``MeshShape`` stands for a
+mesh that has no ranks, such as the 256- and 512-device production
+meshes); ``placements`` turns one into ``DTensor`` placements on a live
+``DeviceMesh``.
+
+The port keeps each layer's weights apart, so a parameter is named as
+``Model.named_parameters`` names it, and its spec is the reference's spec
+of the stacked leaf (``convert.locations``) without the layer dim.
+Parameter specs fall back to replication on a dim that does not divide
+its mesh axes, as the reference's do.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class MeshShape:
+    """A mesh given by its axis names and sizes alone."""
+
+    axis_names: tuple[str, ...]
+    sizes: tuple[int, ...]
+
+
+def mesh_sizes(mesh) -> dict[str, int]:
+    """Axis name -> size of a ``MeshShape`` or a ``DeviceMesh``."""
+    if isinstance(mesh, MeshShape):
+        return dict(zip(mesh.axis_names, mesh.sizes))
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def axis_names(mesh) -> tuple[str, ...]:
+    return (mesh.axis_names if isinstance(mesh, MeshShape)
+            else tuple(mesh.mesh_dim_names))
+
+
+@dataclass(frozen=True)
+class AxisRules:
+    mesh: object                                 # DeviceMesh or MeshShape
+    data_axes: tuple[str, ...] = ("data",)      # ("pod", "data") multi-pod
+    model_axis: str = "model"
+    shard_kv_heads: bool = True                  # False -> replicate K/V proj
+    seq_shard_cache: bool = False                # long_500k context sharding
+    fsdp: bool = True                            # shard params over data too
+    attn_tp: bool = True                         # False: attention weights
+                                                 # keep all heads local
+    seq_parallel_acts: bool = False              # residual-stream
+                                                 # activations sharded over
+                                                 # (data, model)
+
+    @property
+    def data(self):
+        return self.data_axes if len(self.data_axes) > 1 else self.data_axes[0]
+
+    def axis_size(self, axes) -> int:
+        if axes is None:
+            return 1
+        if isinstance(axes, str):
+            axes = (axes,)
+        sizes = mesh_sizes(self.mesh)
+        n = 1
+        for a in axes:
+            n *= sizes[a]
+        return n
+
+
+_local = threading.local()
+
+
+def active_rules() -> AxisRules | None:
+    return getattr(_local, "rules", None)
+
+
+@contextlib.contextmanager
+def use_rules(rules: AxisRules | None):
+    prev = active_rules()
+    _local.rules = rules
+    try:
+        yield rules
+    finally:
+        _local.rules = prev
+
+
+# ---------------------------------------------------------------------------
+# Specs and placements.
+# ---------------------------------------------------------------------------
+
+def fits(shape, spec: tuple, rules: AxisRules) -> bool:
+    """Whether every dim of ``shape`` divides the mesh axes of its entry."""
+    return all(axes is None or dim % rules.axis_size(axes) == 0
+               for dim, axes in zip(shape, spec))
+
+
+def divisible(shape, spec: tuple, rules: AxisRules) -> tuple:
+    """``spec`` with each entry whose dim does not divide it replaced by
+    None (the reference's fallback)."""
+    return tuple(axes if axes is not None
+                 and dim % rules.axis_size(axes) == 0 else None
+                 for dim, axes in zip(shape, spec))
+
+
+def placements(spec: tuple, mesh) -> list:
+    """``DTensor`` placements of ``spec`` on ``mesh`` (a ``DeviceMesh`` or
+    a ``MeshShape``): each mesh axis a
+    dim's entry names shards that dim (``Shard(d)``, so a dim over two
+    axes gets two, major first as the mesh orders them); an axis no entry
+    names replicates."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = []
+    for axis in axis_names(mesh):
+        dims = [d for d, axes in enumerate(spec)
+                if axes == axis or (isinstance(axes, tuple) and axis in axes)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return out
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+# ---------------------------------------------------------------------------
+# Activation constraints (called from model code; no-op without rules).
+# ---------------------------------------------------------------------------
+
+_LOGICAL_ACT = {
+    # (batch, seq, d_model)
+    "act_btd": lambda r: (
+        r.data, r.model_axis if r.seq_parallel_acts else None, None),
+    # (batch, seq, hidden/heads*hd) - model-parallel feature dim
+    "act_btf": lambda r: (r.data, None, r.model_axis),
+    # logits (batch, seq, vocab)
+    "logits": lambda r: (r.data, None, r.model_axis),
+    # moe dispatch (groups, tokens, experts, capacity)
+    "moe_dispatch": lambda r: (r.data, None, r.model_axis, None),
+    # per-expert activations (groups, experts, capacity, d)
+    "moe_expert": lambda r: (r.data, r.model_axis, None, None),
+    # decode q/k/v right after projection [B, 1, H, hd]: replicate heads so
+    # the (tiny) query is gathered instead of the (huge) model-striped cache
+    "decode_qkv": lambda r: (r.data, None, None, None),
+}
+
+
+def maybe_shard(x, logical: str):
+    """``x`` redistributed to the layout of ``logical`` under the active
+    rules: the identity without rules, for a tensor that is not a
+    ``DTensor``, and where a dim does not divide its axes (the reference
+    skips such a constraint whole)."""
+    rules = active_rules()
+    if rules is None or not is_dtensor(x):
+        return x
+    spec_fn = _LOGICAL_ACT.get(logical)
+    if spec_fn is None:
+        return x
+    spec = spec_fn(rules)
+    if not fits(x.shape, spec, rules):
+        return x
+    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs.
+# ---------------------------------------------------------------------------
+
+def _pad_left(spec: tuple, ndim: int) -> tuple:
+    return (None,) * (ndim - len(spec)) + spec
+
+
+def _rule_for(path: tuple[str, ...], ndim: int, rules: AxisRules) -> tuple:
+    name = path[-1]
+    in_moe = "moe" in path and "shared" not in path
+    tp = rules.model_axis
+    atp = tp if rules.attn_tp else None       # attention tensor parallelism
+    dp = rules.data if rules.fsdp else None   # FSDP/ZeRO-3 second axis
+    if in_moe and name in ("wi_gate", "wi_up", "wo"):
+        return (tp, dp, None)              # (E, ., .) expert parallel + fsdp
+    if name == "tok":
+        return (tp, dp)                    # vocab-sharded embedding
+    if name == "unembed":
+        return (dp, tp)
+    if name in ("wq", "wq_b"):
+        return (dp, atp)
+    if name in ("wi", "wi_gate", "wi_up", "wz", "wx", "wdt", "wb", "wc"):
+        return (dp, tp)
+    if name in ("wk", "wv"):
+        return (dp, atp) if rules.shard_kv_heads else (dp, None)
+    if name == "wo":
+        return (atp, dp)
+    if name == "out_proj":
+        return (tp, dp)
+    if name in ("w_uk", "w_uv"):
+        return (atp, dp, None)             # heads
+    if name in ("wkv_a", "wq_a"):
+        return (dp, None)
+    if name in ("conv_x_w",):
+        return (None, tp)
+    if name in ("conv_x_b", "norm_scale"):
+        return (tp,)
+    return ()                              # replicate
+
+
+def param_specs(model, rules: AxisRules) -> dict[str, tuple]:
+    """Each parameter's spec by its ``named_parameters`` name: the
+    reference's spec of its leaf, where a stacked leaf drops its leading
+    layer entry.  Only shapes are read, so a model on the ``meta`` device
+    serves."""
+    from repro_torch.convert import locations   # convert imports the model
+
+    locs = locations(model)
+    out = {}
+    for name, p in model.named_parameters():
+        path, layer = locs[name]
+        shape = tuple(p.shape) if layer is None else (0, *p.shape)
+        spec = divisible(shape, _pad_left(_rule_for(path, len(shape), rules),
+                                          len(shape)), rules)
+        out[name] = spec if layer is None else spec[1:]
+    return out
+
+
+def param_shardings(model, rules: AxisRules) -> dict[str, list]:
+    """Each parameter's ``DTensor`` placements on ``rules.mesh`` (a
+    ``DeviceMesh``)."""
+    return {name: placements(spec, rules.mesh)
+            for name, spec in param_specs(model, rules).items()}
+
+
+@torch.no_grad()
+def distribute_model(model, rules: AxisRules):
+    """Replace every parameter of ``model`` by a ``DTensor`` laid out by
+    ``param_shardings`` (those that are already ``DTensor``s stay).  Every
+    rank holds the same whole weights (drawn from one seed or read from
+    one file), so each keeps its own shard and nothing is sent.  Returns
+    the model."""
+    from torch import nn
+    from torch.distributed.tensor import distribute_tensor
+
+    layout = param_shardings(model, rules)
+    for mod_name, mod in model.named_modules():
+        for pname, p in list(mod.named_parameters(recurse=False)):
+            if is_dtensor(p):
+                continue
+            full = f"{mod_name}.{pname}" if mod_name else pname
+            d = distribute_tensor(p.data, rules.mesh, layout[full],
+                                  src_data_rank=None)
+            mod.register_parameter(
+                pname, nn.Parameter(d, requires_grad=p.requires_grad))
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Batch specs.
+# ---------------------------------------------------------------------------
+
+def batch_spec(rules: AxisRules, *, batch_shardable: bool = True) -> tuple:
+    return (rules.data,) if batch_shardable else (None,)
+
+
+# ---------------------------------------------------------------------------
+# Local computation on DTensors.
+# ---------------------------------------------------------------------------
+
+def replicated_like(t: torch.Tensor, ref):
+    """``t``, a plain tensor every rank computes alike (RoPE's angles, a
+    zero), as a replicated ``DTensor`` on ``ref``'s mesh when ``ref`` is
+    one, else ``t`` itself."""
+    if not is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def partial_over(pls: list, mesh, axes) -> list:
+    """``pls`` with every replicated mesh axis of ``axes`` made a partial
+    sum: the gradient placements of an input that each rank of those axes
+    reads only in part."""
+    from torch.distributed.tensor import Partial
+
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return [Partial() if name in axes and pl.is_replicate() else pl
+            for name, pl in zip(mesh.mesh_dim_names, pls)]
+
+
+def run_local(fn, mesh, in_placements, out_placements,
+              grad_placements=None):
+    """``fn`` on each rank's local shards (``local_map``): its DTensor
+    arguments are redistributed to ``in_placements`` (None for an
+    argument that is not a tensor) and its outputs come back as DTensors
+    with ``out_placements``.  ``grad_placements`` are the placements of
+    the inputs' gradients, where they differ from ``in_placements``."""
+    from torch.distributed.tensor.experimental import local_map
+
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=tuple(in_placements),
+                     in_grad_placements=(tuple(grad_placements)
+                                         if grad_placements else None),
+                     device_mesh=mesh, redistribute_inputs=True)
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a ``DTensor`` (a view that writes through),
+    or ``t`` itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of a ``DTensor``, gathered (a collective: every
+    rank of its mesh calls it), or ``t`` itself."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def at_layout(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` redistributed to ``like``'s placements when ``like`` is a
+    ``DTensor``, else ``t``."""
+    if not is_dtensor(like):
+        return t
+    return t.redistribute(like.device_mesh, list(like.placements))

@@ -13,6 +13,12 @@ on the CPU.  Likewise ``ssd_scan`` goes through ``SSDScan``, whose
 backward is ``kernels/ssd_backward.py`` on the card and the plain
 ``ref.ssd_scan_bwd_ref`` on the CPU.  The decode and the paged prefill
 have no backward and refuse a graph, and so do the raw kernel wrappers.
+
+Under a mesh (``repro_torch.distributed``) the layers call
+``flash_attention`` and ``ssd_scan`` inside ``local_map``, so a kernel,
+its autograd ``Function`` and its backward see each rank's local shards
+as plain tensors.  A ``DTensor`` that reaches an entry point here raises:
+no kernel takes a shard for the whole tensor.
 """
 from __future__ import annotations
 
@@ -30,6 +36,12 @@ from repro_torch.kernels.ssd_scan import ssd_chunk_scan
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        raise TypeError(
+            "a DTensor reached a kernel: under a mesh the layer calls it "
+            "inside local_map, on each rank's local shards")
     if t.device.type == "cpu":
         return True
     if t.device.type == "cuda":

@@ -1,0 +1,34 @@
+"""Axis rules for one model and input shape: the port's
+``repro/launch/mesh.py::make_rules``.  The production meshes
+(``make_production_mesh``) come with the dry-run tools."""
+from __future__ import annotations
+
+from repro_torch.distributed.sharding import AxisRules, mesh_sizes
+from repro_torch.models.config import InputShape, ModelConfig
+
+
+def make_rules(mesh, cfg: ModelConfig, shape: InputShape) -> AxisRules:
+    """Per-(arch, shape) axis rules over ``mesh`` (a ``DeviceMesh`` or a
+    ``MeshShape``), with the reference's default levers.
+
+    * train/prefill: batch over (pod, data), TP over model, FSDP params.
+    * decode: batch over (pod, data); batch-1 long-context shards the KV
+      cache *sequence* over data instead -- the SkyMemory chunk striping.
+      Decode keeps the attention weights' heads local (``attn_tp``
+      False).
+    """
+    sizes = mesh_sizes(mesh)
+    data_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    dsize = 1
+    for a in data_axes:
+        dsize *= sizes[a]
+    return AxisRules(
+        mesh=mesh,
+        data_axes=data_axes,
+        model_axis="model",
+        shard_kv_heads=True,
+        seq_shard_cache=shape.is_decode and shape.global_batch < dsize,
+        fsdp=True,
+        attn_tp=not shape.is_decode,
+        seq_parallel_acts=False,
+    )

@@ -8,12 +8,26 @@ The paged functions update the per-layer pool views ``k_pool`` /
 ``k_cache`` / ``v_cache``, **in place** (the reference returned new
 arrays and relied on XLA donation).  A per-layer view ``pool[l]`` is
 contiguous, and reaches the kernels without a copy.
+
+Under a mesh (training, ``repro_torch.distributed``) the projections and
+RoPE run as ``DTensor`` ops; a K/V projection sharded inside a head is
+gathered by an explicit ``redistribute`` before the head split
+(``_heads``), and the dense prefill kernel runs in ``local_map`` on each
+rank's batch rows and heads (``flash_attention``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import (
+    active_rules,
+    divisible,
+    is_dtensor,
+    partial_over,
+    placements,
+    run_local,
+)
 from repro_torch.kernels import ops
 from repro_torch.models.cache import dequant_kvc, quant_kvc
 from repro_torch.models.config import ModelConfig
@@ -44,14 +58,68 @@ class Attention(nn.Module):
 def _project_qkv(p: Attention, x, cfg: ModelConfig, kv_x=None):
     """q from ``x``, and k / v from ``kv_x`` (cross-attention's source)
     or, without it, from ``x``."""
-    b, s, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     kv_x = x if kv_x is None else kv_x
-    skv = kv_x.shape[1]
-    q = (x @ p.wq).reshape(b, s, h, hd)
-    k = (kv_x @ p.wk).reshape(b, skv, hkv, hd)
-    v = (kv_x @ p.wv).reshape(b, skv, hkv, hd)
-    return q, k, v
+    return (_heads(x @ p.wq, h, hd), _heads(kv_x @ p.wk, hkv, hd),
+            _heads(kv_x @ p.wv, hkv, hd))
+
+
+def _heads(t, n: int, hd: int):
+    """``t`` [B, S, n * hd] as [B, S, n, hd].  Under a mesh the reference
+    shards a projection's flat out-dim wherever it divides, which can fall
+    inside a head (2 K/V heads over 4 ranks): such a ``DTensor`` is first
+    gathered over those axes, so every rank holds whole heads."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+
+        pls, sizes = list(t.placements), t.device_mesh.shape
+        ways = 1
+        for pl, size in zip(pls, sizes):
+            ways *= size if pl.is_shard(2) else 1
+        if n % ways:
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if pl.is_shard(2) else pl for pl in pls])
+    return t.reshape(*t.shape[:2], n, hd)
+
+
+def flash_attention(q, k, v, **kw):
+    """``ops.flash_attention``; under a mesh, inside ``local_map`` on each
+    rank's batch rows and query heads (``sharded_flash_attention``)."""
+    rules = active_rules()
+    if rules is None or not is_dtensor(q):
+        return ops.flash_attention(q, k, v, **kw)
+    return sharded_flash_attention(q, k, v, rules, **kw)
+
+
+def sharded_flash_attention(q, k, v, rules, **kw):
+    """The dense prefill kernel on each rank's shards: batch over the data
+    axes and query heads over ``model`` where they divide.  K/V heads go
+    over ``model`` with the queries when they divide too; otherwise every
+    rank of ``model`` reads K/V whole (their gradient is then a partial
+    sum) and keeps the heads its query heads meet, so query head ``h``
+    always meets K/V head ``h // rep`` on its own rank."""
+    mesh = q.device_mesh
+    tp = rules.model_axis
+    h, hkv = q.shape[2], k.shape[2]
+    spec_q = divisible(q.shape, (rules.data, None, tp, None), rules)
+    m = rules.axis_size(tp) if spec_q[2] is not None else 1
+    kv_split = m == 1 or hkv % m == 0
+    spec_kv = (spec_q[0], None, spec_q[2] if kv_split else None, None)
+    place_q, place_kv = placements(spec_q, mesh), placements(spec_kv, mesh)
+    grad_kv = place_kv if kv_split else partial_over(place_kv, mesh, tp)
+
+    def local(ql, kl, vl):
+        if not kv_split:
+            hl, rep = h // m, h // hkv
+            r = mesh.get_local_rank(tp)
+            heads = (r * hl + torch.arange(hl, device=kl.device)) // rep
+            if hl % rep == 0 or rep % hl == 0:
+                heads = heads[::min(rep, hl)]   # each K/V head once
+            kl, vl = kl[:, :, heads], vl[:, :, heads]
+        return ops.flash_attention(ql, kl, vl, **kw)
+
+    return run_local(local, mesh, (place_q, place_kv, place_kv), place_q,
+                     (place_q, grad_kv, grad_kv))(q, k, v)
 
 
 def attention_prefill(p: Attention, x, cfg: ModelConfig, *, q_offset: int = 0,
@@ -82,8 +150,8 @@ def attention_prefill(p: Attention, x, cfg: ModelConfig, *, q_offset: int = 0,
         k = torch.cat([kv_cache[0].to(k.dtype), k], dim=1)
         v = torch.cat([kv_cache[1].to(v.dtype), v], dim=1)
     offset = kv_cache[0].shape[1] if kv_cache is not None and not cross else 0
-    out = ops.flash_attention(q, k, v, causal=causal and not cross,
-                              q_offset=offset, sliding_window=sliding_window)
+    out = flash_attention(q, k, v, causal=causal and not cross,
+                          q_offset=offset, sliding_window=sliding_window)
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
     return out @ p.wo, (k, v)
 

@@ -4,6 +4,12 @@ Weights keep the reference's ``[in, out]`` layout, so ``x @ W`` reads as
 in ``repro/models/layers.py``.  Norm scales are f32 and norms compute in
 f32 before casting back; ``gelu`` is the tanh approximation, as
 ``jax.nn.gelu`` is.
+
+Under a mesh (``repro_torch.distributed``) the norms and MLPs run as
+``DTensor`` ops; the vocab-sharded embedding lookup and the
+cross-entropy over vocab-sharded logits run in ``local_map`` (DTensor's
+own rule for the lookup's backward fails in some torch releases, and a
+softmax over a sharded vocab would gather the logits).
 """
 from __future__ import annotations
 
@@ -11,6 +17,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import (
+    active_rules,
+    divisible,
+    is_dtensor,
+    partial_over,
+    placements,
+    run_local,
+)
 from repro_torch.models.config import ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -105,17 +119,71 @@ class MLP(nn.Module):
         return h @ self.wo
 
 
+class TokenCrossEntropy(torch.autograd.Function):
+    """Each token's cross-entropy ``logsumexp(logits) - logits[target]``
+    of f32 ``logits`` [..., V_local] whose vocab may be split over the
+    ranks of ``group`` (this rank holding entries ``v0 .. v0 +
+    V_local``): the max, the sum of exponentials and the gold logit are
+    reduced across the group, a scalar per token, so no rank gathers the
+    logits.  With ``group`` None the vocab is whole.  The backward is
+    ``softmax - onehot`` on the local entries, from the saved
+    exponentials; it needs no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, group, v0):
+        import torch.distributed as dist
+
+        vl = logits.shape[-1]
+        m = logits.amax(-1)
+        if group is not None:
+            dist.all_reduce(m, dist.ReduceOp.MAX, group=group)
+        e = torch.exp(logits - m[..., None])
+        s = e.sum(-1)
+        local = targets.long() - v0
+        ok = (local >= 0) & (local < vl)
+        local = local.clamp(0, vl - 1)
+        gold = torch.where(ok, torch.gather(logits, -1, local[..., None])[
+            ..., 0], 0.0)
+        if group is not None:
+            dist.all_reduce(s, group=group)
+            dist.all_reduce(gold, group=group)
+        ctx.save_for_backward(e, s, local, ok)
+        return m + torch.log(s) - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, local, ok = ctx.saved_tensors
+        d = e / s[..., None]
+        d.scatter_add_(-1, local[..., None], -ok.to(d.dtype)[..., None])
+        return d * g[..., None], None, None, None
+
+
 def cross_entropy_loss(logits: torch.Tensor,
                        targets: torch.Tensor) -> torch.Tensor:
     """Mean token cross-entropy in f32, ``mean(logsumexp(logits) -
     logits[target])``: ``repro/models/layers.py::cross_entropy_loss``
-    without a mask or z-loss (``train_loss`` passes neither).  The gold
-    logit is gathered; the reference contracts with a one-hot for its
-    sharded vocab, the same value."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    return (lse - gold).mean()
+    without a mask or z-loss (``train_loss`` passes neither).  Under a
+    mesh the logits' vocab is split over ``model`` and each token's terms
+    are reduced across it (``TokenCrossEntropy``), as the reference's
+    one-hot contraction reduces over its sharded vocab."""
+    rules = active_rules()
+    if rules is None or not is_dtensor(logits):
+        return TokenCrossEntropy.apply(logits.float(), targets, None,
+                                       0).mean()
+    mesh, tp = logits.device_mesh, rules.model_axis
+    spec = divisible(logits.shape, (rules.data, None, tp), rules)
+    split = spec[2] is not None and rules.axis_size(tp) > 1
+    if not split:
+        spec = (*spec[:2], None)
+
+    def local(lg, tg):
+        group = mesh.get_group(tp) if split else None
+        v0 = mesh.get_local_rank(tp) * lg.shape[-1] if split else 0
+        return TokenCrossEntropy.apply(lg.float(), tg, group, v0)
+
+    tok = placements(spec[:2], mesh)
+    return run_local(local, mesh, (placements(spec, mesh), tok), tok)(
+        logits, targets).mean()
 
 
 class Embed(nn.Module):
@@ -136,7 +204,36 @@ class Embed(nn.Module):
             dense_init_(self.unembed, generator)
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.tok[tokens.long()]
+        """The rows of ``tok`` for ``tokens``.  Under a mesh the lookup
+        runs in ``local_map``: ``tok`` is read whole over the data axes
+        and, where its vocab rides ``model``, each rank looks up the
+        tokens in its own rows and the ranks' rows sum (a partial sum
+        over ``model``), as the reference's vocab-sharded gather does."""
+        rules = active_rules()
+        if rules is None or not is_dtensor(self.tok):
+            return self.tok[tokens.long()]
+        mesh, tp = self.tok.device_mesh, rules.model_axis
+        split = (self.tok.shape[0] % rules.axis_size(tp) == 0
+                 and rules.axis_size(tp) > 1)
+        dp_ = divisible(tokens.shape, (rules.data, None), rules)[0]
+        w_pl = placements((tp if split else None, None), mesh)
+        t_pl = placements((dp_, None), mesh)
+        out_pl = placements((dp_, None, None), mesh)
+        w_grad = (partial_over(w_pl, mesh, rules.data_axes)
+                  if dp_ is not None else w_pl)
+        if split:
+            out_pl = partial_over(out_pl, mesh, tp)
+
+        def lookup(w, t):
+            if not split:
+                return w[t.long()]
+            rows = t.long() - mesh.get_local_rank(tp) * w.shape[0]
+            ok = (rows >= 0) & (rows < w.shape[0])
+            return torch.where(ok[..., None], w[rows.clamp(0, w.shape[0] - 1)],
+                               0.0)
+
+        return run_local(lookup, mesh, (w_pl, t_pl), out_pl,
+                         (w_grad, t_pl))(self.tok, tokens)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.tied:

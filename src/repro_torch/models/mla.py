@@ -13,15 +13,17 @@ absorbed form: W_UK folds into the query and W_UV into the output, so
 attention runs against the latent cache.  The reference computes decode
 in jnp outside any Pallas kernel, and so it stays plain PyTorch here.
 Weights keep the reference's names and ``[in, out]`` layouts, with
-``w_uk`` [H, r, dn] and ``w_uv`` [H, r, dv] per head.
+``w_uk`` [H, r, dn] and ``w_uv`` [H, r, dv] per head.  Under a mesh the
+prefill's kernel runs in ``local_map`` on each rank's heads, through
+``attention.flash_attention``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
+from repro_torch.models.attention import flash_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Norm, dense_init_, torch_dtype, weight
 from repro_torch.models.rope import apply_rope
@@ -106,9 +108,9 @@ def mla_prefill(p: MLA, x, cfg: ModelConfig, *, q_offset: int = 0,
     k = torch.cat([_expand(c_kv, p.w_uk),
                    k_rope[:, :, None].expand(b, skv, h, dr)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    out = ops.flash_attention(q, k, _expand(c_kv, p.w_uv), causal=True,
-                              q_offset=skv - s, sliding_window=sliding_window,
-                              softmax_scale=(dn + dr) ** -0.5)
+    out = flash_attention(q, k, _expand(c_kv, p.w_uv), causal=True,
+                          q_offset=skv - s, sliding_window=sliding_window,
+                          softmax_scale=(dn + dr) ** -0.5)
     return out.reshape(b, s, h * dv) @ p.wo, (c_kv, k_rope)
 
 

@@ -50,6 +50,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import maybe_shard
 from repro_torch.models.attention import (
     Attention,
     attention_decode,
@@ -287,9 +288,7 @@ class Model(nn.Module):
         summed over the layers (an f32 zero without experts), which only
         ``train_loss`` reads."""
         cfg = self.cfg
-        x = self.embed.embed(tokens)
-        if cfg.arch_type == "vlm" and image_embeds is not None:
-            x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
+        x = self._embed(tokens, image_embeds)
         if self.is_ssm:
             return self._ssm_forward(x, q_offset, collect_state,
                                      prefix_state, sliding_window, remat)
@@ -317,7 +316,7 @@ class Model(nn.Module):
                 layers.append(st)
                 if enc_out is not None:
                     crosses.append(ckv)
-        logits = self.embed.logits(self.final_norm(x))
+        logits = maybe_shard(self.embed.logits(self.final_norm(x)), "logits")
         state = None
         if collect_state:
             state = {part: {n: torch.stack([st[i] for st in layers])
@@ -326,6 +325,14 @@ class Model(nn.Module):
                 state["cross"] = {n: torch.stack([c[i] for c in crosses])
                                   for i, n in enumerate(("k", "v"))}
         return logits, aux, state
+
+    def _embed(self, tokens, image_embeds=None):
+        """Token embeddings, the VLM's patch embeddings in front (the
+        reference's ``Model.embed``)."""
+        x = self.embed.embed(tokens)
+        if self.cfg.arch_type == "vlm" and image_embeds is not None:
+            x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
+        return maybe_shard(x, "act_btd")
 
     def _attn_block(self, blk, x, enc_out, cross, q_offset, sliding_window,
                     pref):
@@ -351,7 +358,7 @@ class Model(nn.Module):
                                        kv_x=enc_out, causal=False)
             x = x + c
         y, aux = blk.ffn(blk.norm2(x))
-        return x + y, aux, st, ckv
+        return maybe_shard(x + y, "act_btd"), aux, st, ckv
 
     def encode(self, frames: torch.Tensor, *,
                remat: str | None = None) -> torch.Tensor:
@@ -366,7 +373,7 @@ class Model(nn.Module):
             a, _ = attention_prefill(blk.attn, blk.norm1(x), cfg,
                                      causal=False)
             x = x + a
-            return x + blk.mlp(blk.norm2(x))
+            return maybe_shard(x + blk.mlp(blk.norm2(x)), "act_btd")
 
         layer = _remat(layer, remat)
         x = frames.to(self.embed.tok.dtype)
@@ -382,7 +389,7 @@ class Model(nn.Module):
 
         def ssm_layer(blk, x, pref):
             y, st = ssd_prefill(blk.ssd, blk.norm1(x), cfg, state=pref)
-            return x + y, st
+            return maybe_shard(x + y, "act_btd"), st
 
         # the reference recomputes the SSD layers, not the shared block
         ssm_layer = _remat(ssm_layer, remat)
@@ -403,12 +410,12 @@ class Model(nn.Module):
                 a, (k, v) = attention_prefill(
                     sa.attn, sa.norm(x), cfg, q_offset=q_offset,
                     sliding_window=sliding_window, kv_cache=pref_kv)
-                x = x + a
+                x = maybe_shard(x + a, "act_btd")
                 if collect_state:
                     ks.append(k)
                     vs.append(v)
                 j += 1
-        logits = self.embed.logits(self.final_norm(x))
+        logits = maybe_shard(self.embed.logits(self.final_norm(x)), "logits")
         state = None
         if collect_state:
             state = {"ssm": {"conv": torch.stack(convs),
@@ -451,7 +458,7 @@ class Model(nn.Module):
         last position wraps to the first) through ``proj[0]`` and block 0
         (no MoE, no window), then the MTP norm and the unembedding,
         predicting token t+2."""
-        x = self.embed.embed(tokens)
+        x = self._embed(tokens)
         h = torch.cat([x, torch.roll(x, -1, dims=1)], dim=-1)
         h = (h @ self.mtp.proj[0]).to(x.dtype)
         h2 = self._attn_block(self.mtp.blocks[0], h, None, None, 0, None,

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import replicated_like
+
 
 def rope_freqs(head_dim: int, theta: float, rotary_pct: float = 1.0,
                device=None):
@@ -18,7 +20,9 @@ def rope_freqs(head_dim: int, theta: float, rotary_pct: float = 1.0,
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                rotary_pct: float = 1.0) -> torch.Tensor:
-    """x: [B, S, H, D]; positions: [S] or [B, S] absolute positions."""
+    """x: [B, S, H, D]; positions: [S] or [B, S] absolute positions.  A
+    ``DTensor`` ``x`` is rotated by replicated angles (every rank holds
+    all positions: the sequence dim is never sharded)."""
     d = x.shape[-1]
     inv, rot_dim = rope_freqs(d, theta, rotary_pct, device=x.device)
     if rot_dim == 0:
@@ -27,8 +31,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     if pos.dim() == 1:
         pos = pos[None, :]
     angles = pos[..., None] * inv[None, None, :]        # [B, S, rot/2]
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
+    cos = replicated_like(torch.cos(angles)[:, :, None, :], x)
+    sin = replicated_like(torch.sin(angles)[:, :, None, :], x)
     xr, xp = x[..., :rot_dim], x[..., rot_dim:]
     x1, x2 = xr[..., 0::2], xr[..., 1::2]
     r1 = x1 * cos - x2 * sin

@@ -7,6 +7,13 @@ per-token state recurrence.  The decode state ``(conv, state)`` is a
 fixed-size snapshot, and for this family that snapshot is the block
 SkyMemory stores.  Weights keep the reference's separate projections and
 ``[in, out]`` layouts.
+
+Under a mesh (training, ``repro_torch.distributed``) the projections,
+the gates and the gated norm run as ``DTensor`` ops (the norm's mean
+over the ``model``-sharded inner dim is a sum across shards); the
+causal convs (whose padding DTensor mislays in some torch releases) and
+the scan run in ``local_map`` on each rank's batch rows and channels or
+heads (``_causal_conv``, ``scan``).
 """
 from __future__ import annotations
 
@@ -16,6 +23,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import (
+    active_rules,
+    divisible,
+    is_dtensor,
+    partial_over,
+    placements,
+    run_local,
+)
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -88,11 +103,85 @@ class SSD(nn.Module):
 def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  seqlen: int) -> torch.Tensor:
     """Depthwise causal conv, unrolled over the (small) kernel width, in
-    the reference's order of sums."""
+    the reference's order of sums.  Under a mesh it runs in ``local_map``
+    on each rank's batch rows and channels (batch over the data axes,
+    channels over ``model`` where they divide); the taps and bias, read
+    whole over data, get partial-sum gradients there."""
+    rules = active_rules()
+    if rules is None or not is_dtensor(u):
+        return _conv_taps(u, w, b, seqlen)
+    mesh, tp = u.device_mesh, rules.model_axis
+    dp_, _, cp = divisible(u.shape, (rules.data, None, tp), rules)
+    u_pl = placements((dp_, None, cp), mesh)
+    w_pl, b_pl = placements((None, cp), mesh), placements((cp,), mesh)
+
+    def grad(pl):
+        return pl if dp_ is None else partial_over(pl, mesh, rules.data_axes)
+
+    return run_local(lambda *t: _conv_taps(*t, seqlen), mesh,
+                     (u_pl, w_pl, b_pl), u_pl,
+                     (u_pl, grad(w_pl), grad(b_pl)))(u, w, b)
+
+
+def _conv_taps(u, w, b, seqlen: int):
     k = w.shape[0]
     up = F.pad(u, (0, 0, k - 1, 0))
     out = sum(up[:, j: j + seqlen] * w[j] for j in range(k))
     return out + b
+
+
+def _scan(xh, dt, a, b_mat, c_mat, state0, chunk: int):
+    """``ops.ssd_scan`` over the sequence padded to a multiple of
+    ``chunk``; returns ``(y [B, L, H, P], final state)``.
+
+    Always the configured chunk, padded (the reference takes
+    ``min(chunk, seqlen)``): the card's scan rounds the final state by the
+    chunk length, so a prefill resumed from a snapshot would otherwise
+    leave another state than the full prefill it replaces.  Zeros pad the
+    sequence; ``dt = 0`` on padded steps keeps the recurrence exact (decay
+    ``exp(0) = 1``, update 0)."""
+    seqlen = xh.shape[1]
+    pad = (-seqlen) % chunk
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        b_mat = F.pad(b_mat, (0, 0, 0, 0, 0, pad))
+        c_mat = F.pad(c_mat, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    y, final = ops.ssd_scan(
+        xh.contiguous(), dt.contiguous(), a, b_mat.contiguous(),
+        c_mat.contiguous(), chunk_size=chunk, initial_state=state0)
+    return (y[:, :seqlen] if pad else y), final
+
+
+def scan(xh, dt, a, b_mat, c_mat, state0, chunk: int):
+    """``_scan``; under a mesh, inside ``local_map`` on each rank's batch
+    rows and heads (batch over the data axes and heads over ``model``
+    where they divide).  B and C have ``G`` groups, which need not follow
+    the heads (mamba2 has one), so every rank of ``model`` reads them
+    whole and their gradient is a partial sum over ``model``; A has no
+    batch dim, so its gradient is a partial sum over the data axes."""
+    rules = active_rules()
+    if rules is None or not is_dtensor(xh):
+        return _scan(xh, dt, a, b_mat, c_mat, state0, chunk)
+    mesh, tp = xh.device_mesh, rules.model_axis
+    spec_x = divisible(xh.shape, (rules.data, None, tp, None), rules)
+    dp_, tp_ = spec_x[0], spec_x[2]
+
+    def place(*spec):
+        return placements(spec, mesh)
+
+    place_bc = place(dp_, None, None, None)
+    grad_bc = place_bc if tp_ is None else partial_over(place_bc, mesh, tp)
+    # A has no batch dim: each data rank's gradient is its rows' part
+    grad_a = (place(tp_) if dp_ is None
+              else partial_over(place(tp_), mesh, rules.data_axes))
+    place_s = place(dp_, tp_, None, None)
+    ins = [place(*spec_x), place(dp_, None, tp_), place(tp_), place_bc,
+           place_bc, place_s if state0 is not None else None]
+    grads = [ins[0], ins[1], grad_a, grad_bc, grad_bc, ins[5]]
+    return run_local(
+        lambda *t: _scan(*t, chunk), mesh, ins, (place(*spec_x), place_s),
+        grads)(xh, dt, a, b_mat, c_mat, state0)
 
 
 def ssd_prefill(m: SSD, x: torch.Tensor, cfg: ModelConfig, *,
@@ -133,28 +222,8 @@ def ssd_prefill(m: SSD, x: torch.Tensor, cfg: ModelConfig, *,
     b_mat = cbc[..., : g * n].reshape(bsz, seqlen, g, n)
     c_mat = cbc[..., g * n:].reshape(bsz, seqlen, g, n)
     dt = F.softplus(dt.float() + m.dt_bias)
-
-    # always the configured chunk, padded (the reference takes
-    # min(chunk, seqlen)): the card's scan rounds the final state by the
-    # chunk length, so a prefill resumed from a snapshot would otherwise
-    # leave another state than the full prefill it replaces
-    chunk = cfg.ssm_chunk
-    pad = (-seqlen) % chunk
-    if pad:
-        # zero-pad to a chunk multiple; dt = 0 on padded steps keeps the
-        # recurrence exact (decay exp(0) = 1, update 0)
-        xh_s = F.pad(xh, (0, 0, 0, 0, 0, pad))
-        b_mat = F.pad(b_mat, (0, 0, 0, 0, 0, pad))
-        c_mat = F.pad(c_mat, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-    else:
-        xh_s = xh
-    y, ssm_state = ops.ssd_scan(
-        xh_s.contiguous(), dt.contiguous(), -torch.exp(m.a_log),
-        b_mat.contiguous(), c_mat.contiguous(), chunk_size=chunk,
-        initial_state=ssm_state0)
-    if pad:
-        y = y[:, :seqlen]
+    y, ssm_state = scan(xh, dt, -torch.exp(m.a_log), b_mat, c_mat,
+                        ssm_state0, cfg.ssm_chunk)
     y = y + m.d_skip[None, None, :, None].to(y.dtype) * xh
     y = y.reshape(bsz, seqlen, di)
     y = rms_norm_gated(y, z, m.norm_scale, cfg.norm_eps)

@@ -18,8 +18,10 @@ import os
 import numpy as np
 import torch
 
-from repro_torch.convert import _tensor, fill_from_numpy, named_from_numpy
+from repro_torch.convert import _tensor, copy_whole_into, fill_from_numpy
+from repro_torch.convert import named_from_numpy
 from repro_torch.convert import named_to_numpy
+from repro_torch.distributed.sharding import whole
 from repro_torch.models.model import Model
 
 
@@ -50,24 +52,52 @@ def _unflatten(flat: dict[str, np.ndarray]) -> dict:
 def save_checkpoint(path: str, model: Model, opt_state: dict | None = None,
                     *, step: int = 0, metadata: dict | None = None) -> None:
     """Write ``model``'s weights and, when given, the optimizer state
-    (``m``, ``v``, ``step``) under ``path``."""
+    (``m``, ``v``, ``step``) under ``path``.  A sharded model (``DTensor``
+    parameters) is gathered tensor by tensor, a collective every rank
+    calls, and only rank 0 writes.  One whole tensor at a time is on a
+    device: rank 0 moves it to the host at once, and the others drop it."""
+    writer = _writer()
+
+    def gathered(tensors: dict) -> dict:
+        out = {}
+        for n, t in tensors.items():
+            full = whole(t)
+            if writer:
+                out[n] = full.detach().cpu()
+            del full
+        return out
+
+    params = gathered(dict(model.named_parameters()))
+    moments = (None if opt_state is None else
+               {part: gathered(opt_state[part]) for part in ("m", "v")})
+    if not writer:
+        return
     os.makedirs(path, exist_ok=True)
     np.savez(os.path.join(path, "params.npz"),
-             **_flatten(named_to_numpy(model, dict(model.named_parameters()))))
+             **_flatten(named_to_numpy(model, params)))
     if opt_state is not None:
-        tree = {"m": named_to_numpy(model, opt_state["m"]),
-                "v": named_to_numpy(model, opt_state["v"]),
+        tree = {"m": named_to_numpy(model, moments["m"]),
+                "v": named_to_numpy(model, moments["v"]),
                 "step": np.asarray(int(opt_state["step"]), dtype=np.int32)}
         np.savez(os.path.join(path, "opt_state.npz"), **_flatten(tree))
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump({"step": step, **(metadata or {})}, f)
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a process group, or the
+    only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 @torch.no_grad()
 def load_checkpoint(path: str, model: Model, opt_state: dict | None = None):
     """Read a checkpoint (the port's or the reference's) into ``model`` in
     place and, when ``opt_state`` is given and the file exists, into its
-    moments and step in place.  Returns ``(model, opt_state, meta)``;
+    moments and step in place.  Every rank reads the files; a sharded
+    parameter or moment keeps its own shard.  Returns ``(model, opt_state, meta)``;
     ``opt_state`` is None when it was not given or not saved."""
     with np.load(os.path.join(path, "params.npz")) as f:
         fill_from_numpy(model, _unflatten(dict(f)))
@@ -83,7 +113,7 @@ def load_checkpoint(path: str, model: Model, opt_state: dict | None = None):
                     raise ValueError(f"{part}/{name}: shape "
                                      f"{tuple(src.shape)} != "
                                      f"{tuple(t.shape)}")
-                t.copy_(src)
+                copy_whole_into(t, src)
         opt_state["step"].fill_(int(tree["step"]))
     else:
         opt_state = None

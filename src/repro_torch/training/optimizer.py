@@ -23,6 +23,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.distributed.sharding import at_layout, is_dtensor, local
 from repro_torch.models.layers import torch_dtype
 
 NO_DECAY = ("scale", "bias", "a_log", "dt_bias", "d_skip", "norm_scale")
@@ -56,23 +57,56 @@ def lr_at(cfg: AdamWConfig, step, device=None) -> torch.Tensor:
 
 
 def init_opt_state(params: dict[str, torch.Tensor],
-                   moment_dtype: str = "float32") -> dict:
-    """Zero moments in ``moment_dtype`` beside each named parameter."""
+                   moment_dtype: str = "float32",
+                   layouts: dict[str, list] | None = None) -> dict:
+    """Zero moments in ``moment_dtype`` beside each named parameter.  A
+    ``DTensor`` parameter's moments are ``DTensor``s laid out as it is,
+    or by ``layouts[name]`` where given (ZeRO-1: ``training.loop``)."""
     dt = torch_dtype(moment_dtype)
-    device = next(iter(params.values())).device
+    device = local(next(iter(params.values()))).device
+    layouts = layouts or {}
 
     def zeros():
-        return {n: torch.zeros(p.shape, dtype=dt, device=p.device)
-                for n, p in params.items()}
+        out = {}
+        for n, p in params.items():
+            if is_dtensor(p):
+                from torch.distributed.tensor import zeros as dzeros
+
+                out[n] = dzeros(p.shape, dtype=dt, device_mesh=p.device_mesh,
+                                placements=layouts.get(n, list(p.placements)))
+            else:
+                out[n] = torch.zeros(p.shape, dtype=dt, device=p.device)
+        return out
 
     return {"m": zeros(), "v": zeros(),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _owned(t) -> bool:
+    """Whether this rank counts its shard of ``t`` in a sum over every
+    rank: it holds the first replica along each mesh axis that replicates
+    ``t`` (a plain tensor: always)."""
+    if not is_dtensor(t):
+        return True
+    mesh = t.device_mesh
+    return all(pl.is_shard() or mesh.get_local_rank(i) == 0
+               for i, pl in enumerate(t.placements))
+
+
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tensors))
+    """sqrt of the sum of squares of every tensor, in f32.  ``DTensor``s
+    (sharded or replicated, never partial sums) count each element once:
+    every rank sums the squares of the shards it owns (``_owned``), and
+    one all-reduce over the world adds the ranks' sums."""
+    tensors = list(tensors)
+    total = sum(torch.sum(torch.square(local(x).float())) if _owned(x)
+                else torch.zeros((), device=local(x).device)
+                for x in tensors)
+    if any(is_dtensor(x) for x in tensors):
+        import torch.distributed as dist
+
+        dist.all_reduce(total)
+    return torch.sqrt(total)
 
 
 def decays(name: str, p: torch.Tensor) -> bool:
@@ -87,8 +121,16 @@ def adamw_update(cfg: AdamWConfig, params: dict[str, torch.Tensor],
     """One AdamW step in place; returns ``(params, state, {"grad_norm",
     "lr"})`` with the metrics as f32 device scalars.  A parameter without
     a gradient (None: it took no part in the loss) is stepped with zeros,
-    as ``jax.grad`` gives them."""
-    g_all = {n: (g if g is not None else torch.zeros_like(params[n]))
+    as ``jax.grad`` gives them.
+
+    ``DTensor`` parameters are stepped shard by shard: each gradient and
+    parameter is read at its moments' layout, the elementwise update runs
+    on the local shards, and a parameter whose moments are laid out
+    otherwise (ZeRO-1) gathers its new values back to its own layout.
+    The schedule, the clip and the bias corrections are plain 0-d
+    tensors, the same on every rank."""
+    g_all = {n: at_layout(g if g is not None
+                          else torch.zeros_like(params[n]), state["m"][n])
              for n, g in grads.items()}
     gnorm = global_norm(g_all.values())
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
@@ -98,14 +140,23 @@ def adamw_update(cfg: AdamWConfig, params: dict[str, torch.Tensor],
     bc1 = 1 - torch.pow(torch.tensor(cfg.b1, device=t.device), t)
     bc2 = 1 - torch.pow(torch.tensor(cfg.b2, device=t.device), t)
     for name, p in params.items():
-        g = g_all[name].float() * clip
-        m_s, v_s = state["m"][name], state["v"][name]
+        m_d = state["m"][name]
+        g = local(g_all[name]).float() * clip
+        m_s, v_s = local(m_d), local(state["v"][name])
+        pv = local(at_layout(p, m_d))
         m = cfg.b1 * m_s.float() + (1 - cfg.b1) * g
         v = cfg.b2 * v_s.float() + (1 - cfg.b2) * torch.square(g)
         update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
         if decays(name, p):
-            update = update + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * update)
+            update = update + cfg.weight_decay * pv.float()
+        new = pv.float() - lr * update
+        if is_dtensor(p) and list(p.placements) != list(m_d.placements):
+            from torch.distributed.tensor import DTensor
+
+            new = at_layout(DTensor.from_local(
+                new.to(p.dtype), m_d.device_mesh, list(m_d.placements),
+                run_check=False), p).to_local()
+        local(p).copy_(new)
         m_s.copy_(m)
         v_s.copy_(v)
     return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -312,6 +312,31 @@ def test_reference_checkpoint_loads_into_the_port(tmp_path):
         np.testing.assert_array_equal(t.numpy(), want[n], err_msg=n)
 
 
+def test_checkpoint_rank_that_does_not_write_drops_each_gathered_tensor(
+        tmp_path, monkeypatch):
+    """Saving gathers tensor by tensor: a rank that does not write drops
+    each whole tensor before it gathers the next, and writes nothing."""
+    import weakref
+
+    _, _, tm = _pair("skymemory-tinyllama")
+    state = topt.init_opt_state(dict(tm.named_parameters()))
+    alive, calls = [], []
+
+    def gather(t):
+        held = [r for r in alive if r() is not None]
+        assert not held, f"{len(held)} gathered tensors still held"
+        full = t.detach().clone()
+        alive.append(weakref.ref(full))
+        calls.append(1)
+        return full
+
+    monkeypatch.setattr(tckpt, "whole", gather)
+    monkeypatch.setattr(tckpt, "_writer", lambda: False)
+    tckpt.save_checkpoint(str(tmp_path), tm, state, step=1)
+    assert len(calls) == 3 * len(list(tm.parameters()))
+    assert not any(tmp_path.iterdir())
+
+
 def test_bf16_checkpoint_round_trip_is_bitwise(tmp_path):
     """A bf16 model and bf16 moments go out as raw words and come back
     bit for bit (no ``ml_dtypes`` needed)."""
