@@ -265,9 +265,35 @@ Phases (each raises on failure; nothing is caught):
     print.  Then ``repro_torch.launch.train.main`` with ``--mesh --arch
     skymemory-tinyllama --tiny --steps 5`` and without ``--mesh``: the
     loss lines must be equal.
+15. the sharded serve step (``[serve_mesh]`` lines), in the same group on
+    a ``(1, 1)`` mesh, seeded weights and caches drawn on the card: each
+    of (a) full TinyLlama at ``decode_32k`` (global batch cut from 128 to
+    16: 128 rows of 32,768 tokens need ~94 GB of K/V), positions
+    30,000-32,700; (b) full TinyLlama at ``long_500k`` (``shape_variant``'s
+    32,768-slot ring, batch 1, positions from 524,286: the steps write
+    slots 32,766, 32,767, 0 and 1); (c) full mamba2-1.3b at
+    ``decode_32k``'s batch 128 (a 12.9 GB f32 state, heads over
+    ``model``) takes ``SERVE_MESH_STEPS`` greedy steps through
+    ``make_plan(...).fn`` over a cache laid out by ``cache_specs`` and
+    through the unsharded ``Model.decode_step`` on a copy: logits bitwise
+    or within the bf16 limit (``SERVE_MESH_TOL``) with the first cache
+    layer where they part named, tokens equal, K1 launched 22 times a
+    step in (a) and (b).  (d) layer 0's K/V of (a) (B16, S32,768, H32,
+    Hkv4, D64, bf16): K1 over the whole cache against K1 with its LSE
+    over 2, 4 and 16 sequence stripes merged by ``merge_partials``, at
+    the bf16 limit, with lengths that end inside stripes (some on K1's
+    single-split exit) and leave later stripes empty; each LSE against
+    the plain version's f32 LSE (``STRIPE_LSE_TOL``); K1's output bitwise
+    with and without ``return_lse``.  (e) the prefill plan at
+    ``prefill_32k``'s 32,768 tokens (batch cut from 32 to 1) against the
+    unsharded ``forward``: last logits and collected K/V, K4 launched 22
+    times.  (f) K1 at (d)'s shape with every slot valid, with and without
+    its LSE, beside its byte bound, SDPA over the cache viewed ``[B, S,
+    Hkv, D]`` (``enable_gqa``) and the plain version (CUDA-graph replay,
+    cold L2).
 
 The ``kernels`` line counts each kernel's launches over the main-path
-runs of phases 4 (training) and 5-14, each counted from 0 just before
+runs of phases 4 (training) and 5-15, each counted from 0 just before
 it.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
@@ -4740,7 +4766,7 @@ def phase_sim() -> None:
 
 def start_world(device) -> Path:
     """A one-rank NCCL process group over a ``FileStore``, for phases 13
-    and 14 (its set-up paid once); returns the store's path."""
+    to 15 (its set-up paid once); returns the store's path."""
     from datetime import timedelta
 
     import torch.distributed as dist
@@ -5015,6 +5041,328 @@ def phase_mesh(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the sharded serve step on a (1, 1) mesh, and K1 over stripes
+# ---------------------------------------------------------------------------
+
+SERVE_MESH_STEPS = 4
+# the bf16 limit of the model checks (phase 11's teacher-forced logits)
+SERVE_MESH_TOL = BF16_LOGIT_TOL
+# K1's LSE against the plain version's f32 logsumexp of the same bf16
+# inputs: both sum exact products of bf16 values in f32, in other orders,
+# over up to 32,768 scores of magnitude ~1 (an LSE near 11, whose f32
+# step is ~1e-6)
+STRIPE_LSE_TOL = dict(atol=1e-4, rtol=0.0)
+STRIPE_COUNTS = (2, 4, 16)
+# (d)'s lengths over 32,768 slots: full rows, rows ending inside a stripe
+# of 2, 4 or 16 (a stripe of 1-64 tokens takes K1's single-split exit),
+# and short rows that leave every later stripe empty (-inf)
+STRIPE_LENGTHS = (32768, 30000, 16384 + 30, 16384, 8192 + 5, 2048 + 1, 2047,
+                  100, 64, 63, 1, 20000, 24576 + 64, 31000, 12345, 32700)
+
+
+def _fill_cache(cache: dict, gen) -> None:
+    """Every leaf of ``cache`` drawn from ``gen`` in place (N(0, 1), the
+    SSM state scaled to 0.1): a cache as a long prefill would leave it,
+    without the prefill."""
+    for part, leaves in cache.items():
+        for t in leaves.values():
+            t.normal_(generator=gen)
+            if part == "ssm":
+                t.mul_(0.1)
+
+
+def _first_parting(c0: dict, c1: dict) -> str | None:
+    """The first (part, leaf, layer) where two caches differ, or None."""
+    from repro_torch.distributed.sharding import local
+
+    for part, leaves in c0.items():
+        for name, t in leaves.items():
+            other = local(c1[part][name])
+            for l in range(t.shape[0]):
+                if not torch.equal(t[l], other[l]):
+                    return f"{part}/{name} layer {l}"
+    return None
+
+
+def _serve_pair(cfg, shape, mesh, device, *, pos0, seed) -> tuple:
+    """``SERVE_MESH_STEPS`` greedy steps through ``make_plan(...).fn`` on
+    ``mesh`` and through the unsharded ``Model.decode_step``, from one
+    seeded model and cache.  Returns the row printed, the sharded run's
+    launch counts and the unsharded cache after the steps."""
+    from repro_torch.distributed.sharding import distribute_cache, whole
+    from repro_torch.launch.mesh import make_rules
+    from repro_torch.launch.specs import make_plan
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    rules = make_rules(mesh, cfg, shape)
+    plan = make_plan(cfg, shape, rules, device=device)
+    plan.model.init(torch.Generator(device=device).manual_seed(seed))
+    plain = Model(plan.cfg, device=device)
+    plain.load_state_dict(plan.model.state_dict())
+    b, n = shape.global_batch, shape.seq_len
+    cache0 = plain.init_cache(b, n)
+    _fill_cache(cache0, torch.Generator(device=device).manual_seed(seed + 1))
+    cache1 = distribute_cache(
+        {p: {k: t.clone() for k, t in leaves.items()}
+         for p, leaves in cache0.items()}, rules, batch=b)
+    tok0 = torch.randint(0, cfg.vocab_size, (b, 1), dtype=torch.int32,
+                         device=device, generator=torch.Generator(
+                             device=device).manual_seed(seed + 2))
+    pos0 = pos0.to(device)
+    sync(device)
+    t_set = time.perf_counter() - t0
+
+    def steps(fn):
+        tok, pos, logits, toks, ms = tok0, pos0, [], [], []
+        for _ in range(SERVE_MESH_STEPS):
+            t = time.perf_counter()
+            lg = whole(fn(tok, pos))
+            sync(device)
+            ms.append((time.perf_counter() - t) * 1e3)
+            logits.append(lg)
+            tok = torch.argmax(lg[:, -1], -1)[:, None].to(torch.int32)
+            toks.append(tok)
+            pos = pos + 1
+        return logits, torch.cat(toks, 1), ms
+
+    l0, t0_, ms0 = steps(lambda tok, pos: plain.decode_step(cache0, tok, pos))
+    (l1, t1, ms1), counts = counted(
+        lambda: steps(lambda tok, pos: plan.fn(cache1, tok, pos)[0]))
+    bitwise = all(torch.equal(a, c) for a, c in zip(l0, l1))
+    parting = _first_parting(cache0, cache1)
+    worst = max(_ratio("serve", c, a, SERVE_MESH_TOL)[1]
+                for a, c in zip(l0, l1))
+    row = dict(model=cfg.name, shape=shape.name, batch=b,
+               cache_slots=(cache0["kv"]["k"].shape[2] if "kv" in cache0
+                            else None),
+               window=plan.cfg.sliding_window,
+               positions=[int(pos0.min()), int(pos0.max())],
+        steps=SERVE_MESH_STEPS, logits_bitwise=bitwise,
+        cache_first_parting=parting, worst_over_bf16_limit=worst,
+        tokens_equal=torch.equal(t0_, t1), step_ms_unsharded=ms0,
+        step_ms_sharded=ms1, setup_s=t_set,
+        cache_gb=sum(t.numel() * t.element_size() for leaves in
+                     cache0.values() for t in leaves.values()) / 1e9,
+        launches=counts)
+    if not row["tokens_equal"] or worst > 1.0:
+        raise AssertionError(f"[serve_mesh] {cfg.name} {shape.name}: the "
+                             f"sharded serve step parts from the unsharded "
+                             f"one: {row}")
+    return row, counts, cache0
+
+
+def _stripe_check(k, v, device, smi) -> dict:
+    """(d): K1 over one layer's whole cache against K1 with its LSE over
+    2, 4 and 16 sequence stripes merged by ``merge_partials``; each LSE
+    against the plain version's f32 LSE.  Returns the merged rows."""
+    from repro_torch.distributed.decode import merge_partials
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_decode
+
+    b, n, hkv, d = k.shape
+    gen = torch.Generator(device=device).manual_seed(1515)
+    q = torch.randn(b, 32, d, generator=gen, device=device).to(k.dtype)
+    lens = torch.tensor(STRIPE_LENGTHS, dtype=torch.int32, device=device)
+
+    def pages(t):
+        return t.reshape(b, t.shape[1] // 128, 128, hkv, d)
+
+    whole_out, whole_lse = paged_decode(q, pages(k), pages(v), lens,
+                                        return_lse=True)
+    plain_whole = paged_decode(q, pages(k), pages(v), lens)
+    if not torch.equal(whole_out, plain_whole):
+        raise AssertionError("[serve_mesh] K1's output differs with "
+                             "return_lse")
+    rows = {}
+    worst_lse = 0.0
+    for count in STRIPE_COUNTS:
+        length = n // count
+        outs, lses = [], []
+        for r in range(count):
+            ks = k[:, r * length:(r + 1) * length].contiguous()
+            vs = v[:, r * length:(r + 1) * length].contiguous()
+            lr = torch.clamp(lens - r * length, 0, length).to(torch.int32)
+            o, lse = paged_decode(q, pages(ks), pages(vs), lr,
+                                  return_lse=True)
+            _, want = ref.paged_attention_ref(
+                q.float(), pages(ks).float(), pages(vs).float(), lr,
+                return_lse=True)
+            if not torch.equal(torch.isinf(lse), torch.isinf(want)):
+                raise AssertionError(f"[serve_mesh] {count} stripes, stripe "
+                                     f"{r}: -inf where the plain LSE has "
+                                     f"none, or the other way")
+            fin = torch.isfinite(want)
+            worst_lse = max(worst_lse, _ratio(
+                "lse", lse[fin], want[fin], STRIPE_LSE_TOL)[1])
+            outs.append(o)
+            lses.append(lse)
+            del ks, vs
+        merged = merge_partials(outs, lses)
+        err, worst, _ = _check(f"[serve_mesh] {count} stripes merged",
+                               "paged_decode", merged, whole_out)
+        rows[count] = dict(max_abs_err=err, over_limit=worst)
+    if worst_lse > 1.0:
+        raise AssertionError(f"[serve_mesh] K1's LSE {worst_lse:.2f} x its "
+                             f"limit {STRIPE_LSE_TOL}")
+    _, want = ref.paged_attention_ref(q.float(), pages(k).float(),
+                                      pages(v).float(), lens,
+                                      return_lse=True)
+    fin = torch.isfinite(want)
+    worst_lse = max(worst_lse, _ratio("lse", whole_lse[fin], want[fin],
+                                      STRIPE_LSE_TOL)[1])
+    log(f"[serve_mesh] (d) K1 over B{b} S{n} H32 Hkv{hkv} D{d} bf16, lengths "
+        f"1-{n} (empty stripes included): merged stripes vs the whole "
+        f"{json.dumps(rows)} (limit {BF16_TOL['paged_decode']}); LSE "
+        f"{worst_lse:.3f} x its limit {STRIPE_LSE_TOL} against the plain "
+        f"f32 LSE; output bitwise with and without return_lse; {smi}")
+    return rows
+
+
+def _long_decode_timing(k, v, device, timer, smi) -> dict:
+    """(f): K1 at (d)'s shape with every slot valid, with and without its
+    LSE, against its byte bound, SDPA over the cache viewed [B, S, Hkv,
+    D] (``enable_gqa``) and the plain version; CUDA-graph replay, cold
+    L2."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_decode
+
+    b, n, hkv, d = k.shape
+    gen = torch.Generator(device=device).manual_seed(1516)
+    q = torch.randn(b, 32, d, generator=gen, device=device).to(k.dtype)
+    lens = torch.full((b,), n, dtype=torch.int32, device=device)
+    kp = k.reshape(b, n // 128, 128, hkv, d)
+    vp = v.reshape(b, n // 128, 128, hkv, d)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = sdpa(q[:, :, None], kt, vt, enable_gqa=True)[:, :, 0]
+    _check("[serve_mesh] (f) SDPA yardstick", "paged_decode", lib,
+           paged_decode(q, kp, vp, lens))
+    n_bytes = nbytes(k, v, q, lens) + nbytes(q)
+    bms, by = bound_ms(n_bytes, 4 * 32 * d * b * n, k.dtype)
+    row = dict(shape=f"B{b} S{n} H32 Hkv{hkv} D{d} bf16, every slot valid",
+               ms=timer.ms(lambda: paged_decode(q, kp, vp, lens)),
+               ms_with_lse=timer.ms(lambda: paged_decode(
+                   q, kp, vp, lens, return_lse=True)),
+               bound_ms=bms, bound_by=by, bound_bytes=n_bytes,
+               library_ms=timer.ms(lambda: sdpa(q[:, :, None], kt, vt,
+                                                enable_gqa=True)),
+               plain_ms=timer.ms(lambda: ref.paged_attention_ref(
+                   q, kp, vp, lens)))
+    log(f"[serve_mesh] (f) K1 timing {json.dumps(row)} (library: SDPA; "
+        f"{smi})")
+    return row
+
+
+def phase_serve_mesh(device, timer, smi) -> dict:
+    """Phase 15 (see the module's docstring).  Returns the sharded runs'
+    launch counts."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import INPUT_SHAPES, InputShape, get_config
+    from repro_torch.distributed.sharding import whole
+    from repro_torch.launch.mesh import make_rules
+    from repro_torch.launch.specs import make_plan
+    from repro_torch.models.model import Model
+
+    mesh = init_device_mesh(device.type, (1, 1),
+                            mesh_dim_names=("data", "model"))
+    total = dict.fromkeys(KERNELS, 0)
+    tiny = get_config("skymemory-tinyllama")
+
+    # (a) decode_32k, the global batch cut from 128 to 16 (one card)
+    t = time.perf_counter()
+    shape = InputShape("decode_32k", 32_768, 16, "decode")
+    pos0 = torch.linspace(30_000, 32_700, 16).to(torch.int32)
+    row, counts, cache0 = _serve_pair(tiny, shape, mesh, device, pos0=pos0,
+                                      seed=150)
+    add_counts(total, counts)
+    log(f"[serve_mesh] (a) {json.dumps(row)}; {time.perf_counter() - t:.1f} "
+        f"s")
+    k, v = cache0["kv"]["k"][0], cache0["kv"]["v"][0]
+    # (d) and (f) on layer 0's K/V
+    t = time.perf_counter()
+    _stripe_check(k, v, device, smi)
+    _long_decode_timing(k, v, device, timer, smi)
+    log(f"[serve_mesh] (d), (f) {time.perf_counter() - t:.1f} s")
+    del cache0, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) long_500k: a 32,768-slot ring past its wrap, batch 1
+    t = time.perf_counter()
+    shape = INPUT_SHAPES["long_500k"]
+    row, counts = _serve_pair(tiny, shape, mesh, device,
+                              pos0=torch.tensor([524_286], dtype=torch.int32),
+                              seed=151)[:2]
+    add_counts(total, counts)
+    slots = [(524_286 + i) % 32_768 for i in range(SERVE_MESH_STEPS)]
+    log(f"[serve_mesh] (b) {json.dumps(row)}; slots written {slots}; "
+        f"{time.perf_counter() - t:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) mamba2-1.3b at decode_32k's full batch: the f32 state's heads
+    # over model
+    t = time.perf_counter()
+    row, counts = _serve_pair(get_config("mamba2-1.3b"),
+                              INPUT_SHAPES["decode_32k"], mesh, device,
+                              pos0=torch.full((128,), 30_000,
+                                              dtype=torch.int32),
+                              seed=152)[:2]
+    add_counts(total, counts)
+    log(f"[serve_mesh] (c) {json.dumps(row)}; {time.perf_counter() - t:.1f} "
+        f"s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the prefill plan: prefill_32k's 32,768 tokens, batch cut to 1
+    t = time.perf_counter()
+    shape = InputShape("prefill_32k", 32_768, 1, "prefill")
+    plan = make_plan(tiny, shape, make_rules(mesh, tiny, shape),
+                     device=device)
+    plan.model.init(torch.Generator(device=device).manual_seed(153))
+    plain = Model(plan.cfg, device=device)
+    plain.load_state_dict(plan.model.state_dict())
+    tokens = torch.randint(0, tiny.vocab_size, (1, 32_768), dtype=torch.int32,
+                           device=device, generator=torch.Generator(
+                               device=device).manual_seed(154))
+    with torch.no_grad():
+        lg0, st0 = plain.forward(tokens, collect_state=True)
+    last0 = lg0[:, -1:].clone()
+    del lg0
+    (last1, st1), counts = counted(lambda: plan.fn({"tokens": tokens}))
+    add_counts(total, counts)
+    last1 = whole(last1)
+    kv1 = {n: whole(x) for n, x in st1["kv"].items()}
+    parts = {"last_logits": _ratio("serve", last1, last0,
+                                   SERVE_MESH_TOL)[1]}
+    for n, x in kv1.items():
+        parts[n] = _ratio("serve", x, st0["kv"][n], SERVE_MESH_TOL)[1]
+    bitwise = torch.equal(last1, last0) and all(
+        torch.equal(kv1[n], st0["kv"][n]) for n in kv1)
+    row = dict(model=tiny.name, shape=shape.name, batch=1, tokens=32_768,
+               bitwise=bitwise, worst_over_bf16_limit=parts,
+               launches=counts)
+    if max(parts.values()) > 1.0:
+        raise AssertionError(f"[serve_mesh] (e) the prefill plan parts from "
+                             f"the unsharded forward: {row}")
+    if counts["flash_prefill"] != tiny.num_layers:
+        raise AssertionError(f"[serve_mesh] (e) launches {counts}")
+    log(f"[serve_mesh] (e) {json.dumps(row)}; {time.perf_counter() - t:.1f} "
+        f"s")
+    del plan, plain, st0, st1, kv1
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = 2 * tiny.num_layers * SERVE_MESH_STEPS
+    if total["paged_decode"] != want:
+        raise AssertionError(f"[serve_mesh] K1 launched "
+                             f"{total['paged_decode']} times, want {want}")
+    log(f"[serve_mesh] launches over (a)-(c) and (e): {total}")
+    return total
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -5152,13 +5500,18 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         log(f"[phase] mesh {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        serve_mesh_counts = phase_serve_mesh(device, timer, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[phase] serve_mesh {time.perf_counter() - t0:.1f} s")
     finally:
         close_world(store)
     # launches over every phase's main-path runs, each counted from 0
     for phase in (*fabric_counts.values(), cluster_counts, family_counts,
                   hybrid_counts, mla_counts, seamless_counts,
                   *train_model_counts, *train_counts, launch_counts,
-                  example_counts, mesh_counts):
+                  example_counts, mesh_counts, serve_mesh_counts):
         for k in KERNELS:
             counts[k] += phase[k]
 

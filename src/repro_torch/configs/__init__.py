@@ -75,5 +75,15 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, **kw)
 
 
+def shape_variant(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
+    """Per-shape config tweaks: long-context decode needs sub-quadratic
+    memory, so at ``long_500k`` every family but the SSM switches to a
+    ring of 32,768 K/V slots (the hybrid's shared attention too); the
+    SSM runs natively."""
+    if shape.name == "long_500k" and cfg.arch_type != "ssm":
+        return cfg.replace(sliding_window=32_768)
+    return cfg
+
+
 __all__ = ["ARCH_IDS", "INPUT_SHAPES", "InputShape", "ModelConfig",
-           "get_config", "list_configs", "smoke_config"]
+           "get_config", "list_configs", "shape_variant", "smoke_config"]

@@ -5,6 +5,9 @@ from repro_torch.distributed.sharding import (
     MeshShape,
     active_rules,
     batch_spec,
+    cache_shardings,
+    cache_specs,
+    distribute_cache,
     distribute_model,
     maybe_shard,
     param_shardings,
@@ -17,6 +20,9 @@ __all__ = [
     "MeshShape",
     "active_rules",
     "batch_spec",
+    "cache_shardings",
+    "cache_specs",
+    "distribute_cache",
     "distribute_model",
     "maybe_shard",
     "param_shardings",

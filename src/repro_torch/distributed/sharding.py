@@ -107,8 +107,11 @@ def fits(shape, spec: tuple, rules: AxisRules) -> bool:
 
 def divisible(shape, spec: tuple, rules: AxisRules) -> tuple:
     """``spec`` with each entry whose dim does not divide it replaced by
-    None (the reference's fallback)."""
-    return tuple(axes if axes is not None
+    None (the reference's fallback).  A dim of size 1 is never sharded
+    either: it divides only axes of size 1, where sharding is the same
+    layout as replicating, and ``DTensor``'s view rules drop such a dim
+    (a one-row batch would fail at ``x @ w``)."""
+    return tuple(axes if axes is not None and dim > 1
                  and dim % rules.axis_size(axes) == 0 else None
                  for dim, axes in zip(shape, spec))
 
@@ -171,7 +174,8 @@ def maybe_shard(x, logical: str):
     spec = spec_fn(rules)
     if not fits(x.shape, spec, rules):
         return x
-    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
+    return x.redistribute(x.device_mesh, placements(
+        divisible(x.shape, spec, rules), x.device_mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -264,11 +268,90 @@ def distribute_model(model, rules: AxisRules):
 
 
 # ---------------------------------------------------------------------------
-# Batch specs.
+# Batch and cache specs.
 # ---------------------------------------------------------------------------
 
 def batch_spec(rules: AxisRules, *, batch_shardable: bool = True) -> tuple:
     return (rules.data,) if batch_shardable else (None,)
+
+
+def rows_shardable(batch: int, rules: AxisRules) -> bool:
+    """Whether a batch of ``batch`` rows rides the data axes: it divides
+    them and has more than one row (``divisible``)."""
+    return divisible((batch,), (rules.data,), rules)[0] is not None
+
+
+def cache_specs(cache: dict, rules: AxisRules, *, batch: int) -> dict:
+    """Decode-cache specs, ``{part: {name: spec}}`` over a cache of
+    ``init_cache``'s layout (``(layers, batch, seq, heads..., dim)``;
+    only shapes are read, so ``meta`` tensors serve).
+
+    The cache *sequence* dim is striped across ranks -- the paper's chunk
+    striping at chip scale:
+
+    * batch >= data size: batch over data, sequence over ``model``;
+    * batch < data size (or ``rules.seq_shard_cache``): sequence over
+      *every* axis, the data axes major.
+
+    Decode attention then runs on each rank's stripe and the ranks'
+    partials merge (``distributed/decode.py``).  The SSM state keeps its
+    heads over ``model`` and its batch over data (not at batch < data
+    size); the conv state its batch alone.  A dim that does not divide
+    its axes falls back to None."""
+    dsize = rules.axis_size(rules.data_axes)
+    seq_shard = rules.seq_shard_cache or batch < dsize
+    tp = rules.model_axis
+    b_ax = None if seq_shard else rules.data
+
+    def spec_of(part: str, name: str, t) -> tuple:
+        if part == "ssm":
+            spec = ((None, b_ax, tp, None, None) if name == "state"
+                    else (None, b_ax, None, None))
+        else:                           # kv / mla / cross: (L, B, S, ...)
+            s_ax = (*rules.data_axes, tp) if seq_shard else tp
+            spec = (None, b_ax, s_ax) + (None,) * (t.dim() - 3)
+        return divisible(t.shape, spec[:t.dim()], rules)
+
+    return {part: {name: spec_of(part, name, t) for name, t in leaves.items()}
+            for part, leaves in cache.items()}
+
+
+def cache_shardings(cache: dict, rules: AxisRules, *, batch: int) -> dict:
+    """Each cache leaf's ``DTensor`` placements on ``rules.mesh``."""
+    return {part: {name: placements(spec, rules.mesh)
+                   for name, spec in leaves.items()}
+            for part, leaves in cache_specs(cache, rules,
+                                            batch=batch).items()}
+
+
+@torch.no_grad()
+def distribute_cache(cache: dict, rules: AxisRules, *, batch: int) -> dict:
+    """The cache with every leaf a ``DTensor`` laid out by
+    ``cache_shardings``.  Every rank holds the same whole cache (zeros, or
+    one prefill's state), so each keeps its own shard and nothing is
+    sent."""
+    from torch.distributed.tensor import distribute_tensor
+
+    layout = cache_shardings(cache, rules, batch=batch)
+    return {part: {name: distribute_tensor(t, rules.mesh, layout[part][name],
+                                           src_data_rank=None)
+                   for name, t in leaves.items()}
+            for part, leaves in cache.items()}
+
+
+def layer(t: torch.Tensor, l: int) -> torch.Tensor:
+    """Layer ``l`` of a stacked cache leaf ``[L, ...]``.  Of a ``DTensor``
+    (whose layer dim is never sharded) it is a ``DTensor`` over a view
+    of the local shard, so that writes to its local tensor land in the
+    cache."""
+    if not is_dtensor(t):
+        return t[l]
+    from torch.distributed.tensor import DTensor, Shard
+
+    pls = [Shard(pl.dim - 1) if pl.is_shard() else pl for pl in t.placements]
+    return DTensor.from_local(t.to_local()[l], t.device_mesh, pls,
+                              run_check=False, shape=t.shape[1:],
+                              stride=t.stride()[1:])
 
 
 # ---------------------------------------------------------------------------

@@ -48,8 +48,8 @@ F = ctypes.c_float
 # C signature of every entry point: (argtypes), restype is c_int
 SIGNATURES: dict[str, dict[str, tuple]] = {
     "paged_attention": {
-        f"paged_decode_{t}": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F,
-                              P)
+        f"paged_decode_{t}": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                              F, P)
         for t in ("f32", "bf16")
     },
     "chunked_prefill": {

@@ -43,6 +43,14 @@
 // 0, the denominator is clamped at 1e-30, a sequence with lengths == 0
 // writes zeros, query head h reads kv head h / rep, f32 accumulation
 // throughout.
+//
+// Optionally (a non-null ``lse``) each query head's natural-log
+// log-sum-exp of its scaled scores, max + log(denominator), is written
+// too, -inf for a sequence with lengths == 0: at the single-split exit
+// from the split's own max and denominator, at the combine from the
+// combined ones.  A sequence-striped cache (one stripe of the tokens per
+// rank) merges the ranks' outputs with it exactly.  The output does not
+// depend on it: the same values are written with or without.
 
 #include <stdint.h>
 
@@ -99,6 +107,7 @@ paged_decode_kernel(const T* __restrict__ q,        // [B, H, D]
                     float* __restrict__ part,  // [B, Hkv, splits, rep, Dv+2]
                     int* __restrict__ counters,            // [B * Hkv], 0
                     T* __restrict__ out,                   // [B, H, Dv]
+                    float* __restrict__ lse,         // [B, H] or null
                     int pages_per_seq, int page, int h, int hkv, int d,
                     int dv, float scale) {
   constexpr int CH = 16 / sizeof(T);  // elements per 16-byte copy
@@ -140,9 +149,14 @@ paged_decode_kernel(const T* __restrict__ q,        // [B, H, D]
   for (int i = tid; i < rep * d; i += THREADS) qs[i] = to_f32(qg[i]);
   const int n_live = (len + SPLIT - 1) / SPLIT;
   T* og = out + ((size_t)b * h + (size_t)g * rep) * dv;
+  float* lg = lse != nullptr ? lse + (size_t)b * h + (size_t)g * rep
+                             : nullptr;
   if (len == 0) {
-    if (s == 0)
+    if (s == 0) {
       for (int i = tid; i < rep * dv; i += THREADS) og[i] = from_f32<T>(0.f);
+      if (lg != nullptr)
+        for (int r = tid; r < rep; r += THREADS) lg[r] = -INFINITY;
+    }
     return;
   }
   if (s >= n_live) return;
@@ -257,7 +271,11 @@ paged_decode_kernel(const T* __restrict__ q,        // [B, H, D]
       }
     }
   }
-  if (n_live == 1) return;
+  if (n_live == 1) {
+    if (lg != nullptr)
+      for (int r = tid; r < rep; r += THREADS) lg[r] = ms[r] + logf(ls[r]);
+    return;
+  }
   for (int r = tid; r < rep; r += THREADS) {
     dst[r * ps + dv] = ms[r];
     dst[r * ps + dv + 1] = ls[r];
@@ -288,6 +306,7 @@ paged_decode_kernel(const T* __restrict__ q,        // [B, H, D]
       den += w * cl[z * rep + r];
     }
     ms[r] = 1.f / fmaxf(den, 1e-30f);
+    if (lg != nullptr) lg[r] = mx + logf(den);
   }
   __syncthreads();
   for (int i = tid; i < rep * npair; i += THREADS) {
@@ -311,8 +330,9 @@ paged_decode_kernel(const T* __restrict__ q,        // [B, H, D]
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* lengths, const void* block_tables, void* part,
-           void* counters, void* out, int b, int pages_per_seq, int page,
-           int h, int hkv, int d, int dv, float scale, void* stream) {
+           void* counters, void* out, void* lse, int b, int pages_per_seq,
+           int page, int h, int hkv, int d, int dv, float scale,
+           void* stream) {
   constexpr int CH = 16 / sizeof(T);  // elements per 16-byte copy
   const int rep = h / hkv;
   const int splits = (pages_per_seq * page + SPLIT - 1) / SPLIT;
@@ -328,8 +348,8 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), static_cast<const int*>(lengths),
       static_cast<const int*>(block_tables), static_cast<float*>(part),
-      static_cast<int*>(counters), static_cast<T*>(out), pages_per_seq, page,
-      h, hkv, d, dv, scale);
+      static_cast<int*>(counters), static_cast<T*>(out),
+      static_cast<float*>(lse), pages_per_seq, page, h, hkv, d, dv, scale);
   return (int)cudaGetLastError();
 }
 
@@ -339,26 +359,28 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 // C entry points, bound with ctypes.  ``part`` is f32 scratch of
 // B * Hkv * splits * (H / Hkv) * (Dv + 2) values, splits =
 // ceil(P * page / 64); ``counters`` is B * Hkv int32 that are 0 on entry
-// and 0 again when the launch has finished.  Each returns
-// cudaGetLastError() after its launch (0 on success).
+// and 0 again when the launch has finished; ``lse`` is null or B * H
+// f32 (each query head's log-sum-exp).  Each returns cudaGetLastError()
+// after its launch (0 on success).
 extern "C" int paged_decode_f32(const void* q, const void* k_pool,
                                 const void* v_pool, const void* lengths,
                                 const void* block_tables, void* part,
-                                void* counters, void* out, int b,
+                                void* counters, void* out, void* lse, int b,
                                 int pages_per_seq, int page, int h, int hkv,
                                 int d, int dv, float scale, void* stream) {
   return repro_torch::launch<float>(q, k_pool, v_pool, lengths, block_tables,
-                                    part, counters, out, b, pages_per_seq,
-                                    page, h, hkv, d, dv, scale, stream);
+                                    part, counters, out, lse, b,
+                                    pages_per_seq, page, h, hkv, d, dv, scale,
+                                    stream);
 }
 
 extern "C" int paged_decode_bf16(const void* q, const void* k_pool,
                                  const void* v_pool, const void* lengths,
                                  const void* block_tables, void* part,
-                                 void* counters, void* out, int b,
+                                 void* counters, void* out, void* lse, int b,
                                  int pages_per_seq, int page, int h, int hkv,
                                  int d, int dv, float scale, void* stream) {
   return repro_torch::launch<__nv_bfloat16>(
-      q, k_pool, v_pool, lengths, block_tables, part, counters, out, b,
+      q, k_pool, v_pool, lengths, block_tables, part, counters, out, lse, b,
       pages_per_seq, page, h, hkv, d, dv, scale, stream);
 }

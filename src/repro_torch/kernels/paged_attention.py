@@ -6,7 +6,9 @@ One CUDA kernel replaces both Pallas decode kernels of
 tables), in one launch: each sequence's keys are cut into splits of
 ``SPLIT`` tokens (``decode_splits``), each split computes a softmax
 partial for the query heads of its kv head, and the last split of each
-(sequence, kv head) to finish combines them.  ``paged_decode`` takes
+(sequence, kv head) to finish combines them; asked for, it also writes
+each query head's log-sum-exp, so that partial attentions over stripes
+of one sequence merge exactly.  ``paged_decode`` takes
 CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the plain
 version in ``kernels/ref.py``.
 """
@@ -78,9 +80,13 @@ def _check_inputs(q, k, v, lengths, block_tables):
 def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  lengths: torch.Tensor,
                  block_tables: torch.Tensor | None = None, *,
-                 softmax_scale: float | None = None) -> torch.Tensor:
+                 softmax_scale: float | None = None,
+                 return_lse: bool = False):
     """Decode attention of ``q`` [B, H, D] over paged K/V; returns
-    [B, H, Dv] in q's dtype.
+    [B, H, Dv] in q's dtype, and with ``return_lse`` also each head's
+    log-sum-exp of its scaled scores, [B, H] f32 (natural log; -inf for
+    a sequence of length 0): ``(out, lse)``.  The output is the same with
+    or without it.
 
     With ``block_tables`` [B, P] (int32), k/v are a shared pool
     [N, page, Hkv, D]; without, they are contiguous per-sequence pages
@@ -121,18 +127,21 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     # per-split partial (numerators, max, denominator) of each query head
     part = torch.empty((b, hkv, decode_splits(pages_per_seq, page), h // hkv,
                         dv + 2), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     counters = _counters(q.device, b * hkv)
     fn = getattr(_build.load("paged_attention"),
                  f"paged_decode_{_DTYPES[q.dtype]}")
     code = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
               lengths.data_ptr(),
               None if block_tables is None else block_tables.data_ptr(),
-              part.data_ptr(), counters.data_ptr(), out.data_ptr(), b,
+              part.data_ptr(), counters.data_ptr(), out.data_ptr(),
+              None if lse is None else lse.data_ptr(), b,
               pages_per_seq, page, h, hkv, d, dv, scale,
               torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "paged_decode")
     _build.count(paged_decode)
-    return out
+    return (out, lse) if return_lse else out
 
 
 paged_decode.launches = 0

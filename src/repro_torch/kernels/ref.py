@@ -256,14 +256,18 @@ def paged_attention_ref(
     *,
     softmax_scale: float | None = None,
     block_tables: torch.Tensor | None = None,   # [B, P] page ids
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Decode attention over a block-paged KV cache (one new token).
 
     Without ``block_tables`` the pages are the contiguous per-sequence
     list ``[B, P, page, Hkv, D]``; with them, k/v are a shared pool
     ``[N, page, Hkv, D]`` and each sequence's pages come from its table
     row.  GQA is contracted per KV-head group.  A row with
-    ``lengths == 0`` returns zeros."""
+    ``lengths == 0`` returns zeros.  With ``return_lse`` it returns
+    ``(out, lse)``: ``lse`` [B, H] f32 is each head's natural-log
+    log-sum-exp of its valid scaled scores, -inf at ``lengths == 0``;
+    ``out`` is the same as without."""
     if block_tables is not None:
         k_pages = k_pages[block_tables.long()]
         v_pages = v_pages[block_tables.long()]
@@ -283,7 +287,11 @@ def paged_attention_ref(
     probs = torch.softmax(s, dim=-1).to(v.dtype)
     out = torch.einsum("bgrs,bsgd->bgrd", probs, v).reshape(b, h, dv)
     any_valid = (lengths > 0)[:, None, None]
-    return torch.where(any_valid, out, torch.zeros_like(out))
+    out = torch.where(any_valid, out, torch.zeros_like(out))
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1).reshape(b, h)
+    return out, torch.where(any_valid[:, :, 0], lse, -torch.inf)
 
 
 def chunked_prefill_paged_ref(

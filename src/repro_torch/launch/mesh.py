@@ -1,10 +1,19 @@
-"""Axis rules for one model and input shape: the port's
-``repro/launch/mesh.py::make_rules``.  The production meshes
-(``make_production_mesh``) come with the dry-run tools."""
+"""The production meshes and the axis rules for one model and input
+shape: the port's ``repro/launch/mesh.py``."""
 from __future__ import annotations
 
-from repro_torch.distributed.sharding import AxisRules, mesh_sizes
+from repro_torch.distributed.sharding import AxisRules, MeshShape, mesh_sizes
 from repro_torch.models.config import InputShape, ModelConfig
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """The 16x16 single-pod mesh ``("data", "model")``, or 2x16x16
+    ``("pod", "data", "model")`` across pods, as a ``MeshShape``: the
+    port builds no 256- or 512-rank mesh, and specs and plans need only
+    the axis names and sizes."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
 
 
 def make_rules(mesh, cfg: ModelConfig, shape: InputShape) -> AxisRules:

@@ -13,17 +13,21 @@ Under a mesh (training, ``repro_torch.distributed``) the projections and
 RoPE run as ``DTensor`` ops; a K/V projection sharded inside a head is
 gathered by an explicit ``redistribute`` before the head split
 (``_heads``), and the dense prefill kernel runs in ``local_map`` on each
-rank's batch rows and heads (``flash_attention``).
+rank's batch rows and heads (``flash_attention``).  Decode over a cache
+striped over its sequence dim runs the decode kernel on each rank's
+stripe and merges the stripes (``attention_decode``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.distributed.decode import run_striped
 from repro_torch.distributed.sharding import (
     active_rules,
     divisible,
     is_dtensor,
+    maybe_shard,
     partial_over,
     placements,
     run_local,
@@ -199,6 +203,9 @@ def attention_prefill_paged(p: Attention, x, cfg: ModelConfig, *, k_pool,
                                                   device=dev)   # [R, C]
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
     k_new = apply_rope(k_new, positions, cfg.rope_theta, cfg.rotary_pct)
+    q = maybe_shard(q, "decode_qkv")
+    k_new = maybe_shard(k_new, "decode_qkv")
+    v_new = maybe_shard(v_new, "decode_qkv")
 
     ok = (torch.arange(c, device=dev)[None, :] < n_valid[:, None]).reshape(-1)
     table_idx = torch.clamp(positions // page, 0, num_tables - 1).long()
@@ -244,6 +251,9 @@ def attention_decode_paged(p: Attention, x, cfg: ModelConfig, *, k_pool,
     positions = pos[:, None]
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
     k_new = apply_rope(k_new, positions, cfg.rope_theta, cfg.rotary_pct)
+    q = maybe_shard(q, "decode_qkv")
+    k_new = maybe_shard(k_new, "decode_qkv")
+    v_new = maybe_shard(v_new, "decode_qkv")
 
     if contiguous:
         p_max = k_pool.shape[0] // b
@@ -301,43 +311,93 @@ def attention_decode(p: Attention, x, cfg: ModelConfig, *, k_cache=None,
     The new row is written by index (one row per sequence) where the
     reference selects it with a one-hot ``where`` over the whole cache:
     the same values without a pass over all ``S`` slots per layer and
-    step."""
+    step.
+
+    A cache that is a ``DTensor`` striped over its sequence dim
+    (``sharding.cache_specs``; ``x`` and the weights ``DTensor``s too)
+    is attended stripe by stripe: each rank writes the new row only where
+    it owns the slot, runs the kernel with its log-sum-exp over its
+    stripe, and the ranks' partials merge (``distributed/decode.py``)."""
     b = x.shape[0]
     h, hd = cfg.num_heads, cfg.head_dim
     if cross_kv is not None:
         k, v = cross_kv
-        q = (x @ p.wq).reshape(b, h, hd)
-        lengths = torch.full((b,), k.shape[1], dtype=torch.int32,
+        q = _heads(x @ p.wq, h, hd)
+        n_valid = torch.full((b,), k.shape[1], dtype=torch.int32,
                              device=x.device)
-        return _paged(q, k, v, lengths).reshape(b, 1, h * hd) @ p.wo
+        out = _decode_attend(q, k, v, n_valid)
+        return out.reshape(b, 1, h * hd) @ p.wo
     s_cache = k_cache.shape[1]
     q, k_new, v_new = _project_qkv(p, x, cfg)
     positions = pos[:, None]
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
     k_new = apply_rope(k_new, positions, cfg.rope_theta, cfg.rotary_pct)
+    # with TP attention projections and a striped cache, gather the tiny
+    # q / k / v rather than the cache
+    q = maybe_shard(q, "decode_qkv")
+    k_new = maybe_shard(k_new, "decode_qkv")
+    v_new = maybe_shard(v_new, "decode_qkv")
 
     slot = pos % s_cache if sliding_window else pos
-    keep = (slot < s_cache)[:, None, None]
-    rows = torch.arange(b, device=x.device)
-    slot = torch.clamp(slot, max=s_cache - 1).long()
-    int8_kvc = k_cache.dtype == torch.int8
-    if int8_kvc:
-        k_new, v_new = quant_kvc(k_new), quant_kvc(v_new)
-    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
-        cache[rows, slot] = torch.where(keep, new[:, 0].to(cache.dtype),
-                                        cache[rows, slot])
     n_valid = torch.clamp(pos + 1, max=s_cache) if sliding_window else pos + 1
-    if int8_kvc:
-        k_read, v_read = (dequant_kvc(k_cache, x.dtype),
-                          dequant_kvc(v_cache, x.dtype))
-    else:
-        k_read, v_read = k_cache, v_cache
-    out = _paged(q[:, 0].contiguous(), k_read, v_read,
-                 n_valid.to(torch.int32))
+    out = _decode_attend(q, k_cache, v_cache, n_valid,
+                         (k_new, v_new, slot))
     return out.reshape(b, 1, h * hd) @ p.wo
 
 
-def _paged(q, k_cache, v_cache, lengths):
+def _decode_attend(q, k_cache, v_cache, n_valid, new=None):
+    """Attention of ``q`` [B, 1, H, hd] over the cache [B, S, Hkv, hd]
+    (``n_valid`` [B] valid slots a row), after writing ``new = (k_new,
+    v_new [B, 1, Hkv, hd], slot [B])`` where given; returns [B, H, hd].
+    A ``DTensor`` cache runs ``_attend_stripe`` on each rank's stripe
+    and merges the partials (``run_striped``); ``n_valid`` and ``slot``
+    are whole on every rank."""
+    s_cache = k_cache.shape[1]
+    if not is_dtensor(k_cache):
+        return _attend_stripe(q, k_cache, v_cache, n_valid, new, 0, s_cache)
+
+    def stripe(st, ql, *rest):
+        news, (kl, vl) = rest[:-2], rest[-2:]
+        new_l = (*news, new[2][st.rows]) if new else None
+        return _attend_stripe(ql, kl, vl, n_valid[st.rows], new_l, st.start,
+                              s_cache, return_lse=True)
+
+    rows = (q, *new[:2]) if new else (q,)
+    return run_striped(stripe, rows, (k_cache, v_cache))
+
+
+def _attend_stripe(q, k_cache, v_cache, n_valid, new, start: int,
+                   s_total: int, *, return_lse: bool = False):
+    """One stripe's part of ``_decode_attend``, on plain tensors: the
+    cache holds slots ``[start, start + S_stripe)`` of ``s_total``.  The
+    new row (``new``) is written where its slot falls in the stripe (and
+    below ``s_total``); then the kernel attends over the stripe's valid
+    slots, ``clamp(n_valid - start, 0, S_stripe)``, with its
+    log-sum-exp when ``return_lse``.  An int8 cache is dequantized
+    here."""
+    b, s_l = k_cache.shape[:2]
+    if new is not None:
+        k_new, v_new, slot = new
+        at = slot - start
+        keep = ((at >= 0) & (at < s_l) & (slot < s_total))[:, None, None]
+        rows = torch.arange(b, device=k_cache.device)
+        at = torch.clamp(at, 0, s_l - 1).long()
+        if k_cache.dtype == torch.int8:
+            k_new, v_new = quant_kvc(k_new), quant_kvc(v_new)
+        for cache, row in ((k_cache, k_new), (v_cache, v_new)):
+            cache[rows, at] = torch.where(keep, row[:, 0].to(cache.dtype),
+                                          cache[rows, at])
+    lengths = torch.clamp(n_valid - start, 0, s_l).to(torch.int32)
+    if k_cache.dtype == torch.int8:
+        k_read, v_read = (dequant_kvc(k_cache, q.dtype),
+                          dequant_kvc(v_cache, q.dtype))
+    else:
+        k_read, v_read = k_cache, v_cache
+    return _paged(q[:, 0].contiguous(), k_read, v_read, lengths,
+                  return_lse=return_lse)
+
+
+def _paged(q, k_cache, v_cache, lengths, *, return_lse: bool = False):
     """View the contiguous cache ``[B, S, Hkv, hd]`` as pages of
     ``PAGE_SIZE`` tokens (one page of ``S`` when that does not divide
     ``S``) and run the paged-decode kernel."""
@@ -345,4 +405,4 @@ def _paged(q, k_cache, v_cache, lengths):
     page = PAGE_SIZE if s % PAGE_SIZE == 0 else s
     kp = k_cache.reshape(b, s // page, page, hkv, hd)
     vp = v_cache.reshape(b, s // page, page, hkv, v_cache.shape[-1])
-    return ops.paged_attention(q, kp, vp, lengths)
+    return ops.paged_attention(q, kp, vp, lengths, return_lse=return_lse)

@@ -137,6 +137,18 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int | None = None, *,
     return cache
 
 
+def cache_bytes(cfg: ModelConfig, batch: int, seq_len: int, *,
+                src_len: int | None = None) -> int:
+    """Bytes of ``init_cache(cfg, batch, seq_len, src_len=src_len)``,
+    counted over ``meta`` tensors (nothing is allocated).  The
+    encoder-decoder needs ``src_len``, as ``init_cache`` does: the
+    reference sizes its cross K/V at ``seq_len`` instead (ROADMAP.md
+    section 3)."""
+    cache = init_cache(cfg, batch, seq_len, src_len=src_len, device="meta")
+    return sum(t.numel() * t.element_size()
+               for part in cache.values() for t in part.values())
+
+
 class PagedKVCache:
     """Shared K/V page pool + per-slot block tables (dense-attn families)."""
 

@@ -22,6 +22,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed.decode import run_striped
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.attention import flash_attention
 from repro_torch.models.config import ModelConfig
@@ -127,7 +129,13 @@ def mla_decode(p: MLA, x, cfg: ModelConfig, *, ckv_cache, krope_cache, pos,
     S)`` slots); without one, a row at ``pos >= S`` writes nothing.  The
     new row is written by index where the reference selects it with a
     one-hot ``where`` over the whole cache: the same values without a
-    pass over all ``S`` slots per layer and step."""
+    pass over all ``S`` slots per layer and step.
+
+    Latents that are ``DTensor``s striped over their sequence dim
+    (``sharding.cache_specs``) are attended stripe by stripe in
+    ``local_map``: each rank scores its stripe with a local max and sum
+    and each head's log-sum-exp, and the latent contexts [B, H, r] merge
+    (``distributed/decode.py``) before ``w_uv``."""
     b = x.shape[0]
     h = cfg.num_heads
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
@@ -137,24 +145,56 @@ def mla_decode(p: MLA, x, cfg: ModelConfig, *, ckv_cache, krope_cache, pos,
 
     s_cache = ckv_cache.shape[1]
     slot = pos % s_cache if sliding_window else pos
-    keep = (slot < s_cache)[:, None]
-    rows = torch.arange(b, device=x.device)
-    slot = torch.clamp(slot, max=s_cache - 1).long()
-    for cache, new in ((ckv_cache, c_new), (krope_cache, kr_new)):
-        cache[rows, slot] = torch.where(keep, new[:, 0].to(cache.dtype),
-                                        cache[rows, slot])
     n_valid = torch.clamp(pos + 1, max=s_cache) if sliding_window else pos + 1
 
     # W_UK absorbed into the query: q_abs[h] = q_nope[h] . W_UK[h]^T
     q_abs = torch.einsum("bhd,hrd->bhr", q_nope[:, 0], p.w_uk)
-    scores = torch.einsum("bhr,bsr->bhs", q_abs, ckv_cache.to(q_abs.dtype))
-    scores = scores + torch.einsum("bhd,bsd->bhs", q_rope[:, 0],
-                                   krope_cache.to(q_rope.dtype))
-    scores = scores.float() * (dn + dr) ** -0.5
-    valid = (torch.arange(s_cache, device=x.device)[None, None, :]
-             < n_valid[:, None, None])
-    scores = torch.where(valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhs,bsr->bhr", probs, ckv_cache.to(x.dtype))
+    args = (q_abs, q_rope[:, 0], c_new, kr_new)
+    scale = (dn + dr) ** -0.5
+    if not is_dtensor(ckv_cache):
+        ctx = _latent_stripe(*args, ckv_cache, krope_cache, n_valid, slot, 0,
+                             s_cache, scale, x.dtype)
+    else:
+        def stripe(st, *ts):
+            return _latent_stripe(*ts, n_valid[st.rows], slot[st.rows],
+                                  st.start, s_cache, scale, x.dtype,
+                                  return_lse=True)
+
+        ctx = run_striped(stripe, args, (ckv_cache, krope_cache))
     out = torch.einsum("bhr,hrd->bhd", ctx, p.w_uv)
     return out.reshape(b, 1, h * cfg.v_head_dim) @ p.wo
+
+
+def _latent_stripe(q_abs, q_rope, c_new, kr_new, ckv_cache, krope_cache,
+                   n_valid, slot, start: int, s_total: int, scale: float,
+                   dtype, *, return_lse: bool = False):
+    """One stripe of ``mla_decode`` on plain tensors: the latents hold
+    slots ``[start, start + S_stripe)`` of ``s_total``.  Writes the new
+    latent where its slot falls in the stripe, then returns the latent
+    context [B, H, r] of the softmax over the stripe's valid slots, and
+    with ``return_lse`` each head's log-sum-exp over them (-inf for a
+    stripe without one)."""
+    b, s_l = ckv_cache.shape[:2]
+    at = slot - start
+    keep = ((at >= 0) & (at < s_l) & (slot < s_total))[:, None]
+    rows = torch.arange(b, device=ckv_cache.device)
+    at = torch.clamp(at, 0, s_l - 1).long()
+    for cache, new in ((ckv_cache, c_new), (krope_cache, kr_new)):
+        cache[rows, at] = torch.where(keep, new[:, 0].to(cache.dtype),
+                                      cache[rows, at])
+    lengths = torch.clamp(n_valid - start, 0, s_l)
+
+    scores = torch.einsum("bhr,bsr->bhs", q_abs, ckv_cache.to(q_abs.dtype))
+    scores = scores + torch.einsum("bhd,bsd->bhs", q_rope,
+                                   krope_cache.to(q_rope.dtype))
+    scores = scores.float() * scale
+    valid = (torch.arange(s_l, device=scores.device)[None, None, :]
+             < lengths[:, None, None])
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    ctx = torch.einsum("bhs,bsr->bhr", probs, ckv_cache.to(dtype))
+    if not return_lse:
+        return ctx
+    lse = torch.where((lengths > 0)[:, None], torch.logsumexp(scores, -1),
+                      -torch.inf)
+    return ctx, lse

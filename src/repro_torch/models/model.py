@@ -50,7 +50,12 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import maybe_shard
+from repro_torch.distributed.sharding import (
+    at_layout,
+    is_dtensor,
+    layer,
+    maybe_shard,
+)
 from repro_torch.models.attention import (
     Attention,
     attention_decode,
@@ -112,12 +117,21 @@ def _remat(fn, policy: str | None):
     return run
 
 
-def _moe_layer(cfg: ModelConfig, layer: int) -> bool:
-    """Whether layer ``layer`` of an attention stack is a MoE layer: the
+def _moe_layer(cfg: ModelConfig, l: int) -> bool:
+    """Whether layer ``l`` of an attention stack is a MoE layer: the
     MoE family's, except the first ``first_k_dense`` layers of an MLA
     model."""
     return cfg.num_experts > 0 and not (cfg.use_mla
-                                        and layer < cfg.first_k_dense)
+                                        and l < cfg.first_k_dense)
+
+
+def _store(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; into a ``DTensor`` cache view, into its local
+    shard, ``src`` first laid out as ``dst`` is."""
+    if is_dtensor(dst):
+        dst.to_local().copy_(at_layout(src, dst).to_local())
+    else:
+        dst.copy_(src)
 
 
 class Block(nn.Module):
@@ -485,7 +499,15 @@ class Model(nn.Module):
         sequence has cached.  The SSM family needs no ``pos``.  The
         encoder-decoder's layers attend over ``cache["cross"]`` after
         their self-attention; that part is read, never written.  Returns
-        logits [B, 1, V]."""
+        logits [B, 1, V].
+
+        Sharded (under ``use_rules``, the weights distributed): the cache
+        leaves are ``DTensor``s laid out by ``sharding.cache_shardings``
+        and each rank updates its own shard in place; ``tokens`` is a
+        ``DTensor`` (rows over data, or whole), ``pos`` a plain tensor
+        that every rank holds whole; the logits come back a ``DTensor``.
+        Attention and MLA decode stripe by stripe and merge; the SSM
+        recurrence runs on each rank's heads."""
         cfg = self.cfg
         swin = cfg.sliding_window or None
         if pos is None and cfg.arch_type != "ssm":
@@ -495,35 +517,37 @@ class Model(nn.Module):
         j = 0                                   # shared-attention call
         for l, blk in enumerate(self.blocks):
             if self.is_ssm:
-                conv, state = cache["ssm"]["conv"][l], cache["ssm"]["state"][l]
+                conv = layer(cache["ssm"]["conv"], l)
+                state = layer(cache["ssm"]["state"], l)
                 y, cv, st = ssd_decode(blk.ssd, blk.norm1(x), cfg,
                                        conv_state=conv, ssm_state=state)
-                conv.copy_(cv)
-                state.copy_(st)
+                _store(conv, cv)
+                _store(state, st)
                 x = x + y
                 if self.shared_attn is not None and cfg.is_attn_layer(l):
                     sa = self.shared_attn
                     x = x + attention_decode(
-                        sa.attn, sa.norm(x), cfg, k_cache=kv["k"][j],
-                        v_cache=kv["v"][j], pos=pos, sliding_window=swin)
+                        sa.attn, sa.norm(x), cfg, k_cache=layer(kv["k"], j),
+                        v_cache=layer(kv["v"], j), pos=pos,
+                        sliding_window=swin)
                     j += 1
             elif cfg.use_mla:
                 x = x + mla_decode(
                     blk.attn, blk.norm1(x), cfg,
-                    ckv_cache=cache["mla"]["ckv"][l],
-                    krope_cache=cache["mla"]["kr"][l], pos=pos,
+                    ckv_cache=layer(cache["mla"]["ckv"], l),
+                    krope_cache=layer(cache["mla"]["kr"], l), pos=pos,
                     sliding_window=swin)
                 x = x + blk.ffn(blk.norm2(x))[0]
             else:
                 x = x + attention_decode(
-                    blk.attn, blk.norm1(x), cfg, k_cache=kv["k"][l],
-                    v_cache=kv["v"][l], pos=pos, sliding_window=swin)
+                    blk.attn, blk.norm1(x), cfg, k_cache=layer(kv["k"], l),
+                    v_cache=layer(kv["v"], l), pos=pos, sliding_window=swin)
                 if self.cross is not None:
                     cb = self.cross[l]
                     x = x + attention_decode(
                         cb.attn, cb.norm(x), cfg,
-                        cross_kv=(cache["cross"]["k"][l],
-                                  cache["cross"]["v"][l]))
+                        cross_kv=(layer(cache["cross"]["k"], l),
+                                  layer(cache["cross"]["v"], l)))
                 x = x + blk.ffn(blk.norm2(x))[0]
         return self.embed.logits(self.final_norm(x))
 

@@ -25,6 +25,7 @@ from torch import nn
 
 from repro_torch.distributed.sharding import (
     active_rules,
+    at_layout,
     divisible,
     is_dtensor,
     partial_over,
@@ -241,16 +242,53 @@ def ssd_prefill(m: SSD, x: torch.Tensor, cfg: ModelConfig, *,
     return out, {"conv": conv_in[:, -k1:], "state": ssm_state}
 
 
+def decode_recurrence(xh, dt, a, bv, cv, ssm_state):
+    """``ops.ssd_decode_step``; with a ``DTensor`` state (``[B, H, P, N]``,
+    heads over ``model`` as ``sharding.cache_specs`` lays it out), inside
+    ``local_map`` on each rank's rows and heads.  B and C (``[B, G, N]``)
+    are read whole over the head axes, and each rank takes the groups its
+    heads read (head ``h`` reads group ``h // (H / G)``)."""
+    if not is_dtensor(ssm_state):
+        return ops.ssd_decode_step(xh, dt, a, bv, cv, ssm_state)
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed.decode import block_index
+
+    mesh = ssm_state.device_mesh
+    pls = list(ssm_state.placements)         # batch Shard(0), heads Shard(1)
+    a_pl = [Shard(0) if pl.is_shard(1) else Replicate() for pl in pls]
+    rows = [pl if pl.is_shard(0) else Replicate() for pl in pls]
+    head_axes = tuple(n for n, pl in zip(mesh.mesh_dim_names, pls)
+                      if pl.is_shard(1))
+    rep = xh.shape[1] // bv.shape[1]
+
+    def local(xl, dtl, al, bl, cl, sl):
+        h_l = xl.shape[1]
+        first = block_index(mesh, head_axes)[0] * h_l
+        groups = (first + torch.arange(h_l, device=xl.device)) // rep
+        return ops.ssd_decode_step(xl, dtl, al, bl[:, groups], cl[:, groups],
+                                   sl)
+
+    return run_local(local, mesh, (pls, pls, a_pl, rows, rows, pls),
+                     (pls, pls))(xh, dt, a, bv, cv, ssm_state)
+
+
 def ssd_decode(m: SSD, x: torch.Tensor, cfg: ModelConfig, *,
                conv_state: torch.Tensor, ssm_state: torch.Tensor):
     """x [B, 1, D]; the O(1) recurrence.  Returns ``(out [B, 1, D],
-    conv_state', ssm_state')``."""
+    conv_state', ssm_state')``.  Under a mesh the state's heads ride
+    ``model`` and the recurrence runs on each rank's heads
+    (``decode_recurrence``); the conv state stays whole over ``model``."""
     bsz = x.shape[0]
     di, g, n, h, p = _dims(cfg)
     xt = x[:, 0]
     z = xt @ m.wz
-    xin = xt @ m.wx
-    bc = torch.cat([xt @ m.wb, xt @ m.wc], dim=-1)
+
+    def rows(t):          # a projection laid out as the conv state's rows
+        return at_layout(t, conv_state)
+
+    xin = rows(xt @ m.wx)
+    bc = torch.cat([rows(xt @ m.wb), rows(xt @ m.wc)], dim=-1)
     dt = xt @ m.wdt
 
     new_in = torch.cat([xin, bc], dim=-1)                        # [B, C]
@@ -267,8 +305,8 @@ def ssd_decode(m: SSD, x: torch.Tensor, cfg: ModelConfig, *,
     bv = cbc[:, : g * n].reshape(bsz, g, n)
     cv = cbc[:, g * n:].reshape(bsz, g, n)
     dt = F.softplus(dt.float() + m.dt_bias)                     # [B, H]
-    y, new_ssm = ops.ssd_decode_step(xh, dt, -torch.exp(m.a_log), bv, cv,
-                                     ssm_state)
+    y, new_ssm = decode_recurrence(xh, dt, -torch.exp(m.a_log), bv, cv,
+                                   ssm_state)
     y = y + m.d_skip[None, :, None].to(y.dtype) * xh
     y = rms_norm_gated(y.reshape(bsz, di), z, m.norm_scale, cfg.norm_eps)
     return (y @ m.out_proj)[:, None], window[:, 1:], new_ssm

@@ -28,6 +28,7 @@ from repro_torch.distributed.sharding import (
     distribute_model,
     param_specs,
     placements,
+    rows_shardable,
     use_rules,
     whole,
 )
@@ -92,21 +93,27 @@ def shard_batch(batch: dict, rules: AxisRules | None) -> dict:
         return batch
     from torch.distributed.tensor import distribute_tensor
 
-    b = batch["tokens"].shape[0]
-    spec = batch_spec(rules, batch_shardable=b % rules.axis_size(
-        rules.data_axes) == 0)
+    spec = batch_spec(rules, batch_shardable=rows_shardable(
+        batch["tokens"].shape[0], rules))
     pls = placements(spec, rules.mesh)
     return {k: distribute_tensor(v, rules.mesh, pls, src_data_rank=None)
             for k, v in batch.items()}
 
 
 def make_train_step(model: Model, tcfg: TrainConfig,
-                    rules: AxisRules | None = None) -> Callable:
+                    rules: AxisRules | None = None, *,
+                    grad_accum: int = 1) -> Callable:
     """``step(opt_state, batch) -> metrics``: the loss and its gradient
     over ``batch`` (tensors on the model's device), then one AdamW update
     of the model's parameters and ``opt_state`` in place.  The metrics
     are f32 device scalars: ``ce``, ``aux``, ``loss``, ``grad_norm`` and
     ``lr``.
+
+    With ``grad_accum > 1`` the batch is cut into that many microbatches
+    of consecutive rows; their gradients, each cast to f32 and divided by
+    ``grad_accum``, are summed before the update, as the reference's
+    ``lax.scan`` accumulates them, and ``ce``, ``aux`` and ``loss`` are
+    the last microbatch's.
 
     With ``rules`` the model's parameters become ``DTensor``s laid out by
     ``param_shardings`` (``distribute_model``), the step runs under the
@@ -116,14 +123,30 @@ def make_train_step(model: Model, tcfg: TrainConfig,
         distribute_model(model, rules)
     params = trainable(model)
 
-    def step(opt_state: dict, batch: dict) -> dict:
-        for p in params.values():
-            p.grad = None
+    def grad_of(batch: dict) -> dict:
         with use_rules(rules):
             loss, metrics = model.train_loss(shard_batch(batch, rules),
                                              remat=tcfg.remat)
             loss.backward()
-        grads = {n: p.grad for n, p in params.items()}
+        return metrics
+
+    def step(opt_state: dict, batch: dict) -> dict:
+        for p in params.values():
+            p.grad = None
+        if grad_accum <= 1:
+            metrics = grad_of(batch)
+            grads = {n: p.grad for n, p in params.items()}
+        else:
+            grads = {n: torch.zeros_like(p, dtype=torch.float32)
+                     for n, p in params.items()}
+            rows = batch["tokens"].shape[0] // grad_accum
+            for i in range(grad_accum):
+                metrics = grad_of({k: v[i * rows:(i + 1) * rows]
+                                   for k, v in batch.items()})
+                for n, p in params.items():
+                    if p.grad is not None:
+                        grads[n] = grads[n] + p.grad.float() / grad_accum
+                    p.grad = None
         _, _, opt_metrics = adamw_update(tcfg.opt, params, grads, opt_state)
         for p in params.values():
             p.grad = None

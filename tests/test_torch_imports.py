@@ -89,11 +89,17 @@ def test_importing_every_module_loads_no_jax_or_repro():
               "kernels.ssd_backward", "training",
               "training.optimizer", "training.data", "training.checkpoint",
               "training.loop", "launch.train", "launch.serve",
-              "core.simulator", "core.tpu_cache"):
+              "core.simulator", "core.tpu_cache", "launch.specs",
+              "launch.mesh", "distributed.decode", "distributed.sharding"):
         assert f"repro_torch.{m}" in mods
 
 
 @pytest.mark.parametrize("package,names", [
+    ("repro_torch.distributed",
+     ("cache_specs", "cache_shardings", "distribute_cache", "param_specs",
+      "distribute_model", "maybe_shard")),
+    ("repro_torch.launch.specs", ("StepPlan", "input_specs", "make_plan")),
+    ("repro_torch.launch.mesh", ("make_production_mesh", "make_rules")),
     ("repro_torch.serving",
      ("EngineCluster", "StreamWorker", "PrefixAffinityRouter", "SLOTracker",
       "AdmissionController", "TrafficGenerator", "standard_tenants",
@@ -194,6 +200,23 @@ def test_default_device_raises_without_cuda():
                  device="cpu")
     assert not eng.paged and eng.cache is None
     assert eng._dense.device.type == "cpu"
+
+
+def test_make_plan_default_device_raises_without_cuda():
+    """A plan builds its model on the card unless asked otherwise; on
+    ``meta`` it needs no device at all."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch.mesh import make_production_mesh, make_rules
+    from repro_torch.launch.specs import make_plan
+
+    cfg, shape = get_config("skymemory-tinyllama"), INPUT_SHAPES["decode_32k"]
+    rules = make_rules(make_production_mesh(), cfg, shape)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_plan(cfg, shape, rules)
+    plan = make_plan(cfg, shape, rules, device="meta")
+    assert next(plan.model.parameters()).device.type == "meta"
 
 
 def test_other_families_raise_not_implemented():

@@ -187,6 +187,100 @@ def test_paged_attention_plain_matches_reference(b, p, page, h, hkv, d,
             assert got[i].abs().max().item() == 0.0
 
 
+@pytest.mark.parametrize(
+    "b,p,page,h,hkv,d,lengths",
+    [
+        (2, 3, 8, 4, 2, 8, [5, 24]),        # GQA, partial + full
+        (3, 2, 16, 8, 1, 16, [0, 1, 17]),   # MQA, zero-length row
+        (2, 4, 4, 2, 2, 8, [16, 9]),        # MHA, ragged last page
+    ],
+)
+@pytest.mark.parametrize("tables", [False, True])
+def test_paged_attention_plain_lse_matches_logsumexp(b, p, page, h, hkv, d,
+                                                     lengths, tables):
+    """``return_lse``: each head's log-sum-exp of its valid scaled scores
+    (natural log), -inf at length 0, against ``torch.logsumexp`` of the
+    scores written out; the output is bitwise the one without."""
+    rng = np.random.default_rng(b * 10 + p + 1)
+    q = torch.from_numpy(_rand(rng, (b, h, d)))
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    if tables:
+        n = b * p + 3
+        kp = torch.from_numpy(_rand(rng, (n, page, hkv, d)))
+        vp = torch.from_numpy(_rand(rng, (n, page, hkv, d)))
+        bt = torch.from_numpy(
+            rng.permutation(n)[: b * p].reshape(b, p).astype(np.int32))
+        k_seq = kp[bt.long()].reshape(b, p * page, hkv, d)
+    else:
+        kp = torch.from_numpy(_rand(rng, (b, p, page, hkv, d)))
+        vp = torch.from_numpy(_rand(rng, (b, p, page, hkv, d)))
+        bt = None
+        k_seq = kp.reshape(b, p * page, hkv, d)
+    out, lse = ops.paged_attention(q, kp, vp, lens, block_tables=bt,
+                                   return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h)
+    assert torch.equal(out, ops.paged_attention(q, kp, vp, lens,
+                                                block_tables=bt))
+    rep = h // hkv
+    for i, n_tok in enumerate(lengths):
+        for ih in range(h):
+            if n_tok == 0:
+                assert lse[i, ih].item() == -np.inf
+                continue
+            scores = (k_seq[i, :n_tok, ih // rep] @ q[i, ih]) * d ** -0.5
+            np.testing.assert_allclose(lse[i, ih].item(),
+                                       torch.logsumexp(scores, 0).item(),
+                                       rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("stripes", [1, 2, 4, 8])
+def test_stripes_merged_by_their_lse_equal_the_whole(stripes):
+    """A cache cut into sequence stripes: the plain decode attention of
+    each stripe, with its LSE, merged by ``distributed.decode.
+    merge_partials`` equals the attention over the whole, rows that
+    leave later stripes empty and a row of length 0 (zeros) included."""
+    from repro_torch.distributed.decode import merge_partials
+
+    b, s, h, hkv, d = 6, 64, 4, 2, 8
+    rng = np.random.default_rng(stripes)
+    q = torch.from_numpy(_rand(rng, (b, h, d)))
+    k = torch.from_numpy(_rand(rng, (b, s, hkv, d)))
+    v = torch.from_numpy(_rand(rng, (b, s, hkv, d)))
+    lens = torch.tensor([64, 40, 17, 8, 1, 0], dtype=torch.int32)
+
+    def attend(kk, vv, n):
+        pages = (b, kk.shape[1] // 8, 8, hkv, d)
+        return ops.paged_attention(q, kk.reshape(pages), vv.reshape(pages),
+                                   n, return_lse=True)
+
+    want, _ = attend(k, v, lens)
+    length = s // stripes
+    outs, lses = [], []
+    for r in range(stripes):
+        part = slice(r * length, (r + 1) * length)
+        o, lse = attend(k[:, part].contiguous(), v[:, part].contiguous(),
+                        torch.clamp(lens - r * length, 0, length))
+        outs.append(o)
+        lses.append(lse)
+    got = merge_partials(torch.stack(outs), torch.stack(lses))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6,
+                               rtol=1e-5)
+    assert got[-1].abs().max().item() == 0.0
+    if stripes == 1:
+        assert torch.equal(got, outs[0])
+
+
+def test_merge_partials_gives_zeros_where_every_stripe_is_empty():
+    from repro_torch.distributed.decode import merge_partials
+
+    outs = torch.ones(3, 2, 4, 8)
+    lses = torch.full((3, 2, 4), -torch.inf)
+    lses[1, 0] = 0.5
+    got = merge_partials(outs, lses)
+    assert torch.equal(got[0], torch.ones(4, 8))
+    assert torch.equal(got[1], torch.zeros(4, 8))
+
+
 @pytest.mark.parametrize("tables", [False, True])
 def test_paged_attention_gqa_head_mapping(tables):
     """Query head h reads kv head h // (H / Hkv): V is constant per kv
