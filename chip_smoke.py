@@ -292,6 +292,19 @@ Phases (each raises on failure; nothing is caught):
     Hkv, D]`` (``enable_gqa``) and the plain version (CUDA-graph replay,
     cold L2).
 
+16. the dry-run (``[dryrun]`` lines): ``repro_torch.launch.dryrun`` on
+    the host, in two processes of their own started after the build (no
+    device: ``CUDA_VISIBLE_DEVICES`` empty) and read here: full TinyLlama
+    at ``decode_32k`` over the 16x16 production mesh of fake ranks
+    (``python -m repro_torch.launch.dryrun``), and full TinyLlama at
+    phase 12's training shape (B4 x S2048, no remat, f32 moments) on a
+    world of one (``run_one``).  Both records must be ``ok``; the
+    predicted peak bytes, FLOPs and memory term of the training step
+    print beside phase 12's measured ``max_memory_allocated``, analytic
+    FLOPs (``train_flops``) and median step time, with their ratios; the
+    peak's and the memory term's must lie in their stated ranges
+    (``DRYRUN_PEAK_RATIO``, ``DRYRUN_MEMORY_TO_STEP``).
+
 The ``kernels`` line counts each kernel's launches over the main-path
 runs of phases 4 (training) and 5-15, each counted from 0 just before
 it.
@@ -303,6 +316,7 @@ and nothing of the ``repro`` package.
 """
 from __future__ import annotations
 
+import atexit
 import gc
 import json
 import os
@@ -2329,6 +2343,8 @@ def train_flops(cfg, batch: int, seq: int) -> float:
             + calls * 14 * hd * pairs)
 
 
+# Phase 12's measured rows by model, read by phase 16.
+TRAIN_ROWS: dict = {}
 # Phase 12's runs: (arch, steps, full checks).  The full checks (bitwise
 # step-0 gradients, a traced step, peak memory with and without remat, a
 # checkpoint round trip) run for TinyLlama and mamba2-1.3b; zamba2-1.2b
@@ -2468,6 +2484,7 @@ def phase_train(device, arch: str, *, steps=30, batch=4, seq=2048,
                host_ms_per_batch=host_ms, peak_memory_gb=peak_train,
                held_at_start_gb=held / 1e9, launches=counts)
     log(f"[train] run {json.dumps(row)}")
+    TRAIN_ROWS[name] = row
     if not full:
         del model, state, params
         return counts
@@ -5364,6 +5381,137 @@ def phase_serve_mesh(device, timer, smi) -> dict:
 
 # ---------------------------------------------------------------------------
 
+
+# ---------------------------------------------------------------------------
+# Phase 16: the dry-run, counted on the host beside the card's run.
+# ---------------------------------------------------------------------------
+
+DRYRUN_CHILD = """
+import json, sys
+from repro_torch.distributed.sharding import MeshShape
+from repro_torch.launch.dryrun import run_one
+from repro_torch.models.config import InputShape
+rec = run_one("skymemory-tinyllama", InputShape("train_b4_s2048", 2048, 4,
+              "train"), mesh=MeshShape(("data", "model"), (1, 1)),
+              remat=None)
+with open(sys.argv[1], "w") as f:
+    json.dump(rec, f)
+"""
+
+
+def start_dryrun() -> dict:
+    """Start phase 16's two counts, each a host process of its own (the
+    fake world is the default process group, and this process opens a
+    real one in phase 13): TinyLlama's serve step at ``decode_32k`` over
+    the 16x16 mesh through the command line, and its training step at
+    phase 12's shape on a world of one through ``run_one``.  They see no
+    device and use two threads each.  Stopped at exit if still running."""
+    out = ROOT / "build" / "dryrun_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "2"}
+    runs = {
+        "decode_32k": ([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--arch", "skymemory-tinyllama", "--shape",
+                        "decode_32k", "--out", str(out)],
+                       out / "skymemory-tinyllama__decode_32k__16x16.json"),
+        "train": ([sys.executable, "-c", DRYRUN_CHILD,
+                   str(out / "train.json")], out / "train.json"),
+    }
+    procs = {}
+    for name, (cmd, path) in runs.items():
+        logf = open(out / f"{name}.log", "w")
+        procs[name] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=logf,
+                                        stderr=subprocess.STDOUT),
+                       path, out / f"{name}.log", logf)
+
+    def stop():
+        for p, _, _, logf in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            logf.close()
+
+    atexit.register(stop)
+    return {"t0": time.perf_counter(), "procs": procs, "stop": stop}
+
+
+# Phase 16's ranges for the training step's count against phase 12's run
+# of the same step.  The predicted peak over the measured
+# ``max_memory_allocated``: at least 1, since the count keeps the plain
+# attention's f32 [S, S] scores, which K4 never writes; at most 1.6, the
+# top of the range predicted before the first reading (1.2564).  The
+# memory term over the measured median step time: the unfused bytes of
+# the plain arithmetic over the HBM rate overcount the step (2.24 at the
+# first reading); at least 1, at most 4, which admits a step 1.6x faster.
+DRYRUN_PEAK_RATIO = (1.0, 1.6)
+DRYRUN_MEMORY_TO_STEP = (1.0, 4.0)
+
+
+def phase_dryrun(started: dict, smi: str) -> None:
+    """Read phase 16's counts: each process must exit 0 and write an
+    ``ok`` record.  Prints each record's roofline terms on the H100's
+    constants, then the training step's predicted peak bytes, FLOPs and
+    memory term beside phase 12's measured peak (``max_memory_allocated``
+    less what was held before), analytic FLOPs (``train_flops``) and
+    median step time, with their ratios; fails when the peak's or the
+    memory term's ratio leaves ``DRYRUN_PEAK_RATIO`` or
+    ``DRYRUN_MEMORY_TO_STEP``."""
+    from repro_torch.configs import get_config
+
+    recs = {}
+    try:
+        for name, (p, path, log_path, _) in started["procs"].items():
+            rc = p.wait(timeout=300)
+            if rc != 0:
+                tail = log_path.read_text()[-2000:]
+                raise AssertionError(f"[dryrun] {name} exited {rc}: {tail}")
+            recs[name] = rec = json.loads(path.read_text())
+            if rec["status"] != "ok":
+                raise AssertionError(f"[dryrun] {name}: {rec['status']}")
+            log(f"[dryrun] {rec['arch']} x {rec['shape']} x {rec['mesh']} "
+                f"{rec['step']}: compute {rec['compute_s'] * 1e3:.3f} ms, "
+                f"memory {rec['memory_s'] * 1e3:.3f} ms, collective "
+                f"{rec['collective_s'] * 1e3:.3f} ms, dominant "
+                f"{rec['dominant']}, useful {rec['useful_flops_ratio']:.3f}, "
+                f"peak {rec['peak_memory_bytes'] / 1e9:.3f} GB/device "
+                f"(counted in {rec['full_compile_s']} s, probes "
+                f"{rec['probe_compile_s']} s; link bytes by collective "
+                f"{json.dumps(rec['collectives'])}, torch "
+                f"{torch.__version__}); predictions on the H100's roofline "
+                f"terms")
+    finally:
+        started["stop"]()
+    waited = time.perf_counter() - started["t0"]
+    cfg = get_config("skymemory-tinyllama")
+    row = TRAIN_ROWS[cfg.name]
+    train = recs["train"]
+    measured_peak = row["peak_memory_gb"] * 1e9
+    analytic = train_flops(cfg, row["batch"], row["seq"])
+    peak_ratio = train["peak_memory_bytes"] / measured_peak
+    step_ms = row["step_ms_median_5_on"]
+    memory_ratio = train["memory_s"] * 1e3 / step_ms
+    log(f"[dryrun] {cfg.name} train B{row['batch']} x S{row['seq']} on a "
+        f"world of one: predicted peak {train['peak_memory_bytes']:.6e} B "
+        f"vs phase 12's max_memory_allocated {measured_peak:.6e} B (ratio "
+        f"{peak_ratio:.4f}, range {DRYRUN_PEAK_RATIO}); memory term "
+        f"{train['memory_s'] * 1e3:.3f} ms vs phase 12's median step "
+        f"{step_ms:.3f} ms (ratio {memory_ratio:.4f}, range "
+        f"{DRYRUN_MEMORY_TO_STEP}: the unfused count of the plain "
+        f"arithmetic overcounts the step); counted FLOPs "
+        f"{train['flops_per_device']:.6e} vs phase 12's analytic "
+        f"{analytic:.6e} (ratio {train['flops_per_device'] / analytic:.4f}); "
+        f"both read {waited:.1f} s after they started; {smi}")
+    for what, ratio, (lo, hi) in (("peak", peak_ratio, DRYRUN_PEAK_RATIO),
+                                  ("memory term", memory_ratio,
+                                   DRYRUN_MEMORY_TO_STEP)):
+        if not lo <= ratio <= hi:
+            raise AssertionError(f"[dryrun] {cfg.name}: the predicted {what} "
+                                 f"over the measured is {ratio:.4f}, outside "
+                                 f"[{lo}, {hi}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5376,6 +5524,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build_logs = phase_build()
     log(f"[phase] build {time.perf_counter() - t0:.1f} s")
+    dryrun = start_dryrun()
 
     from repro_torch.configs import get_config
 
@@ -5507,6 +5656,9 @@ def main() -> int:
         log(f"[phase] serve_mesh {time.perf_counter() - t0:.1f} s")
     finally:
         close_world(store)
+    t0 = time.perf_counter()
+    phase_dryrun(dryrun, smi)
+    log(f"[phase] dryrun {time.perf_counter() - t0:.1f} s")
     # launches over every phase's main-path runs, each counted from 0
     for phase in (*fabric_counts.values(), cluster_counts, family_counts,
                   hybrid_counts, mla_counts, seamless_counts,

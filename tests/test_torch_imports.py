@@ -90,7 +90,9 @@ def test_importing_every_module_loads_no_jax_or_repro():
               "training.optimizer", "training.data", "training.checkpoint",
               "training.loop", "launch.train", "launch.serve",
               "core.simulator", "core.tpu_cache", "launch.specs",
-              "launch.mesh", "distributed.decode", "distributed.sharding"):
+              "launch.mesh", "distributed.decode", "distributed.sharding",
+              "launch.roofline", "launch.probe", "launch.dryrun",
+              "launch.roofline_report"):
         assert f"repro_torch.{m}" in mods
 
 
@@ -98,7 +100,18 @@ def test_importing_every_module_loads_no_jax_or_repro():
     ("repro_torch.distributed",
      ("cache_specs", "cache_shardings", "distribute_cache", "param_specs",
       "distribute_model", "maybe_shard")),
-    ("repro_torch.launch.specs", ("StepPlan", "input_specs", "make_plan")),
+    ("repro_torch.launch.specs", ("StepPlan", "input_specs", "make_plan",
+                                  "lower_plan", "fake_world", "Counted",
+                                  "argument_bytes")),
+    ("repro_torch.launch.roofline",
+     ("Roofline", "model_flops", "streaming_attn_correction",
+      "collective_traffic", "collectives_from", "PEAK_FLOPS", "HBM_BW",
+      "NVLINK_BW", "NIC_BW")),
+    ("repro_torch.launch.probe",
+     ("ProbeSet", "probe_set", "extract_metrics", "solve_linear")),
+    ("repro_torch.launch.dryrun", ("run_one", "main", "SKIPS")),
+    ("repro_torch.launch.roofline_report",
+     ("load", "table", "failures", "remark", "experiments_tables")),
     ("repro_torch.launch.mesh", ("make_production_mesh", "make_rules")),
     ("repro_torch.serving",
      ("EngineCluster", "StreamWorker", "PrefixAffinityRouter", "SLOTracker",
