@@ -284,21 +284,31 @@ Phases (each raises on failure; nothing is caught):
     the bf16 limit, with lengths that end inside stripes (some on K1's
     single-split exit) and leave later stripes empty; each LSE against
     the plain version's f32 LSE (``STRIPE_LSE_TOL``); K1's output bitwise
-    with and without ``return_lse``.  (e) the prefill plan at
+    with and without ``return_lse``; each stripe's f32 output
+    (``out_dtype=torch.float32``, what the striped serve step merges)
+    against the plain version in f32 at the bf16 limit and, rounded,
+    bitwise the bf16 output, and the merges of f32 and of bf16 partials
+    against an f32 attention over the whole cache (the first no further
+    than the second).  (e) the prefill plan at
     ``prefill_32k``'s 32,768 tokens (batch cut from 32 to 1) against the
     unsharded ``forward``: last logits and collected K/V, K4 launched 22
     times.  (f) K1 at (d)'s shape with every slot valid, with and without
-    its LSE, beside its byte bound, SDPA over the cache viewed ``[B, S,
-    Hkv, D]`` (``enable_gqa``) and the plain version (CUDA-graph replay,
-    cold L2).
+    its LSE, and with its LSE and f32 output, beside its byte bound,
+    SDPA over the cache viewed ``[B, S, Hkv, D]`` (``enable_gqa``) and
+    the plain version (CUDA-graph replay, cold L2).
 
 16. the dry-run (``[dryrun]`` lines): ``repro_torch.launch.dryrun`` on
-    the host, in two processes of their own started after the build (no
+    the host, in three processes of their own started after the build (no
     device: ``CUDA_VISIBLE_DEVICES`` empty) and read here: full TinyLlama
     at ``decode_32k`` over the 16x16 production mesh of fake ranks
-    (``python -m repro_torch.launch.dryrun``), and full TinyLlama at
+    (``python -m repro_torch.launch.dryrun``), full TinyLlama at
     phase 12's training shape (B4 x S2048, no remat, f32 moments) on a
-    world of one (``run_one``).  Both records must be ``ok``; the
+    world of one (``run_one``), and the plans whose head count does not
+    divide the mesh axes (``UNEVEN_CHILD``): one smoke config of each
+    family (TinyLlama, granite, llava, deepseek-v3, mamba2, zamba2,
+    seamless) with 3 heads or 3 SSM heads, each ``lower_plan``'s train
+    step, prefill plan and serve step on a ``(2, 2)`` fake world, the
+    card's torch planning ``DTensor``'s head splits.  Every record must be ``ok``; the
     predicted peak bytes, FLOPs and memory term of the training step
     print beside phase 12's measured ``max_memory_allocated``, analytic
     FLOPs (``train_flops``) and median step time, with their ratios; the
@@ -5172,7 +5182,12 @@ def _serve_pair(cfg, shape, mesh, device, *, pos0, seed) -> tuple:
 def _stripe_check(k, v, device, smi) -> dict:
     """(d): K1 over one layer's whole cache against K1 with its LSE over
     2, 4 and 16 sequence stripes merged by ``merge_partials``; each LSE
-    against the plain version's f32 LSE.  Returns the merged rows."""
+    against the plain version's f32 LSE.  Each stripe also runs K1 with
+    its f32 output (what a striped serve step merges), held to the plain
+    version in f32 and, rounded, bitwise to the bf16 output; the merge of
+    the f32 partials and of the bf16 ones, each rounded to bf16 once,
+    against an f32 attention over the whole cache: the first may not be
+    the further.  Returns the merged rows."""
     from repro_torch.distributed.decode import merge_partials
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_decode
@@ -5191,20 +5206,35 @@ def _stripe_check(k, v, device, smi) -> dict:
     if not torch.equal(whole_out, plain_whole):
         raise AssertionError("[serve_mesh] K1's output differs with "
                              "return_lse")
+    truth = ref.paged_attention_ref(q.float(), pages(k).float(),
+                                    pages(v).float(), lens)
     rows = {}
-    worst_lse = 0.0
+    worst_lse = worst_f32 = 0.0
     for count in STRIPE_COUNTS:
         length = n // count
-        outs, lses = [], []
+        outs, outs32, lses = [], [], []
         for r in range(count):
             ks = k[:, r * length:(r + 1) * length].contiguous()
             vs = v[:, r * length:(r + 1) * length].contiguous()
             lr = torch.clamp(lens - r * length, 0, length).to(torch.int32)
             o, lse = paged_decode(q, pages(ks), pages(vs), lr,
                                   return_lse=True)
-            _, want = ref.paged_attention_ref(
+            o32, lse32 = paged_decode(q, pages(ks), pages(vs), lr,
+                                      return_lse=True,
+                                      out_dtype=torch.float32)
+            plain32, want = ref.paged_attention_ref(
                 q.float(), pages(ks).float(), pages(vs).float(), lr,
                 return_lse=True)
+            if o32.dtype != torch.float32 or not (
+                    torch.equal(o32.to(o.dtype), o)
+                    and torch.equal(lse32, lse)):
+                raise AssertionError(f"[serve_mesh] {count} stripes, stripe "
+                                     f"{r}: K1's f32 output does not round "
+                                     f"to its bf16 output, or its LSE "
+                                     f"differs")
+            worst_f32 = max(worst_f32, _check(
+                f"[serve_mesh] {count} stripes, stripe {r}, f32 output",
+                "paged_decode", o32, plain32, BF16_TOL["paged_decode"])[1])
             if not torch.equal(torch.isinf(lse), torch.isinf(want)):
                 raise AssertionError(f"[serve_mesh] {count} stripes, stripe "
                                      f"{r}: -inf where the plain LSE has "
@@ -5213,12 +5243,28 @@ def _stripe_check(k, v, device, smi) -> dict:
             worst_lse = max(worst_lse, _ratio(
                 "lse", lse[fin], want[fin], STRIPE_LSE_TOL)[1])
             outs.append(o)
+            outs32.append(o32)
             lses.append(lse)
             del ks, vs
         merged = merge_partials(outs, lses)
         err, worst, _ = _check(f"[serve_mesh] {count} stripes merged",
                                "paged_decode", merged, whole_out)
-        rows[count] = dict(max_abs_err=err, over_limit=worst)
+        merged32 = merge_partials(outs32, lses, k.dtype)
+        err32, worst32, _ = _check(
+            f"[serve_mesh] {count} stripes merged from f32 partials",
+            "paged_decode", merged32, whole_out)
+        vs_f32 = float((merged.float() - truth).abs().max())
+        vs_f32_new = float((merged32.float() - truth).abs().max())
+        rows[count] = dict(max_abs_err=err, over_limit=worst,
+                           f32_partials_max_abs_err=err32,
+                           f32_partials_over_limit=worst32,
+                           vs_f32_whole_bf16_partials=vs_f32,
+                           vs_f32_whole_f32_partials=vs_f32_new)
+        if vs_f32_new > vs_f32:
+            raise AssertionError(f"[serve_mesh] {count} stripes: the merge "
+                                 f"of f32 partials is {vs_f32_new:.3e} from "
+                                 f"an f32 attention, further than the merge "
+                                 f"of bf16 partials ({vs_f32:.3e})")
     if worst_lse > 1.0:
         raise AssertionError(f"[serve_mesh] K1's LSE {worst_lse:.2f} x its "
                              f"limit {STRIPE_LSE_TOL}")
@@ -5232,7 +5278,9 @@ def _stripe_check(k, v, device, smi) -> dict:
         f"1-{n} (empty stripes included): merged stripes vs the whole "
         f"{json.dumps(rows)} (limit {BF16_TOL['paged_decode']}); LSE "
         f"{worst_lse:.3f} x its limit {STRIPE_LSE_TOL} against the plain "
-        f"f32 LSE; output bitwise with and without return_lse; {smi}")
+        f"f32 LSE; f32 output {worst_f32:.3f} x the limit against the plain "
+        f"version in f32, and rounded bitwise the bf16 output; output "
+        f"bitwise with and without return_lse; {smi}")
     return rows
 
 
@@ -5261,6 +5309,9 @@ def _long_decode_timing(k, v, device, timer, smi) -> dict:
                ms=timer.ms(lambda: paged_decode(q, kp, vp, lens)),
                ms_with_lse=timer.ms(lambda: paged_decode(
                    q, kp, vp, lens, return_lse=True)),
+               ms_with_lse_out_f32=timer.ms(lambda: paged_decode(
+                   q, kp, vp, lens, return_lse=True,
+                   out_dtype=torch.float32)),
                bound_ms=bms, bound_by=by, bound_bytes=n_bytes,
                library_ms=timer.ms(lambda: sdpa(q[:, :, None], kt, vt,
                                                 enable_gqa=True)),
@@ -5399,13 +5450,53 @@ with open(sys.argv[1], "w") as f:
 """
 
 
+# Phase 16's counts of plans whose head count does not divide the mesh
+# axes: 3 heads (1 K/V head) or 3 SSM heads on a (2, 2) fake world, the
+# train step, the prefill plan and the serve step of one smoke config of
+# each family (tests/test_torch_mesh_uneven.py counts the same here).
+# A count that raises is recorded with its error.
+UNEVEN_CHILD = """
+import json, sys, time
+from repro_torch.configs import InputShape, get_config, smoke_config
+from repro_torch.distributed.sharding import MeshShape
+from repro_torch.launch import specs as S
+from repro_torch.launch.mesh import make_rules
+heads3 = {"num_heads": 3, "num_kv_heads": 1}
+ssm3 = {"d_model": 48, "ssm_head_dim": 32}
+models = {"skymemory-tinyllama": heads3, "deepseek-v3-671b": heads3,
+          "mamba2-1.3b": ssm3, "granite-moe-3b-a800m": heads3,
+          "llava-next-34b": heads3, "zamba2-1.2b": {**heads3, **ssm3},
+          "seamless-m4t-large-v2": heads3}
+recs = []
+with S.fake_world(MeshShape(("data", "model"), (2, 2))) as world:
+    for arch, kw in models.items():
+        cfg = smoke_config(get_config(arch)).replace(**kw)
+        for kind in ("train", "prefill", "decode"):
+            t0 = time.perf_counter()
+            shape = InputShape("s32_b4", 32, 4, kind)
+            try:
+                c = S.lower_plan(S.make_plan(
+                    cfg, shape, make_rules(world, cfg, shape), remat=None,
+                    device="meta"))
+                rec = {"status": "ok", "flops": c.cost_analysis()["flops"],
+                       "collectives": c.collectives}
+            except Exception as e:
+                rec = {"status": f"error: {type(e).__name__}: {e}"[:600]}
+            recs.append({"arch": arch, "kind": kind, "mesh": "2x2",
+                         "seconds": round(time.perf_counter() - t0, 2), **rec})
+with open(sys.argv[1], "w") as f:
+    json.dump({"records": recs}, f)
+"""
+
+
 def start_dryrun() -> dict:
-    """Start phase 16's two counts, each a host process of its own (the
+    """Start phase 16's three counts, each a host process of its own (the
     fake world is the default process group, and this process opens a
     real one in phase 13): TinyLlama's serve step at ``decode_32k`` over
-    the 16x16 mesh through the command line, and its training step at
-    phase 12's shape on a world of one through ``run_one``.  They see no
-    device and use two threads each.  Stopped at exit if still running."""
+    the 16x16 mesh through the command line, its training step at phase
+    12's shape on a world of one through ``run_one``, and the uneven-head
+    plans (``UNEVEN_CHILD``).  They see no device and use two threads
+    each.  Stopped at exit if still running."""
     out = ROOT / "build" / "dryrun_smoke"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
@@ -5418,6 +5509,8 @@ def start_dryrun() -> dict:
                        out / "skymemory-tinyllama__decode_32k__16x16.json"),
         "train": ([sys.executable, "-c", DRYRUN_CHILD,
                    str(out / "train.json")], out / "train.json"),
+        "uneven": ([sys.executable, "-c", UNEVEN_CHILD,
+                    str(out / "uneven.json")], out / "uneven.json"),
     }
     procs = {}
     for name, (cmd, path) in runs.items():
@@ -5450,9 +5543,10 @@ DRYRUN_MEMORY_TO_STEP = (1.0, 4.0)
 
 
 def phase_dryrun(started: dict, smi: str) -> None:
-    """Read phase 16's counts: each process must exit 0 and write an
-    ``ok`` record.  Prints each record's roofline terms on the H100's
-    constants, then the training step's predicted peak bytes, FLOPs and
+    """Read phase 16's counts: each process must exit 0 and write ``ok``
+    records.  Prints each record's roofline terms on the H100's
+    constants, one line for each uneven-head plan, then the training
+    step's predicted peak bytes, FLOPs and
     memory term beside phase 12's measured peak (``max_memory_allocated``
     less what was held before), analytic FLOPs (``train_flops``) and
     median step time, with their ratios; fails when the peak's or the
@@ -5468,6 +5562,17 @@ def phase_dryrun(started: dict, smi: str) -> None:
                 tail = log_path.read_text()[-2000:]
                 raise AssertionError(f"[dryrun] {name} exited {rc}: {tail}")
             recs[name] = rec = json.loads(path.read_text())
+            if name == "uneven":
+                for r in rec["records"]:
+                    log(f"[dryrun] uneven heads: {r['arch']} {r['kind']} at "
+                        f"{r['mesh']}, 3 heads: {r['status']} in "
+                        f"{r['seconds']} s, FLOPs {r.get('flops')}, link "
+                        f"bytes {json.dumps(r.get('collectives'))} (torch "
+                        f"{torch.__version__})")
+                bad = [r for r in rec["records"] if r["status"] != "ok"]
+                if len(rec["records"]) != 21 or bad:
+                    raise AssertionError(f"[dryrun] uneven heads: {bad}")
+                continue
             if rec["status"] != "ok":
                 raise AssertionError(f"[dryrun] {name}: {rec['status']}")
             log(f"[dryrun] {rec['arch']} x {rec['shape']} x {rec['mesh']} "

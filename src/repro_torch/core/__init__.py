@@ -9,12 +9,15 @@ migration (``tpu_cache``).  Numpy and plain Python; ``tpu_cache``'s two
 ``torch.distributed`` functions import torch when called."""
 from repro_torch.core.chunking import (
     PayloadCodec,
+    QuantizedArray,
     arrays_to_bytes,
     bytes_to_arrays,
+    bytes_to_dequantized,
     cat_payloads,
     chunk_server,
     decode_payload_arrays,
     delta_info,
+    dequantize_int8,
     encode_arrays,
     is_cat_payload,
     is_delta_payload,
@@ -22,6 +25,8 @@ from repro_torch.core.chunking import (
     make_delta_payload,
     num_chunks,
     payload_raw_bytes,
+    quantize_int8,
+    quantized_to_bytes,
     replica_delta,
     split_cat_payload,
     split_chunks,

@@ -14,7 +14,11 @@
   behind a back-pointer to the previous block), ``cat_payloads`` (a
   reassembled chain), the header scans (``is_delta_payload``,
   ``delta_info``, ``split_cat_payload``, ``payload_raw_bytes``) and
-  ``decode_payload_arrays``, which decodes any of them.
+  ``decode_payload_arrays``, which decodes any of them;
+* the reference's int8 helpers (``QuantizedArray``, ``quantize_int8``,
+  ``dequantize_int8``, ``quantized_to_bytes``, and
+  ``bytes_to_dequantized``, which also decodes the legacy ``SKYM``
+  ``[q, scale, ...]`` pair payloads).
 
 Arrays may be numpy arrays or torch tensors.  numpy has no bfloat16
 here, so a bf16 tensor is written as its raw 2-byte words under the tag
@@ -177,6 +181,53 @@ def bytes_to_arrays(data: bytes) -> list:
     except struct.error as e:
         raise ValueError(f"corrupt KVC payload: {e}") from e
     return out
+
+
+# ---------------------------------------------------------------------------
+# int8 KVC quantization (paper §5 used 8-bit quantized KVC blocks).
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class QuantizedArray:
+    q: np.ndarray       # int8 values
+    scale: np.ndarray   # per-last-axis-channel float32 scale
+
+
+def quantize_int8(a) -> QuantizedArray:
+    """Symmetric per-channel (last axis) int8 quantization of an array or
+    tensor (a bf16 tensor from its exact f32 values)."""
+    a = np.asarray(_host_array(a)[1], dtype=np.float32)
+    amax = np.max(np.abs(a), axis=tuple(range(a.ndim - 1)), keepdims=True)
+    scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    q = np.clip(np.round(a / scale), -127, 127).astype(np.int8)
+    return QuantizedArray(q=q, scale=scale)
+
+
+def dequantize_int8(qa: QuantizedArray) -> np.ndarray:
+    return qa.q.astype(np.float32) * qa.scale
+
+
+def quantized_to_bytes(arrays) -> bytes:
+    """Serialize ``arrays`` int8-quantized, recording each array's source
+    dtype in the codec header so ``bytes_to_dequantized`` restores it
+    (a bf16 tensor comes back a bf16 tensor)."""
+    return encode_arrays(arrays, PayloadCodec("int8"))
+
+
+def bytes_to_dequantized(data: bytes) -> list:
+    """Decode a quantized payload back to (dequantized) arrays.
+
+    ``SKYC`` payloads restore each array's recorded source dtype; legacy
+    ``SKYM`` [q, scale, q, scale, ...] payloads (written before the codec
+    header existed) decode to float32, as the reference's do: that format
+    never recorded the source dtype."""
+    if data[:4] == _CODEC_MAGIC:
+        return decode_payload_arrays(data)
+    flat = bytes_to_arrays(data)
+    if len(flat) % 2:
+        raise ValueError("corrupt quantized payload")
+    return [dequantize_int8(QuantizedArray(q=flat[i], scale=flat[i + 1]))
+            for i in range(0, len(flat), 2)]
 
 
 # -- SKYC containers --------------------------------------------------------

@@ -95,17 +95,19 @@ def gather(t: torch.Tensor, st: Stripes) -> torch.Tensor:
     return out
 
 
-def merge_partials(outs, lses) -> torch.Tensor:
+def merge_partials(outs, lses, dtype=None) -> torch.Tensor:
     """Merge per-stripe attention partials: ``outs`` [R, B, H, Dv] (each
     normalised over its own stripe) and ``lses`` [R, B, H] (each head's
     log-sum-exp over the stripe, -inf where the stripe holds no valid
     token) into ``sum_r exp(lse_r - M) out_r / sum_r exp(lse_r - M)``,
     ``M`` the largest ``lse_r``.  Sums in f32 in stripe order; a row with
     no valid token in any stripe gets zeros, as the paged-decode kernel
-    gives.  Returns [B, H, Dv] in ``outs``' dtype; one stripe is returned
-    as it is."""
+    gives.  Returns [B, H, Dv] in ``dtype`` (``outs``' dtype by default:
+    partials may come in f32, unrounded, for a merge in bf16); one stripe
+    is returned as it is, cast to ``dtype``."""
+    dtype = dtype or outs[0].dtype
     if len(outs) == 1:
-        return outs[0]
+        return outs[0].to(dtype)
     m = lses[0]
     for r in range(1, len(lses)):
         m = torch.maximum(m, lses[r])
@@ -119,7 +121,7 @@ def merge_partials(outs, lses) -> torch.Tensor:
         den = den + w
     out = torch.where(den[..., None] > 0,
                       num / torch.where(den > 0, den, 1.0)[..., None], 0.0)
-    return out.to(outs[0].dtype)
+    return out.to(dtype)
 
 
 def run_striped(fn, rows: tuple, caches: tuple):
@@ -127,8 +129,8 @@ def run_striped(fn, rows: tuple, caches: tuple):
     rank's stripe of ``caches`` (one layer's cache ``DTensor``s, striped
     alike) and its block of ``rows`` (per-row ``DTensor``s, batch
     first), inside ``local_map``; the partials merged across the stripes.
-    Returns the merged result, a ``DTensor`` whose rows ride the caches'
-    batch axes."""
+    Returns the merged result in the dtype of ``rows[0]`` (the query), a
+    ``DTensor`` whose rows ride the caches' batch axes."""
     st = stripes_of(caches[0])
     pls = row_placements(st)
 
@@ -136,7 +138,8 @@ def run_striped(fn, rows: tuple, caches: tuple):
         part, lse = fn(st, *ts)
         if st.count == 1:
             return part
-        return merge_partials(gather(part, st), gather(lse, st))
+        return merge_partials(gather(part, st), gather(lse, st),
+                              ts[0].dtype)
 
     return run_local(local, st.mesh,
                      (pls,) * len(rows) + tuple(list(c.placements)

@@ -179,6 +179,78 @@ def maybe_shard(x, logical: str):
 
 
 # ---------------------------------------------------------------------------
+# Head splits and merges.
+#
+# The reference shards a projection's flat out-dim wherever it divides,
+# which can fall inside a head (3 heads of 64 over 2 ranks), and XLA
+# reshards the head split.  ``DTensor`` views a tensor into heads, or
+# heads back into one dim, only where every rank holds whole heads: in
+# the forward, and for the gradient that comes back.  So a head split or
+# merge of a ``DTensor`` first gathers the axes that cut heads, and on a
+# mesh with an axis that does not divide the heads the view's output
+# gathers its gradient the same way before the view's backward runs.
+# Elsewhere they are plain reshapes.
+# ---------------------------------------------------------------------------
+
+def _uneven(t, n: int) -> bool:
+    """Whether ``t`` is a ``DTensor`` on a mesh with an axis that does
+    not divide ``n`` heads."""
+    return is_dtensor(t) and any(size > 1 and n % size
+                                 for size in t.device_mesh.shape)
+
+
+def _whole_heads(t, dim: int, n: int):
+    """The ``DTensor`` ``t`` gathered over the axes that shard its dim
+    ``dim`` (``n`` heads, or ``n`` heads' flat features) unless together
+    they divide ``n``."""
+    from torch.distributed.tensor import Replicate
+
+    pls = list(t.placements)
+    ways = 1
+    for pl, size in zip(pls, t.device_mesh.shape):
+        ways *= size if pl.is_shard(dim) else 1
+    if n % ways == 0:
+        return t
+    return t.redistribute(t.device_mesh, [
+        Replicate() if pl.is_shard(dim) else pl for pl in pls])
+
+
+class _WholeHeadsGrad(torch.autograd.Function):
+    """The identity, whose backward gathers the gradient as
+    ``_whole_heads`` does."""
+
+    @staticmethod
+    def forward(ctx, t, dim, n):
+        ctx.heads = (dim, n)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_dtensor(g):
+            g = _whole_heads(g, *ctx.heads)
+        return g, None, None
+
+
+def split_heads(t, n: int, d: int):
+    """``t`` [..., n * d] as [..., n, d]."""
+    if is_dtensor(t):
+        t = _whole_heads(t, t.ndim - 1, n)
+    out = t.reshape(*t.shape[:-1], n, d)
+    if not _uneven(t, n):
+        return out
+    return _WholeHeadsGrad.apply(out, out.ndim - 2, n)
+
+
+def merge_heads(t):
+    """``t`` [..., n, d] as [..., n * d]."""
+    n, d = t.shape[-2:]
+    if not _uneven(t, n):
+        return t.reshape(*t.shape[:-2], n * d)
+    out = _whole_heads(t, t.ndim - 2, n).reshape(*t.shape[:-2], n * d)
+    return _WholeHeadsGrad.apply(out, out.ndim - 1, n)
+
+
+# ---------------------------------------------------------------------------
 # Parameter specs.
 # ---------------------------------------------------------------------------
 
@@ -408,6 +480,40 @@ def whole(t: torch.Tensor) -> torch.Tensor:
     """The whole tensor of a ``DTensor``, gathered (a collective: every
     rank of its mesh calls it), or ``t`` itself."""
     return t.full_tensor() if is_dtensor(t) else t
+
+
+def _roll_shards(t, shift: int, dim: int):
+    """``torch.roll`` of the ``DTensor`` ``t`` on each rank's shard, the
+    dim first gathered over the axes that split it; other placements,
+    partial sums too, pass through."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    pls = [Replicate() if pl.is_shard(dim) else pl for pl in t.placements]
+    if pls != list(t.placements):
+        t = t.redistribute(t.device_mesh, pls)
+    return DTensor.from_local(torch.roll(t.to_local(), shift, dim),
+                              t.device_mesh, pls, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+class _Roll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, shift, dim):
+        ctx.roll = (-shift, dim)
+        return _roll_shards(t, shift, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _roll_shards(g, *ctx.roll), None, None
+
+
+def roll(t: torch.Tensor, shift: int, dim: int) -> torch.Tensor:
+    """``torch.roll(t, shift, dim)``; a ``DTensor`` is rolled on each
+    rank's shard, forward and backward (the layout rule torch 2.13's
+    ``DTensor`` has for ``aten.roll``; torch 2.11's has none)."""
+    if not is_dtensor(t):
+        return torch.roll(t, shift, dims=dim)
+    return _Roll.apply(t, shift, dim)
 
 
 def at_layout(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

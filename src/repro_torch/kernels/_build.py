@@ -50,7 +50,7 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
     "paged_attention": {
         f"paged_decode_{t}": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                               F, P)
-        for t in ("f32", "bf16")
+        for t in ("f32", "bf16", "bf16_out_f32")
     },
     "chunked_prefill": {
         **{f"chunked_prefill_paged_{t}":

@@ -51,6 +51,11 @@
 // combined ones.  A sequence-striped cache (one stripe of the tokens per
 // rank) merges the ranks' outputs with it exactly.  The output does not
 // depend on it: the same values are written with or without.
+//
+// The output is written in the inputs' type, or in f32 from bf16 inputs
+// (``paged_decode_bf16_out_f32``): a stripe's partial for such a merge,
+// not rounded to bf16 before it is weighted.  Both exits (the single
+// split and the combine) write the f32 values they would round.
 
 #include <stdint.h>
 
@@ -97,7 +102,7 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-template <typename T>
+template <typename T, typename O>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_kernel(const T* __restrict__ q,        // [B, H, D]
                     const T* __restrict__ k_pool,   // [N, page, Hkv, D]
@@ -106,7 +111,7 @@ paged_decode_kernel(const T* __restrict__ q,        // [B, H, D]
                     const int* __restrict__ block_tables,  // [B, P] or null
                     float* __restrict__ part,  // [B, Hkv, splits, rep, Dv+2]
                     int* __restrict__ counters,            // [B * Hkv], 0
-                    T* __restrict__ out,                   // [B, H, Dv]
+                    O* __restrict__ out,                   // [B, H, Dv]
                     float* __restrict__ lse,         // [B, H] or null
                     int pages_per_seq, int page, int h, int hkv, int d,
                     int dv, float scale) {
@@ -148,12 +153,12 @@ paged_decode_kernel(const T* __restrict__ q,        // [B, H, D]
   const T* qg = q + ((size_t)b * h + (size_t)g * rep) * d;
   for (int i = tid; i < rep * d; i += THREADS) qs[i] = to_f32(qg[i]);
   const int n_live = (len + SPLIT - 1) / SPLIT;
-  T* og = out + ((size_t)b * h + (size_t)g * rep) * dv;
+  O* og = out + ((size_t)b * h + (size_t)g * rep) * dv;
   float* lg = lse != nullptr ? lse + (size_t)b * h + (size_t)g * rep
                              : nullptr;
   if (len == 0) {
     if (s == 0) {
-      for (int i = tid; i < rep * dv; i += THREADS) og[i] = from_f32<T>(0.f);
+      for (int i = tid; i < rep * dv; i += THREADS) og[i] = from_f32<O>(0.f);
       if (lg != nullptr)
         for (int r = tid; r < rep; r += THREADS) lg[r] = -INFINITY;
     }
@@ -263,8 +268,8 @@ paged_decode_kernel(const T* __restrict__ q,        // [B, H, D]
         if (r >= rep) continue;
         if (n_live == 1) {
           const float inv = 1.f / fmaxf(ls[r], 1e-30f);
-          og[r * dv + 2 * cp] = from_f32<T>(acc[u].x * inv);
-          og[r * dv + 2 * cp + 1] = from_f32<T>(acc[u].y * inv);
+          og[r * dv + 2 * cp] = from_f32<O>(acc[u].x * inv);
+          og[r * dv + 2 * cp + 1] = from_f32<O>(acc[u].y * inv);
         } else {
           *reinterpret_cast<float2*>(dst + r * ps + 2 * cp) = acc[u];
         }
@@ -321,13 +326,13 @@ paged_decode_kernel(const T* __restrict__ q,        // [B, H, D]
       num.x += w * a.x;
       num.y += w * a.y;
     }
-    og[r * dv + 2 * cp] = from_f32<T>(num.x * ms[r]);
-    og[r * dv + 2 * cp + 1] = from_f32<T>(num.y * ms[r]);
+    og[r * dv + 2 * cp] = from_f32<O>(num.x * ms[r]);
+    og[r * dv + 2 * cp + 1] = from_f32<O>(num.y * ms[r]);
   }
   if (tid == 0) *counter = 0;  // ready for the next call
 }
 
-template <typename T>
+template <typename T, typename O = T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* lengths, const void* block_tables, void* part,
            void* counters, void* out, void* lse, int b, int pages_per_seq,
@@ -341,14 +346,14 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   const size_t smem =
       sizeof(T) * (size_t)SPLIT * (d + CH + dv + CH) +
       sizeof(float) * ((size_t)rep * (d + SPLIT + 2 + 2 * splits));
-  cudaError_t err = allow_smem(paged_decode_kernel<T>, smem);
+  cudaError_t err = allow_smem(paged_decode_kernel<T, O>, smem);
   if (err != cudaSuccess) return (int)err;
-  paged_decode_kernel<T><<<dim3(b, hkv, splits), THREADS, smem,
+  paged_decode_kernel<T, O><<<dim3(b, hkv, splits), THREADS, smem,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), static_cast<const int*>(lengths),
       static_cast<const int*>(block_tables), static_cast<float*>(part),
-      static_cast<int*>(counters), static_cast<T*>(out),
+      static_cast<int*>(counters), static_cast<O*>(out),
       static_cast<float*>(lse), pages_per_seq, page, h, hkv, d, dv, scale);
   return (int)cudaGetLastError();
 }
@@ -360,8 +365,9 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 // B * Hkv * splits * (H / Hkv) * (Dv + 2) values, splits =
 // ceil(P * page / 64); ``counters`` is B * Hkv int32 that are 0 on entry
 // and 0 again when the launch has finished; ``lse`` is null or B * H
-// f32 (each query head's log-sum-exp).  Each returns cudaGetLastError()
-// after its launch (0 on success).
+// f32 (each query head's log-sum-exp); ``out`` is B * H * Dv of the
+// inputs' type, f32 for ``paged_decode_bf16_out_f32``.  Each returns
+// cudaGetLastError() after its launch (0 on success).
 extern "C" int paged_decode_f32(const void* q, const void* k_pool,
                                 const void* v_pool, const void* lengths,
                                 const void* block_tables, void* part,
@@ -381,6 +387,16 @@ extern "C" int paged_decode_bf16(const void* q, const void* k_pool,
                                  int pages_per_seq, int page, int h, int hkv,
                                  int d, int dv, float scale, void* stream) {
   return repro_torch::launch<__nv_bfloat16>(
+      q, k_pool, v_pool, lengths, block_tables, part, counters, out, lse, b,
+      pages_per_seq, page, h, hkv, d, dv, scale, stream);
+}
+
+extern "C" int paged_decode_bf16_out_f32(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* lengths, const void* block_tables, void* part,
+    void* counters, void* out, void* lse, int b, int pages_per_seq, int page,
+    int h, int hkv, int d, int dv, float scale, void* stream) {
+  return repro_torch::launch<__nv_bfloat16, float>(
       q, k_pool, v_pool, lengths, block_tables, part, counters, out, lse, b,
       pages_per_seq, page, h, hkv, d, dv, scale, stream);
 }

@@ -116,16 +116,19 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
 
 def paged_attention(q, k_pages, v_pages, lengths, *,
                     softmax_scale: float | None = None, block_tables=None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, out_dtype=None):
     """Decode attention over a paged KV cache ([B,H,D] x [B,P,page,Hkv,D],
     or a pool [N,page,Hkv,D] through ``block_tables`` [B,P]); with
-    ``return_lse``, ``(out, lse [B,H] f32)``."""
+    ``return_lse``, ``(out, lse [B,H] f32)``; ``out_dtype`` f32 keeps a
+    bf16 call's output unrounded."""
     if _on_cpu(q):
         return ref.paged_attention_ref(
             q, k_pages, v_pages, lengths, softmax_scale=softmax_scale,
-            block_tables=block_tables, return_lse=return_lse)
+            block_tables=block_tables, return_lse=return_lse,
+            out_dtype=out_dtype)
     return paged_decode(q, k_pages, v_pages, lengths, block_tables,
-                        softmax_scale=softmax_scale, return_lse=return_lse)
+                        softmax_scale=softmax_scale, return_lse=return_lse,
+                        out_dtype=out_dtype)
 
 
 def chunked_prefill_paged(q, k_pool, v_pool, lengths, block_tables,

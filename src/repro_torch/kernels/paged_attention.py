@@ -8,7 +8,8 @@ tables), in one launch: each sequence's keys are cut into splits of
 partial for the query heads of its kv head, and the last split of each
 (sequence, kv head) to finish combines them; asked for, it also writes
 each query head's log-sum-exp, so that partial attentions over stripes
-of one sequence merge exactly.  ``paged_decode`` takes
+of one sequence merge exactly, and from bf16 inputs it can write its
+output in f32, so that such partials merge unrounded.  ``paged_decode`` takes
 CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the plain
 version in ``kernels/ref.py``.
 """
@@ -81,9 +82,11 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  lengths: torch.Tensor,
                  block_tables: torch.Tensor | None = None, *,
                  softmax_scale: float | None = None,
-                 return_lse: bool = False):
+                 return_lse: bool = False,
+                 out_dtype: torch.dtype | None = None):
     """Decode attention of ``q`` [B, H, D] over paged K/V; returns
-    [B, H, Dv] in q's dtype, and with ``return_lse`` also each head's
+    [B, H, Dv] in ``out_dtype`` (q's dtype, or f32: the f32 values that
+    q's dtype would round), and with ``return_lse`` also each head's
     log-sum-exp of its scaled scores, [B, H] f32 (natural log; -inf for
     a sequence of length 0): ``(out, lse)``.  The output is the same with
     or without it.
@@ -123,15 +126,19 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("paged_decode: k/v pools must be 16-byte aligned")
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    out = torch.empty((b, h, dv), dtype=q.dtype, device=q.device)
+    out_dtype = out_dtype or q.dtype
+    if out_dtype not in (q.dtype, torch.float32):
+        raise TypeError(f"paged_decode: out_dtype must be {q.dtype} or "
+                        f"float32, got {out_dtype}")
+    out = torch.empty((b, h, dv), dtype=out_dtype, device=q.device)
     # per-split partial (numerators, max, denominator) of each query head
     part = torch.empty((b, hkv, decode_splits(pages_per_seq, page), h // hkv,
                         dv + 2), dtype=torch.float32, device=q.device)
     lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
            if return_lse else None)
     counters = _counters(q.device, b * hkv)
-    fn = getattr(_build.load("paged_attention"),
-                 f"paged_decode_{_DTYPES[q.dtype]}")
+    name = _DTYPES[q.dtype] + ("_out_f32" if out_dtype != q.dtype else "")
+    fn = getattr(_build.load("paged_attention"), f"paged_decode_{name}")
     code = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
               lengths.data_ptr(),
               None if block_tables is None else block_tables.data_ptr(),

@@ -257,6 +257,7 @@ def paged_attention_ref(
     softmax_scale: float | None = None,
     block_tables: torch.Tensor | None = None,   # [B, P] page ids
     return_lse: bool = False,
+    out_dtype: torch.dtype | None = None,
 ):
     """Decode attention over a block-paged KV cache (one new token).
 
@@ -267,7 +268,9 @@ def paged_attention_ref(
     ``lengths == 0`` returns zeros.  With ``return_lse`` it returns
     ``(out, lse)``: ``lse`` [B, H] f32 is each head's natural-log
     log-sum-exp of its valid scaled scores, -inf at ``lengths == 0``;
-    ``out`` is the same as without."""
+    ``out`` is the same as without.  ``out_dtype`` f32 from bf16 inputs
+    weighs V by the f32 probabilities and sums in f32, as the kernel's f32
+    output does, with nothing rounded to bf16."""
     if block_tables is not None:
         k_pages = k_pages[block_tables.long()]
         v_pages = v_pages[block_tables.long()]
@@ -284,7 +287,10 @@ def paged_attention_ref(
     valid = (torch.arange(p * page, device=q.device)[None, None, None, :]
              < lengths[:, None, None, None])
     s = torch.where(valid, s, NEG_INF)
-    probs = torch.softmax(s, dim=-1).to(v.dtype)
+    if out_dtype in (None, v.dtype):
+        probs = torch.softmax(s, dim=-1).to(v.dtype)
+    else:
+        probs, v = torch.softmax(s, dim=-1), v.to(out_dtype)
     out = torch.einsum("bgrs,bsgd->bgrd", probs, v).reshape(b, h, dv)
     any_valid = (lengths > 0)[:, None, None]
     out = torch.where(any_valid, out, torch.zeros_like(out))

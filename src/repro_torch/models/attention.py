@@ -10,10 +10,11 @@ arrays and relied on XLA donation).  A per-layer view ``pool[l]`` is
 contiguous, and reaches the kernels without a copy.
 
 Under a mesh (training, ``repro_torch.distributed``) the projections and
-RoPE run as ``DTensor`` ops; a K/V projection sharded inside a head is
-gathered by an explicit ``redistribute`` before the head split
-(``_heads``), and the dense prefill kernel runs in ``local_map`` on each
-rank's batch rows and heads (``flash_attention``).  Decode over a cache
+RoPE run as ``DTensor`` ops; a projection sharded inside a head is
+gathered before the head split, and a gradient before the backward of a
+merge (``sharding.split_heads`` / ``merge_heads``), and the dense
+prefill kernel runs in ``local_map`` on each rank's batch rows and heads
+(``flash_attention``).  Decode over a cache
 striped over its sequence dim runs the decode kernel on each rank's
 stripe and merges the stripes (``attention_decode``).
 """
@@ -28,9 +29,11 @@ from repro_torch.distributed.sharding import (
     divisible,
     is_dtensor,
     maybe_shard,
+    merge_heads,
     partial_over,
     placements,
     run_local,
+    split_heads,
 )
 from repro_torch.kernels import ops
 from repro_torch.models.cache import dequant_kvc, quant_kvc
@@ -64,26 +67,8 @@ def _project_qkv(p: Attention, x, cfg: ModelConfig, kv_x=None):
     or, without it, from ``x``."""
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     kv_x = x if kv_x is None else kv_x
-    return (_heads(x @ p.wq, h, hd), _heads(kv_x @ p.wk, hkv, hd),
-            _heads(kv_x @ p.wv, hkv, hd))
-
-
-def _heads(t, n: int, hd: int):
-    """``t`` [B, S, n * hd] as [B, S, n, hd].  Under a mesh the reference
-    shards a projection's flat out-dim wherever it divides, which can fall
-    inside a head (2 K/V heads over 4 ranks): such a ``DTensor`` is first
-    gathered over those axes, so every rank holds whole heads."""
-    if is_dtensor(t):
-        from torch.distributed.tensor import Replicate
-
-        pls, sizes = list(t.placements), t.device_mesh.shape
-        ways = 1
-        for pl, size in zip(pls, sizes):
-            ways *= size if pl.is_shard(2) else 1
-        if n % ways:
-            t = t.redistribute(t.device_mesh, [
-                Replicate() if pl.is_shard(2) else pl for pl in pls])
-    return t.reshape(*t.shape[:2], n, hd)
+    return (split_heads(x @ p.wq, h, hd), split_heads(kv_x @ p.wk, hkv, hd),
+            split_heads(kv_x @ p.wv, hkv, hd))
 
 
 def flash_attention(q, k, v, **kw):
@@ -156,8 +141,7 @@ def attention_prefill(p: Attention, x, cfg: ModelConfig, *, q_offset: int = 0,
     offset = kv_cache[0].shape[1] if kv_cache is not None and not cross else 0
     out = flash_attention(q, k, v, causal=causal and not cross,
                           q_offset=offset, sliding_window=sliding_window)
-    out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
-    return out @ p.wo, (k, v)
+    return merge_heads(out) @ p.wo, (k, v)
 
 
 def _masked_rows(ok, page_ids, slots, pool, values):
@@ -227,7 +211,7 @@ def attention_prefill_paged(p: Attention, x, cfg: ModelConfig, *, k_pool,
     out = ops.chunked_prefill_paged(
         q.contiguous(), k_read, v_read, q_offsets + n_valid, block_tables,
         q_offsets)
-    return out.reshape(r, c, h * hd) @ p.wo
+    return merge_heads(out) @ p.wo
 
 
 def attention_decode_paged(p: Attention, x, cfg: ModelConfig, *, k_pool,
@@ -243,7 +227,6 @@ def attention_decode_paged(p: Attention, x, cfg: ModelConfig, *, k_pool,
     the pool as ``[B, P, page, Hkv, hd]`` by reshape; otherwise pages
     resolve through ``block_tables`` [B, P]."""
     b = x.shape[0]
-    h, hd = cfg.num_heads, cfg.head_dim
     page = k_pool.shape[1]
     pos = lengths
 
@@ -283,7 +266,7 @@ def attention_decode_paged(p: Attention, x, cfg: ModelConfig, *, k_pool,
     else:
         out = ops.paged_attention(qd, k_read, v_read, pos + 1,
                                   block_tables=block_tables)
-    return out.reshape(b, 1, h * hd) @ p.wo
+    return merge_heads(out[:, None]) @ p.wo
 
 
 def attention_decode(p: Attention, x, cfg: ModelConfig, *, k_cache=None,
@@ -322,11 +305,11 @@ def attention_decode(p: Attention, x, cfg: ModelConfig, *, k_cache=None,
     h, hd = cfg.num_heads, cfg.head_dim
     if cross_kv is not None:
         k, v = cross_kv
-        q = _heads(x @ p.wq, h, hd)
+        q = split_heads(x @ p.wq, h, hd)
         n_valid = torch.full((b,), k.shape[1], dtype=torch.int32,
                              device=x.device)
         out = _decode_attend(q, k, v, n_valid)
-        return out.reshape(b, 1, h * hd) @ p.wo
+        return merge_heads(out[:, None]) @ p.wo
     s_cache = k_cache.shape[1]
     q, k_new, v_new = _project_qkv(p, x, cfg)
     positions = pos[:, None]
@@ -342,7 +325,7 @@ def attention_decode(p: Attention, x, cfg: ModelConfig, *, k_cache=None,
     n_valid = torch.clamp(pos + 1, max=s_cache) if sliding_window else pos + 1
     out = _decode_attend(q, k_cache, v_cache, n_valid,
                          (k_new, v_new, slot))
-    return out.reshape(b, 1, h * hd) @ p.wo
+    return merge_heads(out[:, None]) @ p.wo
 
 
 def _decode_attend(q, k_cache, v_cache, n_valid, new=None):
@@ -350,8 +333,9 @@ def _decode_attend(q, k_cache, v_cache, n_valid, new=None):
     (``n_valid`` [B] valid slots a row), after writing ``new = (k_new,
     v_new [B, 1, Hkv, hd], slot [B])`` where given; returns [B, H, hd].
     A ``DTensor`` cache runs ``_attend_stripe`` on each rank's stripe
-    and merges the partials (``run_striped``); ``n_valid`` and ``slot``
-    are whole on every rank."""
+    and merges the partials (``run_striped``), which the kernel writes in
+    f32 when there are several; ``n_valid`` and ``slot`` are whole on
+    every rank."""
     s_cache = k_cache.shape[1]
     if not is_dtensor(k_cache):
         return _attend_stripe(q, k_cache, v_cache, n_valid, new, 0, s_cache)
@@ -359,22 +343,25 @@ def _decode_attend(q, k_cache, v_cache, n_valid, new=None):
     def stripe(st, ql, *rest):
         news, (kl, vl) = rest[:-2], rest[-2:]
         new_l = (*news, new[2][st.rows]) if new else None
-        return _attend_stripe(ql, kl, vl, n_valid[st.rows], new_l, st.start,
-                              s_cache, return_lse=True)
+        return _attend_stripe(
+            ql, kl, vl, n_valid[st.rows], new_l, st.start, s_cache,
+            return_lse=True,
+            out_dtype=torch.float32 if st.count > 1 else None)
 
     rows = (q, *new[:2]) if new else (q,)
     return run_striped(stripe, rows, (k_cache, v_cache))
 
 
 def _attend_stripe(q, k_cache, v_cache, n_valid, new, start: int,
-                   s_total: int, *, return_lse: bool = False):
+                   s_total: int, *, return_lse: bool = False,
+                   out_dtype=None):
     """One stripe's part of ``_decode_attend``, on plain tensors: the
     cache holds slots ``[start, start + S_stripe)`` of ``s_total``.  The
     new row (``new``) is written where its slot falls in the stripe (and
     below ``s_total``); then the kernel attends over the stripe's valid
     slots, ``clamp(n_valid - start, 0, S_stripe)``, with its
-    log-sum-exp when ``return_lse``.  An int8 cache is dequantized
-    here."""
+    log-sum-exp when ``return_lse``, its output in ``out_dtype``
+    (``ops.paged_attention``).  An int8 cache is dequantized here."""
     b, s_l = k_cache.shape[:2]
     if new is not None:
         k_new, v_new, slot = new
@@ -394,10 +381,11 @@ def _attend_stripe(q, k_cache, v_cache, n_valid, new, start: int,
     else:
         k_read, v_read = k_cache, v_cache
     return _paged(q[:, 0].contiguous(), k_read, v_read, lengths,
-                  return_lse=return_lse)
+                  return_lse=return_lse, out_dtype=out_dtype)
 
 
-def _paged(q, k_cache, v_cache, lengths, *, return_lse: bool = False):
+def _paged(q, k_cache, v_cache, lengths, *, return_lse: bool = False,
+           out_dtype=None):
     """View the contiguous cache ``[B, S, Hkv, hd]`` as pages of
     ``PAGE_SIZE`` tokens (one page of ``S`` when that does not divide
     ``S``) and run the paged-decode kernel."""
@@ -405,4 +393,5 @@ def _paged(q, k_cache, v_cache, lengths, *, return_lse: bool = False):
     page = PAGE_SIZE if s % PAGE_SIZE == 0 else s
     kp = k_cache.reshape(b, s // page, page, hkv, hd)
     vp = v_cache.reshape(b, s // page, page, hkv, v_cache.shape[-1])
-    return ops.paged_attention(q, kp, vp, lengths, return_lse=return_lse)
+    return ops.paged_attention(q, kp, vp, lengths, return_lse=return_lse,
+                               out_dtype=out_dtype)

@@ -23,7 +23,11 @@ import torch
 from torch import nn
 
 from repro_torch.distributed.decode import run_striped
-from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.distributed.sharding import (
+    is_dtensor,
+    merge_heads,
+    split_heads,
+)
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.attention import flash_attention
 from repro_torch.models.config import ModelConfig
@@ -62,9 +66,8 @@ class MLA(nn.Module):
 
 
 def _queries(p: MLA, x, cfg: ModelConfig, positions):
-    b, s, _ = x.shape
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q = (p.q_norm(x @ p.wq_a) @ p.wq_b).reshape(b, s, cfg.num_heads, dn + dr)
+    q = split_heads(p.q_norm(x @ p.wq_a) @ p.wq_b, cfg.num_heads, dn + dr)
     return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
 
@@ -80,9 +83,8 @@ def _latent(p: MLA, x, cfg: ModelConfig, positions):
 def _expand(c_kv, w):
     """The latent [B, S, r] through per-head ``w`` [H, r, d]: [B, S, H, d],
     contiguous (the reference's ``einsum('bsr,hrd->bshd')``)."""
-    h, r, d = w.shape
-    out = c_kv @ w.permute(1, 0, 2).reshape(r, h * d)
-    return out.view(*c_kv.shape[:2], h, d)
+    h, _, d = w.shape
+    return split_heads(c_kv @ merge_heads(w.permute(1, 0, 2)), h, d)
 
 
 def mla_prefill(p: MLA, x, cfg: ModelConfig, *, q_offset: int = 0,
@@ -113,7 +115,7 @@ def mla_prefill(p: MLA, x, cfg: ModelConfig, *, q_offset: int = 0,
     out = flash_attention(q, k, _expand(c_kv, p.w_uv), causal=True,
                           q_offset=skv - s, sliding_window=sliding_window,
                           softmax_scale=(dn + dr) ** -0.5)
-    return out.reshape(b, s, h * dv) @ p.wo, (c_kv, k_rope)
+    return merge_heads(out) @ p.wo, (c_kv, k_rope)
 
 
 def mla_decode(p: MLA, x, cfg: ModelConfig, *, ckv_cache, krope_cache, pos,
@@ -136,8 +138,6 @@ def mla_decode(p: MLA, x, cfg: ModelConfig, *, ckv_cache, krope_cache, pos,
     ``local_map``: each rank scores its stripe with a local max and sum
     and each head's log-sum-exp, and the latent contexts [B, H, r] merge
     (``distributed/decode.py``) before ``w_uv``."""
-    b = x.shape[0]
-    h = cfg.num_heads
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     positions = pos[:, None]
     q_nope, q_rope = _queries(p, x, cfg, positions)
@@ -162,7 +162,7 @@ def mla_decode(p: MLA, x, cfg: ModelConfig, *, ckv_cache, krope_cache, pos,
 
         ctx = run_striped(stripe, args, (ckv_cache, krope_cache))
     out = torch.einsum("bhr,hrd->bhd", ctx, p.w_uv)
-    return out.reshape(b, 1, h * cfg.v_head_dim) @ p.wo
+    return merge_heads(out)[:, None] @ p.wo
 
 
 def _latent_stripe(q_abs, q_rope, c_new, kr_new, ckv_cache, krope_cache,

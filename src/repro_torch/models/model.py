@@ -55,6 +55,7 @@ from repro_torch.distributed.sharding import (
     is_dtensor,
     layer,
     maybe_shard,
+    roll,
 )
 from repro_torch.models.attention import (
     Attention,
@@ -473,7 +474,7 @@ class Model(nn.Module):
         (no MoE, no window), then the MTP norm and the unembedding,
         predicting token t+2."""
         x = self._embed(tokens)
-        h = torch.cat([x, torch.roll(x, -1, dims=1)], dim=-1)
+        h = torch.cat([x, roll(x, -1, 1)], dim=-1)
         h = (h @ self.mtp.proj[0]).to(x.dtype)
         h2 = self._attn_block(self.mtp.blocks[0], h, None, None, 0, None,
                               None)[0]

@@ -28,9 +28,11 @@ from repro_torch.distributed.sharding import (
     at_layout,
     divisible,
     is_dtensor,
+    merge_heads,
     partial_over,
     placements,
     run_local,
+    split_heads,
 )
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
@@ -194,7 +196,7 @@ def ssd_prefill(m: SSD, x: torch.Tensor, cfg: ModelConfig, *,
     from it without rescanning the cached prefix.  The returned
     ``conv`` is the pre-conv input of the last K-1 positions, the
     ``state`` the scan's final state (f32)."""
-    bsz, seqlen, _ = x.shape
+    seqlen = x.shape[1]
     di, g, n, h, p = _dims(cfg)
     k1 = cfg.ssm_conv - 1
     z = x @ m.wz
@@ -219,15 +221,14 @@ def ssd_prefill(m: SSD, x: torch.Tensor, cfg: ModelConfig, *,
     cx = F.silu(cx)
     cbc = F.silu(cbc)
 
-    xh = cx.reshape(bsz, seqlen, h, p)
-    b_mat = cbc[..., : g * n].reshape(bsz, seqlen, g, n)
-    c_mat = cbc[..., g * n:].reshape(bsz, seqlen, g, n)
+    xh = split_heads(cx, h, p)
+    b_mat = split_heads(cbc[..., : g * n], g, n)
+    c_mat = split_heads(cbc[..., g * n:], g, n)
     dt = F.softplus(dt.float() + m.dt_bias)
     y, ssm_state = scan(xh, dt, -torch.exp(m.a_log), b_mat, c_mat,
                         ssm_state0, cfg.ssm_chunk)
     y = y + m.d_skip[None, None, :, None].to(y.dtype) * xh
-    y = y.reshape(bsz, seqlen, di)
-    y = rms_norm_gated(y, z, m.norm_scale, cfg.norm_eps)
+    y = rms_norm_gated(merge_heads(y), z, m.norm_scale, cfg.norm_eps)
     out = y @ m.out_proj
 
     # pre-conv tails for decode resumption (= the cacheable snapshot).
@@ -279,7 +280,6 @@ def ssd_decode(m: SSD, x: torch.Tensor, cfg: ModelConfig, *,
     conv_state', ssm_state')``.  Under a mesh the state's heads ride
     ``model`` and the recurrence runs on each rank's heads
     (``decode_recurrence``); the conv state stays whole over ``model``."""
-    bsz = x.shape[0]
     di, g, n, h, p = _dims(cfg)
     xt = x[:, 0]
     z = xt @ m.wz
@@ -301,12 +301,12 @@ def ssd_decode(m: SSD, x: torch.Tensor, cfg: ModelConfig, *,
     cx = F.silu(cx)
     cbc = F.silu(cbc)
 
-    xh = cx.reshape(bsz, h, p)
-    bv = cbc[:, : g * n].reshape(bsz, g, n)
-    cv = cbc[:, g * n:].reshape(bsz, g, n)
+    xh = split_heads(cx, h, p)
+    bv = split_heads(cbc[:, : g * n], g, n)
+    cv = split_heads(cbc[:, g * n:], g, n)
     dt = F.softplus(dt.float() + m.dt_bias)                     # [B, H]
     y, new_ssm = decode_recurrence(xh, dt, -torch.exp(m.a_log), bv, cv,
                                    ssm_state)
     y = y + m.d_skip[None, :, None].to(y.dtype) * xh
-    y = rms_norm_gated(y.reshape(bsz, di), z, m.norm_scale, cfg.norm_eps)
+    y = rms_norm_gated(merge_heads(y), z, m.norm_scale, cfg.norm_eps)
     return (y @ m.out_proj)[:, None], window[:, 1:], new_ssm

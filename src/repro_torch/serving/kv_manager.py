@@ -374,6 +374,12 @@ class TieredKVManager:
         self._wb_future = self.adapter.run_async(
             self.manager.add_blocks_tokens, tokens)
 
+    def write_back_sync(self, tokens: list[int]) -> None:
+        """Set KVC for a finished prefill on the caller's thread: one
+        forward per uncached block, done when this returns."""
+        if self.manager is not None:
+            self.manager.add_blocks_tokens(tokens)
+
     def drain_write_back(self) -> None:
         if self._wb_future is not None:
             self._wb_future.result()

@@ -407,3 +407,81 @@ def test_spilled_blocks_match_reference(tiny, spec):
     ts, js = teng.manager.cache.stats, jeng.manager.cache.stats
     assert (ts.blocks_set, ts.bytes_encoded, ts.bytes_raw) == (
         js.blocks_set, js.bytes_encoded, js.bytes_raw)
+
+
+# ---------------------------------------------------------------------------
+# the reference's int8 helpers (tests/test_codec.py, tests/test_protocol.py)
+# ---------------------------------------------------------------------------
+
+def test_bf16_roundtrips_as_bf16():
+    """``quantized_to_bytes`` records the source dtype: a bf16 array
+    comes back bf16.  The port's bytes are the reference's, and each
+    package decodes the other's payload to the same bits."""
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((2, 16, 8)).astype(np.float32).astype(BF16)
+    want = J.quantized_to_bytes([a])
+    got = T.quantized_to_bytes([_bf16_tensor(a)])
+    assert got == want
+    (back,) = T.bytes_to_dequantized(got)
+    assert back.dtype == torch.bfloat16 and tuple(back.shape) == a.shape
+    _assert_same_arrays(T.bytes_to_dequantized(want),
+                        J.bytes_to_dequantized(got))
+
+
+def test_legacy_pair_payloads_still_decode():
+    """Pre-codec ``SKYM`` [q, scale, ...] payloads decode to float32 in
+    both packages, equal to ``dequantize_int8``; the port's
+    ``quantize_int8`` gives the reference's codes and scales."""
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal((4, 6)).astype(np.float32)
+    jqa, tqa = jchunking.quantize_int8(a), tchunking.quantize_int8(a)
+    np.testing.assert_array_equal(tqa.q, jqa.q)
+    np.testing.assert_array_equal(tqa.scale, jqa.scale)
+    legacy = T.arrays_to_bytes([tqa.q, tqa.scale])
+    assert legacy == J.arrays_to_bytes([jqa.q, jqa.scale])
+    (back,) = T.bytes_to_dequantized(legacy)
+    assert back.dtype == np.float32
+    np.testing.assert_array_equal(back, tchunking.dequantize_int8(tqa))
+    np.testing.assert_array_equal(back, J.bytes_to_dequantized(legacy)[0])
+
+
+def test_legacy_odd_pair_count_rejected():
+    q = np.zeros((2, 3), np.int8)
+    for mod in (J, T):
+        with pytest.raises(ValueError, match="corrupt quantized payload"):
+            mod.bytes_to_dequantized(mod.arrays_to_bytes([q]))
+
+
+def test_int8_quantized_roundtrip_close():
+    """Within one quantization step of the source, with the reference's
+    bytes and decode."""
+    rng = np.random.default_rng(0)
+    arrays = [rng.normal(size=(4, 16, 8)).astype(np.float32)]
+    data = T.quantized_to_bytes(arrays)
+    assert data == J.quantized_to_bytes(arrays)
+    back = T.bytes_to_dequantized(data)
+    _assert_same_arrays(back, J.bytes_to_dequantized(data))
+    err = np.max(np.abs(back[0] - arrays[0]))
+    assert err <= np.max(np.abs(arrays[0])) / 127.0 * 1.01
+
+
+def test_write_back_sync_sets_the_reference_blocks(tiny):
+    """``TieredKVManager.write_back_sync`` sets every block of a prompt
+    before it returns: the same blocks, payload bytes and fabric traffic
+    as the reference's."""
+    jm, params, tm = tiny
+    kw = dict(block_size=16, max_seq_len=256, max_batch=2,
+              payload_codec="int8")
+    jeng = JaxEngine(jm, params, kvc=_make_kvc(J), **kw)
+    teng = Engine(tm, kvc=_make_kvc(T), device="cpu", **kw)
+    tokens = np.random.default_rng(3).integers(0, 300, 40).tolist()
+    jeng.kv.write_back_sync(tokens)
+    teng.kv.write_back_sync(tokens)
+    ts, js = teng.manager.cache.stats, jeng.manager.cache.stats
+    assert ts.blocks_set == js.blocks_set == 2
+    assert (ts.bytes_encoded, ts.bytes_raw) == (js.bytes_encoded,
+                                                js.bytes_raw)
+    tt, jt = (teng.manager.cache.transport.stats,
+              jeng.manager.cache.transport.stats)
+    assert (tt.messages, tt.bytes_moved, tt.ops) == (
+        jt.messages, jt.bytes_moved, jt.ops)
