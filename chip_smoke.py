@@ -89,9 +89,13 @@ Phases (each raises on failure; nothing is caught):
    the state and the decode steps over the dense K/V cache.  Then that
    zamba2 and a 2-layer TinyLlama with ``sliding_window=200``: a
    180-token prompt and 40 decode steps past the 200-slot ring's wrap,
-   card against CPU.  Last deepseek-v3's MLA at full width, 2 layers
-   (one dense, one MoE with its routed experts cut to 16, top-8 kept,
-   at a capacity factor of 2 so that no expert drops a token), f32:
+   card against CPU.  Then TinyLlama's paged checks and its ring again
+   over an int8 K/V pool (``kvc_dtype="int8"``): the logits at the same
+   limits, and the int8 pools or rings after the steps within one
+   quantization step card against CPU (the differing elements counted).
+   Last deepseek-v3's MLA at full width, 2 layers (one dense, one MoE
+   with its routed experts cut to 16, top-8 kept, at a capacity factor
+   of 2 so that no expert drops a token), f32:
    ``forward`` logits (routes checked first, ``RouteCheck``) and the
    collected latents against the CPU, a resume from the latent prefix
    at token 256 against the uninterrupted forward, and 8 ``decode_step``s
@@ -117,7 +121,14 @@ Phases (each raises on failure; nothing is caught):
    ``torch.profiler`` trace, and the CUDA-graph-replayed step; after
    TinyLlama also one chunked-prefill wave (4 rows x 256 tokens over a
    384-token context) replayed from a CUDA graph, and the paged prefill
-   kernel's share of it; after mamba2-1.3b one 384-token prefill
+   kernel's share of it.  Then (``[int8]`` lines) the same weights over
+   an int8 K/V page pool in the same three modes, counted from 0: K1
+   (contiguous), K2 (block tables), K3 and K4 must launch, the
+   free-list pool must preempt and restore every victim's int8 pages
+   bitwise from the host tier with nothing replayed, the streams equal
+   to the bf16 pool's are counted; its decode step prints beside the
+   bf16 pool's, with the dequantize's and the quantize's shares of the
+   traced device time; after mamba2-1.3b one 384-token prefill
    (``Model.forward``, 48 layers) replayed from a CUDA graph, and the
    SSD scan's share of it;
 6. fabric: SkyMemory prefix hits served from the port's own
@@ -134,7 +145,9 @@ Phases (each raises on failure; nothing is caught):
    The warm pass's TTFT, ITL and tokens/s print beside a ``kvc=None``
    engine's in the same process, with the fabric's counters and modeled
    Get flights; a TinyLlama run on a clocked fabric (``SimClock``) then
-   waits out those flights;
+   waits out those flights.  TinyLlama over an int8 K/V page pool runs
+   the same cold and warm passes and checks, its hits quantized into
+   the pool by ``write_pages``;
 7. cluster: scale-out serving, two full TinyLlama replicas of one model
    on one card over one clocked int8 constellation (``EngineCluster``,
    the fabric of ``benchmarks/run.py``'s cluster scenarios).  A closed
@@ -295,7 +308,9 @@ Phases (each raises on failure; nothing is caught):
     times.  (f) K1 at (d)'s shape with every slot valid, with and without
     its LSE, and with its LSE and f32 output, beside its byte bound,
     SDPA over the cache viewed ``[B, S, Hkv, D]`` (``enable_gqa``) and
-    the plain version (CUDA-graph replay, cold L2).
+    the plain version (CUDA-graph replay, cold L2).  (g) full TinyLlama
+    over an int8 cache at ``decode_32k`` (batch cut to 4) as (a), logits
+    and cache bitwise the unsharded step's.
 
 16. the dry-run (``[dryrun]`` lines): ``repro_torch.launch.dryrun`` on
     the host, in three processes of their own started after the build (no
@@ -1852,12 +1867,41 @@ def _close_rows(name: str, got, want, routes) -> None:
     _close(name, got[rows], want[rows])
 
 
+def with_int8_pool(model):
+    """``model``'s weights, shared and not copied, under its config with
+    ``kvc_dtype="int8"``: every K/V page pool or cache built for it is
+    quantized in steps of 1/32 (``models.cache.quant_kvc``)."""
+    from repro_torch.models.model import Model
+
+    m8 = Model(model.cfg.replace(kvc_dtype="int8"), device=model.device)
+    m8.load_state_dict(model.state_dict(), assign=True)
+    return m8
+
+
+def _int8_within_step(name: str, got: torch.Tensor,
+                      want: torch.Tensor) -> int:
+    """Two int8 K/V pools or caches (card, CPU) after the same steps:
+    every element within one quantization step (an f32 projection may
+    round a tie the other way); prints and returns how many differ."""
+    if got.dtype != torch.int8 or want.dtype != torch.int8:
+        raise AssertionError(f"{name}: not int8 ({got.dtype}, {want.dtype})")
+    d = (got.cpu().to(torch.int16) - want.to(torch.int16)).abs()
+    n, worst = int((d > 0).sum()), int(d.max())
+    log(f"[model] {name}: {n} of {d.numel()} int8 elements differ card vs "
+        f"CPU, by at most {worst} step")
+    if worst > 1:
+        raise AssertionError(f"{name}: an int8 element differs by {worst} "
+                             "quantization steps card vs CPU")
+    return n
+
+
 def phase_model(cfg, device, *, seed=0, prompt_len=200, page=128,
                 max_seq_len=512) -> None:
     from repro_torch.models.model import Model
 
     log(f"[model] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
-        f"head_dim {cfg.head_dim}, {cfg.dtype}")
+        f"head_dim {cfg.head_dim}, {cfg.dtype}, K/V pool "
+        f"{cfg.kvc_dtype or cfg.dtype}")
     gpu = Model(cfg, device=device).init(
         torch.Generator(device=device).manual_seed(seed))
     cpu = Model(cfg, device="cpu")
@@ -1905,6 +1949,12 @@ def phase_model(cfg, device, *, seed=0, prompt_len=200, page=128,
                         out[1], routes)
             nxt = torch.argmax(out[1], dim=-1).to(torch.int32)
             lens = lens + 1
+        if cfg.kvc_dtype == "int8":
+            for part in ("k_pool", "v_pool"):
+                _int8_within_step(f"int8 {part} after the prefill and three "
+                                  f"decode steps ({mode})",
+                                  getattr(pools[0], part),
+                                  getattr(pools[1], part))
 
 
 def phase_ssm_model(cfg, device, *, seed=0, length=384, split=256,
@@ -2032,11 +2082,11 @@ def phase_ring_model(cfg, device, *, seed=0, prompt_len=180, window=200,
     (``attention._paged``), which must launch for every attention layer
     of every step on the card."""
     from repro_torch.kernels.paged_attention import paged_decode
-    from repro_torch.models.cache import cache_len, n_attn_layers
+    from repro_torch.models.cache import cache_len, n_attn_layers, quant_kvc
     from repro_torch.models.model import Model
 
     cfg = cfg.replace(sliding_window=window)
-    name = f"{cfg.name} ring {window}"
+    name = f"{cfg.name} ring {window}" + (" int8" if cfg.kvc_dtype else "")
     seq_len = prompt_len + steps
     if cache_len(cfg, seq_len) != window or seq_len <= window:
         raise AssertionError(f"{name}: the steps never wrap a {window}-slot "
@@ -2054,6 +2104,8 @@ def phase_ring_model(cfg, device, *, seed=0, prompt_len=180, window=200,
         for part, arrays in st.items():
             for k, t in arrays.items():
                 dst = cache[part][k]
+                if dst.dtype == torch.int8:      # as DenseRuntime lays it
+                    t = quant_kvc(t)
                 (dst[:, :, :prompt_len] if part == "kv" else dst).copy_(t)
         runs.append((m, dev, cache, lg))
     _close(f"{name} forward", runs[0][3], runs[1][3])
@@ -2077,6 +2129,10 @@ def phase_ring_model(cfg, device, *, seed=0, prompt_len=180, window=200,
     if launched != steps * n_attn_layers(cfg):
         raise AssertionError(f"{name}: paged_decode launched {launched} "
                              f"times in {steps} steps")
+    if cfg.kvc_dtype == "int8":
+        for k in ("k", "v"):
+            _int8_within_step(f"{name} {k} ring after {steps} steps",
+                              runs[0][2]["kv"][k], runs[1][2]["kv"][k])
     log(f"[model] {name}: {steps} decode_steps over positions {prompt_len}-"
         f"{prompt_len + steps - 1} (the ring wraps at {window}), card vs "
         f"CPU max abs err {worst:.3e}; paged_decode launched {launched} "
@@ -2683,7 +2739,8 @@ def run_pass(eng, label: str, *, n_requests, max_new, tag="serve",
                decode_step_tokens_per_s=s.decoded_tokens / s.decode_time_s,
                ttft_p50_s=pct["ttft_s"]["p50"], itl_p50_s=pct["itl_s"]["p50"],
                prefill_chunks=s.prefill_chunks, preemptions=s.preemptions,
-               restores=s.restores, prompt_tokens=res[0].prompt_tokens,
+               restores=s.restores, replayed_tokens=s.replayed_tokens,
+               prompt_tokens=res[0].prompt_tokens,
                cached_tokens=s.cached_tokens,
                prefilled_tokens=s.prefilled_tokens,
                l2_wait_s=s.l2_wait_s, l2_fetch_waits=s.l2_fetch_waits,
@@ -2753,12 +2810,19 @@ def graph_replay_ms(fn, what: str, *, iters: int = 20,
     return statistics.median(times)
 
 
+# eager steps in a decode step's CUPTI trace: reading the trace back
+# costs the host far more than the steps themselves, and 5 steps give the
+# busy ms a step that 20 give
+TRACE_STEPS = 5
+
+
 def time_step(step, device, *, iters=20, repeats=5) -> dict:
     """Where one decode step's time goes: the eager step's host wall time
     (``repeats`` runs of ``iters`` steps: the host clock is noisy), the
-    device's busy time in a CUPTI trace (``torch.profiler``) of ``iters``
-    eager steps and the idle share it leaves, and the same step replayed
-    from a CUDA graph (its device time without host launch gaps)."""
+    device's busy time in a CUPTI trace (``torch.profiler``) of
+    ``TRACE_STEPS`` eager steps and the idle share it leaves, and the
+    same step replayed from a CUDA graph (its device time without host
+    launch gaps)."""
     from torch.profiler import ProfilerActivity, profile
 
     side = torch.cuda.Stream(device)
@@ -2781,12 +2845,12 @@ def time_step(step, device, *, iters=20, repeats=5) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(iters):
+        for _ in range(TRACE_STEPS):
             step()
         torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) / iters * 1e3
+        traced_ms = (time.perf_counter() - t0) / TRACE_STEPS * 1e3
     busy = _busy_ms(prof)
-    busy_ms = None if busy is None else busy / iters
+    busy_ms = None if busy is None else busy / TRACE_STEPS
 
     graph_ms = graph_replay_ms(step, "decode step", iters=iters)
     if busy_ms is None:
@@ -2802,38 +2866,143 @@ def time_step(step, device, *, iters=20, repeats=5) -> dict:
                 eager_idle_share=(None if busy_ms is None
                                   else 1.0 - busy_ms / eager_ms),
                 graph_step_ms=graph_ms,
-                top_device_kernels=_top_kernels(prof, iters))
+                top_device_kernels=_top_kernels(prof, TRACE_STEPS))
+
+
+def traced_spans(step, module, names: tuple, *,
+                 iters: int = TRACE_STEPS) -> dict:
+    """Device ms per step of the kernels launched under each function
+    ``names`` of ``module``: each is wrapped, for one ``torch.profiler``
+    trace of ``iters`` steps, in a ``record_function`` range of its name,
+    and the range's device time is that of the kernels launched under it.
+    A trace of its own: the ranges never enter ``time_step``'s busy
+    time.  None where the trace attributes no device time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    saved = {n: getattr(module, n) for n in names}
+
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return call
+
+    for n, fn in saved.items():
+        setattr(module, n, ranged(n, fn))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                step()
+            torch.cuda.synchronize()
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+    out = {}
+    for n in names:
+        evs = [e for e in prof.events() if e.name == n
+               and e.device_type == torch.autograd.DeviceType.CPU]
+        us = sum(e.device_time_total for e in evs)
+        out[f"{n}_device_ms"] = us / 1e3 / iters if us else None
+        out[f"{n}_calls"] = len(evs) / iters
+    return out
+
+
+def paged_step(model, device, *, batch, length, max_seq_len, page):
+    """A paged model's decode step over a seeded contiguous pool of
+    ``batch`` slots at ``length`` tokens each: ``(step, cache, lengths,
+    generator)``."""
+    cfg = model.cfg
+    cache = model.init_paged_cache(num_slots=batch, page_size=page,
+                                   max_seq_len=max_seq_len)
+    gen = torch.Generator(device=device).manual_seed(1)
+    for pool in (cache.k_pool, cache.v_pool):
+        if cache.dtype == torch.int8:  # within +-1, as N(0, 1) mostly is
+            pool.random_(-32, 33, generator=gen)
+        else:
+            pool.normal_(generator=gen)
+    toks = torch.randint(3, cfg.vocab_size, (batch, 1), device=device,
+                         generator=gen, dtype=torch.int32)
+    lens = torch.full((batch,), length, dtype=torch.int32, device=device)
+
+    def step():
+        return model.decode_step_paged(cache.k_pool, cache.v_pool, toks,
+                                       None, lens, contiguous=True)
+
+    return step, cache, lens, gen
+
+
+def eager_in_turns(steps: dict, device, *, rounds=2, iters=10,
+                   repeats=2) -> dict:
+    """Host wall ms of eager decode steps of each entry of ``steps``,
+    timed in turns (a, b, b, a per round) so that a change in the host's
+    load falls on both: per name, the median of each turn's ``repeats``
+    runs of ``iters`` steps."""
+    names = list(steps)
+    order = (names + names[::-1]) * rounds
+    out = {n: [] for n in names}
+    for n in names:
+        for _ in range(3):
+            steps[n]()
+    for n in order:
+        runs = []
+        for _ in range(repeats):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                steps[n]()
+            torch.cuda.synchronize(device)
+            runs.append((time.perf_counter() - t0) / iters * 1e3)
+        out[n].append(statistics.median(runs))
+    return out
 
 
 def step_breakdown(model, device, *, batch=4, length=384, max_seq_len=1024,
                    page=128) -> dict:
     """A paged model's decode step at the serving shape (``time_step``),
     and the attention kernel's share of the graph-replayed step (one
-    launch per layer).  Runs after the main path's launch counts were
-    read."""
+    launch per layer).  Over an int8 pool, also the device time of the
+    dequantize before each K1 launch and of the quantize of each new
+    row (``traced_spans``), their shares of the traced busy time, and
+    the dequantize of every layer's two pools timed alone.  Runs after
+    the main path's launch counts were read."""
+    import repro_torch.models.attention as attention
     from repro_torch.kernels.paged_attention import paged_decode
+    from repro_torch.models.cache import dequant_kvc
+    from repro_torch.models.layers import torch_dtype
 
-    cache = model.init_paged_cache(num_slots=batch, page_size=page,
-                                   max_seq_len=max_seq_len)
-    gen = torch.Generator(device=device).manual_seed(1)
-    cache.k_pool.normal_(generator=gen)
-    cache.v_pool.normal_(generator=gen)
-    toks = torch.randint(3, model.cfg.vocab_size, (batch, 1), device=device,
-                         generator=gen, dtype=torch.int32)
-    lens = torch.full((batch,), length, dtype=torch.int32, device=device)
-    row = dict(batch=batch, length=length, **time_step(
-        lambda: model.decode_step_paged(cache.k_pool, cache.v_pool, toks,
-                                        None, lens, contiguous=True),
-        device))
-    shape = (batch, max_seq_len // page, page, model.cfg.num_kv_heads,
-             model.cfg.head_dim)
-    q = torch.randn(batch, model.cfg.num_heads, model.cfg.head_dim,
-                    device=device, generator=gen).to(cache.k_pool.dtype)
+    cfg = model.cfg
+    dt = torch_dtype(cfg.dtype)
+    step, cache, lens, gen = paged_step(model, device, batch=batch,
+                                        length=length,
+                                        max_seq_len=max_seq_len, page=page)
+    int8 = cache.dtype == torch.int8
+    row = dict(batch=batch, length=length, pool=str(cache.dtype),
+               pool_bytes=nbytes(cache.k_pool, cache.v_pool),
+               **time_step(step, device))
+    shape = (batch, max_seq_len // page, page, cfg.num_kv_heads,
+             cfg.head_dim)
+    q = torch.randn(batch, cfg.num_heads, cfg.head_dim,
+                    device=device, generator=gen).to(dt)
     k, v = cache.k_pool[0].reshape(shape), cache.v_pool[0].reshape(shape)
-    attn_ms = Timer(device).ms(lambda: paged_decode(q, k, v, lens + 1))
+    if int8:
+        k, v = dequant_kvc(k, dt), dequant_kvc(v, dt)
+    timer = Timer(device)
+    attn_ms = timer.ms(lambda: paged_decode(q, k, v, lens + 1))
     row.update(paged_decode_ms=attn_ms,
-               attention_share_of_graph_step=model.cfg.num_layers * attn_ms
+               attention_share_of_graph_step=cfg.num_layers * attn_ms
                / row["graph_step_ms"])
+    if int8:
+        busy = row["traced_device_busy_ms"]
+        spans = traced_spans(step, attention, ("dequant_kvc", "quant_kvc"))
+        alone = timer.ms(lambda: [dequant_kvc(p[l], dt)
+                                  for p in (cache.k_pool, cache.v_pool)
+                                  for l in range(cfg.num_layers)])
+        row.update(**spans, dequant_all_layers_alone_ms=alone, **{
+            f"{n}_share_of_busy": (None if busy is None
+                                   or spans[f"{n}_device_ms"] is None
+                                   else spans[f"{n}_device_ms"] / busy)
+            for n in ("dequant_kvc", "quant_kvc")})
     log(f"[step] {json.dumps(row)}")
     return row
 
@@ -3057,11 +3226,131 @@ def phase_serve(cfg, device, *, seed=0, n_requests=8, max_new=32,
         log(f"[serve] {label}: {same}/{len(base)} token streams equal to "
             "chunked-contiguous (bf16: batch composition may round "
             "differently)")
-    step_breakdown(model, device, max_seq_len=max_seq_len, page=block_size,
-                   batch=max_batch)
+    bf16_step = step_breakdown(model, device, max_seq_len=max_seq_len,
+                               page=block_size, batch=max_batch)
     wave_breakdown(model, device, rows=max_batch, chunk=256, context=384,
                    max_seq_len=max_seq_len, page=block_size)
+    t1 = time.perf_counter()
+    int8_counts = serve_int8_pool(model, streams, bf16_step, common=common,
+                                  free_list_pages=free_list_pages)
+    for k in KERNELS:
+        counts[k] += int8_counts[k]
+    log(f"[int8] {time.perf_counter() - t1:.1f} s")
     return counts, model
+
+
+def watch_host_tier(eng, seen: dict) -> None:
+    """Wrap the engine's moves through the host tier (L1): the pages of
+    every entry put there (as ``export_pages`` gave them) are kept; every
+    ``write_pages`` of such pages (the restore of a running victim, or
+    the reseed of a prefilling one, which re-enters as a fresh admission
+    and is not counted in ``restores``) is read back with
+    ``export_pages`` and compared bitwise.  Counts into ``seen``:
+    ``offloaded``, ``returned``, ``bitwise``, and the ``dtypes`` seen."""
+    host, pool = eng.kv.host, eng.kv.pool
+    put, write = host.put, pool.write_pages
+    kept = {}
+
+    def watched_put(key, entry):
+        put(key, entry)
+        kept[id(entry.k)] = entry
+        seen["offloaded"] += 1
+        seen["dtypes"].add(str(entry.k.dtype))
+
+    def watched_write(slot, first_page, k_blocks, v_blocks):
+        write(slot, first_page, k_blocks, v_blocks)
+        entry = kept.pop(id(k_blocks), None)
+        if entry is not None:
+            k, v = pool.export_pages(slot, first_page + k_blocks.shape[1])
+            seen["returned"] += 1
+            seen["bitwise"] += (torch.equal(k[:, first_page:], entry.k)
+                                and torch.equal(v[:, first_page:], entry.v))
+
+    host.put, pool.write_pages = watched_put, watched_write
+
+
+def serve_int8_pool(model, bf16_streams: dict, bf16_step: dict, *,
+                    common: dict, free_list_pages: int) -> dict:
+    """Phase 5's three modes again, the same weights over an int8 K/V
+    page pool (``with_int8_pool``): the launch counts zeroed just before
+    and read just after; K1 (contiguous pool), K2 (block tables, the
+    free-list pool), K3 and K4 must launch; the free-list pool must
+    preempt, restore every victim from the host tier with its int8 pages
+    bitwise and replay nothing.  The streams equal to the bf16 pool's
+    are counted, not held (quantization changes tokens).  Then the
+    decode step over the int8 pool beside the bf16 pool's."""
+    from repro_torch.serving import Engine
+
+    m8 = with_int8_pool(model)
+    fns = zero_launches()
+    rows = {}
+    tier = dict(offloaded=0, returned=0, bitwise=0, dtypes=set())
+    for label, kw in (("chunked-contiguous", {}),
+                      ("stop-the-world", {"chunk_tokens": 0}),
+                      ("free-list-preempt", {"num_pages": free_list_pages})):
+        eng = Engine(m8, **{k: v for k, v in common.items()
+                            if k not in ("n_requests", "max_new")}, **kw)
+        if eng.cache.k_pool.dtype != torch.int8:
+            raise AssertionError(f"int8 {label}: the pool is "
+                                 f"{eng.cache.k_pool.dtype}")
+        if "num_pages" in kw:
+            watch_host_tier(eng, tier)
+        row, res = run_pass(eng, f"int8 {label}", tag="int8",
+                            n_requests=common["n_requests"],
+                            max_new=common["max_new"])
+        rows[label] = row
+        same = sum(r.token_ids == b
+                   for r, b in zip(res, bf16_streams[label]))
+        log(f"[int8] {label}: {same}/{len(res)} greedy streams equal to the "
+            "bf16 pool's (counted, not held: quantization changes tokens)")
+    counts = {k: f.launches for k, f in fns.items()}
+    log(f"[int8] launches over the three modes: {counts}")
+    _require_launched(counts, ("paged_decode", "chunked_prefill_paged",
+                               "flash_prefill"))
+    for label, kernel, what in (
+            ("chunked-contiguous", "paged_decode", "K1 (contiguous pool)"),
+            ("free-list-preempt", "paged_decode", "K2 (block tables)"),
+            ("chunked-contiguous", "chunked_prefill_paged", "K3"),
+            ("stop-the-world", "flash_prefill", "K4")):
+        if rows[label]["launches"][kernel] <= 0:
+            raise AssertionError(f"int8 {label}: {what} never launched")
+    fl = rows["free-list-preempt"]
+    if not (fl["preemptions"] > 0 and fl["replayed_tokens"] == 0
+            and 0 < fl["restores"] <= fl["preemptions"]):
+        raise AssertionError(f"int8 free-list: preemptions "
+                             f"{fl['preemptions']}, restores "
+                             f"{fl['restores']}, replayed "
+                             f"{fl['replayed_tokens']}")
+    if not (0 < tier["offloaded"] == tier["returned"] == tier["bitwise"]
+            and tier["dtypes"] == {"torch.int8"}):
+        raise AssertionError(f"int8 free-list: the host tier's pages did "
+                             f"not all come back bitwise int8: {tier}")
+    log(f"[int8] free-list: {fl['preemptions']} preemptions, "
+        f"{fl['restores']} restores of running victims, "
+        f"{tier['offloaded']} page sets offloaded as int8 and "
+        f"{tier['bitwise']} written back bitwise equal to export_pages' "
+        f"at the offload, {fl['replayed_tokens']} tokens replayed")
+    step = step_breakdown(m8, model.device, batch=common["max_batch"],
+                          max_seq_len=common["max_seq_len"],
+                          page=common["block_size"])
+    keys = ("pool_bytes", "eager_step_ms", "traced_device_busy_ms",
+            "graph_step_ms", "paged_decode_ms")
+    side = dict(model=model.cfg.name, batch=step["batch"],
+                length=step["length"],
+                **{f"{k}_bf16": bf16_step[k] for k in keys},
+                **{f"{k}_int8": step[k] for k in keys},
+                dequant_kvc_share_of_busy=step["dequant_kvc_share_of_busy"],
+                quant_kvc_share_of_busy=step["quant_kvc_share_of_busy"])
+    shape = dict(batch=common["max_batch"], length=384,
+                 max_seq_len=common["max_seq_len"], page=common["block_size"])
+    turns = eager_in_turns({"bf16": paged_step(model, model.device,
+                                               **shape)[0],
+                            "int8": paged_step(m8, model.device, **shape)[0]},
+                           model.device)
+    side.update(eager_step_ms_in_turns=turns)
+    log(f"[int8] step {json.dumps(side)}")
+    del m8
+    return counts
 
 
 def _require_launched(counts: dict, path: tuple) -> None:
@@ -3335,17 +3624,21 @@ def _require_warm(label: str, row: dict, res, cold: dict, counts: dict,
 def phase_fabric(tiny, mamba, device, *, n_requests=8, max_new=32,
                  block_size=128, max_seq_len=1024, max_batch=4,
                  prefix=256) -> dict:
-    """Full TinyLlama and full mamba2-1.3b served from the port's
-    constellation; returns each model's warm-pass launch counts."""
+    """Full TinyLlama (over a bf16 and over an int8 K/V page pool) and
+    full mamba2-1.3b served from the port's constellation; returns each
+    run's warm-pass launch counts."""
     from repro_torch.serving import Engine
 
     common = dict(n_requests=n_requests, max_new=max_new)
     kw = dict(block_size=block_size, max_seq_len=max_seq_len,
               max_batch=max_batch, device=device)
     out = {}
-    for model, path in ((tiny, ("chunked_prefill_paged", "paged_decode")),
-                        (mamba, ("ssd_chunk_scan",))):
-        name = model.cfg.name
+    paged = ("chunked_prefill_paged", "paged_decode")
+    for model, name, path in (
+            (tiny, tiny.cfg.name, paged),
+            (with_int8_pool(tiny), f"{tiny.cfg.name} int8 pool", paged),
+            (mamba, mamba.cfg.name, ("ssd_chunk_scan",))):
+        t1 = time.perf_counter()
         cold_eng = Engine(model, **kw)
         cold, cold_res = run_pass(cold_eng, f"{name} kvc=None",
                                   tag="fabric", **common)
@@ -3373,6 +3666,14 @@ def phase_fabric(tiny, mamba, device, *, n_requests=8, max_new=32,
         if not eng.paged:
             resume_drift(model, eng, kvc, **common)
         out[name] = counts
+        if model.cfg.kvc_dtype == "int8":
+            # hits quantized into the pool by write_pages; no clocked run
+            if eng.cache.k_pool.dtype != torch.int8:
+                raise AssertionError(f"{name}: the pool is "
+                                     f"{eng.cache.k_pool.dtype}")
+            log(f"[fabric] {name} {time.perf_counter() - t1:.1f} s")
+            del eng
+            continue
         if eng.paged:
             # the same warm pass on a clocked fabric: the engine waits
             # out (or hides behind decode) each Get's modeled flight
@@ -5089,10 +5390,13 @@ STRIPE_LENGTHS = (32768, 30000, 16384 + 30, 16384, 8192 + 5, 2048 + 1, 2047,
 
 def _fill_cache(cache: dict, gen) -> None:
     """Every leaf of ``cache`` drawn from ``gen`` in place (N(0, 1), the
-    SSM state scaled to 0.1): a cache as a long prefill would leave it,
-    without the prefill."""
+    SSM state scaled to 0.1, int8 K/V as integers within +-40): a cache
+    as a long prefill would leave it, without the prefill."""
     for part, leaves in cache.items():
         for t in leaves.values():
+            if t.dtype == torch.int8:
+                t.random_(-40, 41, generator=gen)
+                continue
             t.normal_(generator=gen)
             if part == "ssm":
                 t.mul_(0.1)
@@ -5422,11 +5726,30 @@ def phase_serve_mesh(device, timer, smi) -> dict:
     del plan, plain, st0, st1, kv1
     gc.collect()
     torch.cuda.empty_cache()
-    want = 2 * tiny.num_layers * SERVE_MESH_STEPS
+
+    # (g) full TinyLlama over an int8 cache at decode_32k, batch cut to 4:
+    # the case of tests/test_torch_mesh_serve.py's int8 cache; one stripe,
+    # so bitwise the unsharded step
+    t = time.perf_counter()
+    shape = InputShape("decode_32k", 32_768, 4, "decode")
+    row, counts, cache0 = _serve_pair(
+        tiny.replace(kvc_dtype="int8"), shape, mesh, device,
+        pos0=torch.linspace(30_000, 32_700, 4).to(torch.int32), seed=155)
+    add_counts(total, counts)
+    if cache0["kv"]["k"].dtype != torch.int8 or not (
+            row["logits_bitwise"] and row["cache_first_parting"] is None):
+        raise AssertionError(f"[serve_mesh] (g) the int8 serve step is not "
+                             f"bitwise the unsharded one: {row}")
+    log(f"[serve_mesh] (g) int8 cache {json.dumps(row)}; "
+        f"{time.perf_counter() - t:.1f} s")
+    del cache0
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = 3 * tiny.num_layers * SERVE_MESH_STEPS
     if total["paged_decode"] != want:
         raise AssertionError(f"[serve_mesh] K1 launched "
                              f"{total['paged_decode']} times, want {want}")
-    log(f"[serve_mesh] launches over (a)-(c) and (e): {total}")
+    log(f"[serve_mesh] launches over (a)-(c), (e) and (g): {total}")
     return total
 
 
@@ -5664,6 +5987,15 @@ def main() -> int:
                                                        dtype="float32"),
                      device)
     phase_ring_model(tiny.replace(num_layers=2, dtype="float32"), device)
+    # the int8 K/V pool at full width: the paged prefill and decode
+    # (contiguous and free-list) and the dense ring's decode, card
+    # against CPU, pools within one quantization step
+    t1 = time.perf_counter()
+    phase_model(tiny.replace(num_layers=2, dtype="float32",
+                             kvc_dtype="int8"), device)
+    phase_ring_model(tiny.replace(num_layers=2, dtype="float32",
+                                  kvc_dtype="int8"), device)
+    log(f"[model] int8 K/V cases {time.perf_counter() - t1:.1f} s")
     # the other paged families at full width: head_dim 160 with LayerNorm
     # and partial rotary, and 40 experts top-8 (routes checked per layer)
     for fam in ("stablelm-12b", "granite-moe-3b-a800m"):

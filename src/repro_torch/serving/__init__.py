@@ -27,6 +27,7 @@ from repro_torch.serving.router import (
 )
 from repro_torch.serving.sampler import (
     SamplingParams,
+    sample,
     sample_batch,
     stack_sampling,
 )
@@ -85,6 +86,7 @@ __all__ = [
     "head_span",
     "itl_tail",
     "make_router",
+    "sample",
     "sample_batch",
     "spread_anchors",
     "stack_sampling",

@@ -2,7 +2,8 @@
 ``repro/serving/sampler.py``.
 
 ``sample_batch`` is vectorized over per-sequence parameters stacked into
-[B] tensors, and never waits for the device: disabled filters are
+[B] tensors (``sample`` is the per-request API, one ``SamplingParams``
+for the whole batch, through it), and never waits for the device: disabled filters are
 identities rather than branches (``top_k == 0`` thresholds at the V-th
 largest logit, ``top_p >= 1`` puts the cutoff past 1), and the draw is a
 Gumbel-max over the masked logits, with noise from the caller's
@@ -83,3 +84,16 @@ def sample_batch(
     gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
     sampled = torch.argmax(lg + gumbel, dim=-1)
     return torch.where(is_greedy, greedy_ids, sampled).to(torch.int32)
+
+
+def sample(logits: torch.Tensor, generator: torch.Generator,
+           params: SamplingParams) -> torch.Tensor:
+    """logits: [B, V] -> token ids [B] int32 (uniform params across the
+    batch)."""
+    b, dev = logits.shape[0], logits.device
+    return sample_batch(
+        logits, generator,
+        torch.full((b,), params.temperature, dtype=torch.float32, device=dev),
+        torch.full((b,), params.top_k, dtype=torch.int32, device=dev),
+        torch.full((b,), params.top_p, dtype=torch.float32, device=dev),
+    )

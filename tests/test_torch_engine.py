@@ -5,7 +5,8 @@ reference's ``Model.init``, converted with ``params_from_numpy``),
 greedy, f32, on the CPU.  Greedy token streams must be identical:
 chunked admission, stop-the-world admission, a free-list pool under
 preemption with host-tier (L1) restores, and SkyMemory prefix hits over
-each engine's own package's constellation (the port's ``KVCManager`` and
+each engine's own package's constellation, each over an f32 and an int8
+KV page pool (the port's ``KVCManager`` and
 ``ConstellationKVC`` on the port's side).  The facade members the
 reference's tests use (``page_size``, ``chunk_log``, ``_chunk_buf``)
 behave as the reference's.  The payload bytes the port writes must be
@@ -25,12 +26,14 @@ from repro.models.model import Model as JaxModel
 from repro.serving import Engine as JaxEngine
 from repro.serving import Request as JaxRequest
 from repro.serving import SamplingParams as JaxSampling
+from repro.serving import sample as jax_sample
 from repro.serving.skycache import SkyKVCAdapter as JaxAdapter
 from repro_torch.configs import get_config as tget
 from repro_torch.configs import smoke_config as tsmoke
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import chunking as tchunking
-from repro_torch.serving import Engine, Request, SamplingParams
+from repro_torch.serving import Engine, Request, SamplingParams, sample
+from repro_torch.serving.kv_manager import HostPageCache
 from repro_torch.serving.sampler import sample_batch
 from repro_torch.serving.skycache import SkyKVCAdapter
 from repro_torch.serving.tokenizer import ByteTokenizer
@@ -39,18 +42,36 @@ torch.set_num_threads(2)
 PROMPT = "SkyMemory stripes KV cache chunks across LEO satellites. "
 
 
-@pytest.fixture(scope="module")
-def setup():
-    """The TinyLlama smoke config with 2 kv heads (GQA grouping), f32."""
+def _models(**over):
+    """The TinyLlama smoke config with 2 kv heads (GQA grouping), f32,
+    in both packages on the reference's ``PRNGKey(0)`` weights."""
     cfg = smoke_config(get_config("skymemory-tinyllama")).replace(
-        dtype="float32", num_kv_heads=2)
+        dtype="float32", num_kv_heads=2, **over)
     jm = JaxModel(cfg)
     params = jm.init(jax.random.PRNGKey(0))
     tcfg = tsmoke(tget("skymemory-tinyllama")).replace(
-        dtype="float32", num_kv_heads=2)
+        dtype="float32", num_kv_heads=2, **over)
     tm = params_from_numpy(tcfg, jax.tree.map(np.asarray, params),
                            device="cpu")
     return jm, params, tm
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _models()
+
+
+@pytest.fixture(scope="module")
+def setup_int8():
+    """The same models over an int8 KV page pool (``kvc_dtype``)."""
+    return _models(kvc_dtype="int8")
+
+
+@pytest.fixture(params=["f32_pool", "int8_pool"])
+def pools(request):
+    """Both fixtures: the engine tests that serve run over each pool."""
+    return request.getfixturevalue(
+        "setup" if request.param == "f32_pool" else "setup_int8")
 
 
 def make_kvc(mod):
@@ -93,45 +114,62 @@ def _serve(setup, prompts, max_new, *, manager_passes=0, **kw):
 
 @pytest.mark.parametrize("chunk_tokens", [None, 0],
                          ids=["chunked", "stop_the_world"])
-def test_admission_token_streams_identical(setup, chunk_tokens):
+def test_admission_token_streams_identical(pools, chunk_tokens):
     """Three prompts on two slots: a cold admission wave, then a third
     request admitted mid-decode when the short one finishes (chunks
     riding decode steps, or a stop-the-world dense prefill)."""
     prompts = [PROMPT * 2 + "a", "short one", PROMPT + "tail " * 5]
     want, got, _, _, jeng, teng = _serve(
-        setup, prompts, [8, 2, 6], block_size=16, max_seq_len=128, max_batch=2,
+        pools, prompts, [8, 2, 6], block_size=16, max_seq_len=128, max_batch=2,
         chunk_tokens=chunk_tokens)
     assert got == want
     assert teng.chunked == jeng.chunked == (chunk_tokens is None)
     assert teng.stats.mid_decode_admissions == jeng.stats.mid_decode_admissions > 0
     assert teng.stats.prefill_chunks == jeng.stats.prefill_chunks
     assert teng.cache.free_pages == teng.cache.num_pages
+    assert teng.cache.k_pool.dtype == _pool_dtype(pools)
 
 
-def test_preemption_with_l1_restore_identical(setup):
+def _pool_dtype(pools) -> torch.dtype:
+    return torch.int8 if pools[2].cfg.kvc_dtype == "int8" else torch.float32
+
+
+def test_preemption_with_l1_restore_identical(pools, monkeypatch):
     """An oversubscribed free-list pool: four short prompts co-admit
     lazily, growth exhausts the pool, and victims are offloaded to the
-    host tier and restored bit-exact."""
+    host tier (in the pool's dtype) and restored bit-exact."""
+    offloaded = []
+    put = HostPageCache.put
+
+    def spy(self, key, entry):
+        offloaded.append((entry.k.dtype, entry.v.dtype))
+        put(self, key, entry)
+
+    monkeypatch.setattr(HostPageCache, "put", spy)
     prompts = [f"grow {i} " + "x" * 24 for i in range(4)]
     want, got, _, tres, jeng, teng = _serve(
-        setup, prompts, 40, block_size=16, max_seq_len=128, max_batch=4,
+        pools, prompts, 40, block_size=16, max_seq_len=128, max_batch=4,
         num_pages=1 + 8)
     assert got == want
+    dt = _pool_dtype(pools)
+    assert teng.cache.k_pool.dtype == dt
+    assert offloaded and set(offloaded) == {(dt, dt)}
     s = teng.stats
     assert s.preemptions == jeng.stats.preemptions > 0
     assert s.restores == s.preemptions
     assert s.replayed_tokens == 0              # L1 restores are bit-exact
     assert sum(r.preemptions for r in tres) == s.preemptions
     assert teng.cache.free_pages == teng.cache.num_pages - 1
+    assert len(offloaded) == s.preemptions
 
 
-def test_constellation_prefix_hits_identical(setup):
+def test_constellation_prefix_hits_identical(pools):
     """Each engine over its own package's KVCManager + ConstellationKVC:
     the first pass writes back (through ``kvc_fn``), the second pass
-    hits."""
+    hits (quantized into an int8 pool by ``write_pages``)."""
     prompts = [PROMPT * 2 + f"q{i}" for i in range(3)]
     want, got, jres, tres, jeng, teng = _serve(
-        setup, prompts, 5, manager_passes=2, block_size=16, max_seq_len=256,
+        pools, prompts, 5, manager_passes=2, block_size=16, max_seq_len=256,
         max_batch=2)
     assert got == want
     assert [r.cached_tokens for r in tres] == [r.cached_tokens for r in jres]
@@ -141,6 +179,7 @@ def test_constellation_prefix_hits_identical(setup):
     assert ts.block_hits == js.block_hits > 0
     assert ts.block_misses == js.block_misses
     assert ts.blocks_set == js.blocks_set > 0
+    assert teng.cache.k_pool.dtype == _pool_dtype(pools)
 
 
 def test_chunk_buf_is_bounded_and_sufficient(setup):
@@ -288,6 +327,42 @@ def test_sampled_modes_stay_in_support():
             assert ids[row].item() in allowed[row]
             seen[row].add(ids[row].item())
     assert all(len(seen[r]) > 1 for r in seen)   # it does sample
+
+
+def test_sample_against_reference():
+    """``sample`` (one ``SamplingParams`` for the batch) against
+    ``repro.serving.sample`` on the same seeded logits: greedy rows are
+    equal; sampled rows stay inside the top-k / top-p support, as the
+    reference's do (the two draw from different generators)."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((6, 96)).astype(np.float32)
+    logits = torch.from_numpy(x)
+    greedy = sample(logits, torch.Generator().manual_seed(0),
+                    SamplingParams())
+    want = np.asarray(jax_sample(jax.numpy.asarray(x), jax.random.PRNGKey(0),
+                                 JaxSampling()))
+    assert greedy.dtype == torch.int32
+    np.testing.assert_array_equal(greedy.numpy(), want)
+    order = np.argsort(-x, axis=-1)
+    probs = np.exp(x - x.max(-1, keepdims=True))
+    probs /= probs.sum(-1, keepdims=True)
+    sorted_p = np.take_along_axis(probs, order, -1)
+    nucleus = (np.cumsum(sorted_p, -1) < 0.6).sum(-1) + 1
+    gen = torch.Generator().manual_seed(1)
+    for params, support in (
+            (dict(top_k=4), [set(o[:4]) for o in order]),
+            (dict(top_p=0.6), [set(o[:n]) for o, n in zip(order, nucleus)])):
+        seen = [set() for _ in range(len(x))]
+        for i in range(100):
+            got = sample(logits, gen, SamplingParams(temperature=1.0,
+                                                     **params)).tolist()
+            ref = np.asarray(jax_sample(
+                jax.numpy.asarray(x), jax.random.PRNGKey(i),
+                JaxSampling(temperature=1.0, **params))).tolist()
+            for row, (g, r) in enumerate(zip(got, ref)):
+                assert g in support[row] and r in support[row]
+                seen[row].add(g)
+        assert all(len(s) > 1 for s in seen)     # it does sample
 
 
 def test_engine_serves_sampled_requests(setup):
